@@ -1,0 +1,247 @@
+"""DefenseGAN: the user-facing model, inference half (port of
+the JAX package's gan/defense_gan.py; training is a later slice).
+
+    gan = DefenseGAN(load_config("output/gans/mnist_fast")).load()
+    res = gan.reconstruct(x)          # x [B, 28, 28, 1] in [0, 1] or uint8
+
+Entry points run on CUDA unless the caller passes another `device`;
+without a CUDA device and without `device`, the constructor raises rather
+than falling back to the CPU. Weights come from the run's numpy export
+(`<output_dir>/export/<step>.npz`, written by
+scripts/export_torch_weights.py).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from defensegan_torch.ckpt.bridge import export_path, load_flax_tree, \
+    read_export
+from defensegan_torch.configs import Config
+from defensegan_torch.defense.project import (BACK_PROP_TODO,
+                                              ReconstructionResult,
+                                              reconstruct, sample_z0)
+from defensegan_torch.kernels.fused_projection_v2 import \
+    dense_kernel_available
+from defensegan_torch.models import encoder_for, from_image_space, \
+    generator_for, to_image_space
+
+PROJECTION_KERNELS = ("auto", "xla", "packed", "pallas", "pallas_int8",
+                      "pallas_v4")
+
+
+def _dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "bf16": torch.bfloat16, "f32": torch.float32}[name.lower()]
+
+
+def default_device() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU; pass "
+                           "device='cpu' explicitly to run on the CPU")
+    return torch.device("cuda")
+
+
+def resolve_projection_kernel(gan, *, back_prop: bool = False,
+                              requested: Optional[str] = None,
+                              on_cuda: Optional[bool] = None) -> str:
+    """The projection path that actually runs for this call.
+
+    Takes the JAX package's PROJECTION_KERNEL values; returns 'pallas'
+    (the bf16 fused CUDA kernel, v2), 'pallas_int8' (its int8 variant,
+    v2i), 'packed' or 'xla' (plain PyTorch paths). On CUDA with
+    back_prop=False and a wide (single-deconv) generator within the
+    dense-packing bound, 'auto' and 'pallas' run v2 and 'pallas_int8'
+    runs v2i, at any batch size (the kernel wrappers pad the rows to the
+    kernels' tile). Elsewhere 'auto', and any request on the CPU, resolves
+    to the plain per-topology path: 'packed' for single-deconv generators,
+    'xla' for deeper ones. An explicit kernel request that cannot run on
+    CUDA raises: under back_prop, on a generator no ported kernel covers
+    (the deep two-deconv v3, the 64x64 v4), and 'pallas_v4'.
+    """
+    if requested is None:
+        requested = gan.cfg.projection_kernel
+    if requested not in PROJECTION_KERNELS:
+        raise ValueError(f"unknown projection kernel {requested!r}")
+    if on_cuda is None:
+        on_cuda = gan.device.type == "cuda"
+    channels = gan.generator.channels
+    xla_best = "packed" if len(channels) == 1 else "xla"
+    dense_ok = dense_kernel_available(gan.generator)
+    if requested == "auto":
+        return "pallas" if (on_cuda and not back_prop and dense_ok) \
+            else xla_best
+    if requested in ("xla", "packed"):
+        return requested
+    if not on_cuda:
+        return xla_best
+    if requested == "pallas_v4":
+        raise NotImplementedError(
+            "pallas_v4 (the 64x64 multi-deconv loop) is not ported yet "
+            "(ROADMAP.md, TPU kernels still to port)")
+    if back_prop:
+        raise NotImplementedError(
+            f"{requested!r} has no backward pass; back_prop=True is the "
+            "attacks slice's work (ROADMAP.md)")
+    if dense_ok:
+        return requested
+    if len(channels) == 2:
+        raise NotImplementedError(
+            "the deep two-deconv loop (v3) is not ported yet: the "
+            "reference-depth slice in ROADMAP.md")
+    raise NotImplementedError(
+        f"{requested!r}: no ported kernel covers this generator (channels "
+        f"{channels}, base {gan.generator.base_hw}); the dense kernels take "
+        "single-deconv generators up to 16384 features (ROADMAP.md)")
+
+
+class DefenseGAN:
+    """Frozen WGAN generator + Defense-GAN projection for one config."""
+
+    def __init__(self, cfg: Config, device=None, seed: Optional[int] = None):
+        self.cfg = cfg
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+        self.dtype = _dtype_of(cfg.compute_dtype)
+        init = torch.Generator().manual_seed(cfg.seed if seed is None
+                                             else seed)
+        self.generator = generator_for(
+            cfg.type, cfg.gen_dim, self.dtype, cfg.gen_arch,
+            cfg.latent_dim, gen=init).to(self.device).requires_grad_(False)
+        self.encoder = None
+        self.step: Optional[int] = None
+        self.last_kernel: Optional[str] = None   # path of the last call
+        self._reconstructors: Dict[Tuple, callable] = {}
+
+    # ------------------------------------------------------------------ gen
+    def gen_apply_tanh(self, z: torch.Tensor) -> torch.Tensor:
+        """Frozen generator in inference mode (BN running averages)."""
+        return self.generator(z)
+
+    @torch.no_grad()
+    def generate(self, gen: Optional[torch.Generator], n: int
+                 ) -> torch.Tensor:
+        """n samples in [0, 1] image space, NHWC."""
+        z = torch.randn((n, self.cfg.latent_dim), generator=gen,
+                        device=gen.device if gen is not None else "cpu")
+        return to_image_space(self.generator(z.to(self.device)))
+
+    # ------------------------------------------------------------ weights
+    def load(self, step: Optional[int] = None) -> "DefenseGAN":
+        """Load the run's weight export (latest step when None): the
+        generator and, when the export has one, the encoder."""
+        tree = read_export(export_path(self.cfg.output_dir, step))
+        g = tree["generator"]
+        load_flax_tree(self.generator, g["params"], g.get("batch_stats"))
+        if "encoder" in tree:
+            load_flax_tree(self._build_encoder(), tree["encoder"]["params"])
+        self.step = tree.get("manifest", {}).get("step", step)
+        self._reconstructors.clear()  # packs capture the old weights
+        return self
+
+    def _build_encoder(self):
+        if self.encoder is None:
+            self.encoder = encoder_for(
+                self.cfg.type, self.cfg.disc_dim, z_dim=self.cfg.latent_dim,
+                dtype=self.dtype).to(self.device).requires_grad_(False)
+        return self.encoder
+
+    def has_encoder(self) -> bool:
+        return self.encoder is not None
+
+    @torch.no_grad()
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """E(x) -> z [B, k]; x in [0, 1] image space (or uint8)."""
+        if self.encoder is None:
+            raise RuntimeError("no encoder loaded: the run's export has none")
+        return self.encoder(from_image_space(x)).to(torch.float32)
+
+    # -------------------------------------------------------------- defense
+    @torch.no_grad()
+    def reconstruct(self, x, gen: Optional[torch.Generator] = None, *,
+                    rec_rr: Optional[int] = None,
+                    rec_iters: Optional[int] = None,
+                    rec_lr: Optional[float] = None,
+                    back_prop: bool = False,
+                    kernel: Optional[str] = None,
+                    init: Optional[str] = None,
+                    z0: Optional[torch.Tensor] = None
+                    ) -> ReconstructionResult:
+        """Project x ([B, H, W, C] in [0, 1], or uint8) onto the generator
+        manifold.
+
+        gen: torch.Generator for the restart draws (default: seeded with
+        cfg.seed + 1 on the model's device). z0 ([B, R, k]) replaces the
+        draws and the encoder init alike. kernel overrides
+        cfg.projection_kernel and init cfg.rec_init for this call; the
+        path that ran is left in `self.last_kernel`.
+        """
+        if back_prop:
+            raise NotImplementedError(BACK_PROP_TODO)
+        cfg = self.cfg
+        rr = rec_rr if rec_rr is not None else cfg.rec_rr
+        iters = rec_iters if rec_iters is not None else cfg.rec_iters
+        lr = rec_lr if rec_lr is not None else cfg.rec_lr
+        init = init if init is not None else cfg.rec_init
+        if init not in ("random", "encoder", "encoder_jitter"):
+            raise ValueError(f"unknown rec_init {init!r}")
+        x = torch.as_tensor(x, device=self.device)
+        if gen is None:
+            gen = torch.Generator(device=self.device).manual_seed(
+                cfg.seed + 1)
+        path = resolve_projection_kernel(self, requested=kernel)
+        fn = self._reconstructor_for(path, rr, iters, lr)
+        if z0 is None:
+            if init == "random":
+                z0 = sample_z0(gen, x.shape[0], rr, cfg.latent_dim)
+            else:
+                z0 = self._encoder_z0(x, gen, rr, init)
+        self.last_kernel = path
+        return fn(x, z0=z0.to(self.device, torch.float32))
+
+    def _encoder_z0(self, x, gen, rr: int, mode: str) -> torch.Tensor:
+        from defensegan_torch.defense.encoder_init import encoder_z0
+        if self.encoder is None:
+            raise RuntimeError(
+                f"rec_init={mode!r} needs a trained encoder in the run's "
+                f"weight export ({self.cfg.output_dir}/export)")
+        return encoder_z0(self.encoder, x, gen, rec_rr=rr, mode=mode,
+                          sigma=self.cfg.encoder_sigma)
+
+    def _reconstructor_for(self, kernel: str, rr: int, iters: int,
+                           lr: float):
+        """Build (or fetch from the cache) f(x, z0=...) for a RESOLVED
+        kernel. Builders pack the current weights; load() clears the
+        cache."""
+        sig = (kernel, rr, iters, lr)
+        if sig in self._reconstructors:
+            return self._reconstructors[sig]
+        cfg = self.cfg
+        common = dict(rec_rr=rr, rec_iters=iters, rec_lr=lr,
+                      momentum=cfg.rec_momentum)
+        if kernel in ("pallas", "pallas_int8"):
+            from defensegan_torch.kernels import (
+                make_dense_int8_reconstructor, make_dense_reconstructor)
+            make = (make_dense_int8_reconstructor if kernel == "pallas_int8"
+                    else make_dense_reconstructor)
+            fn = make(self.generator, cfg.image_shape, **common)
+        elif kernel == "packed":
+            from defensegan_torch.defense.fastgen import packed_apply_for
+            apply_flat = packed_apply_for(
+                self.generator,
+                "conv" if cfg.packed_variant == "auto"
+                else cfg.packed_variant)
+
+            def fn(x, z0):
+                res = reconstruct(apply_flat, x.reshape(x.shape[0], -1), z0,
+                                  rec_iters=iters, rec_lr=lr,
+                                  momentum=cfg.rec_momentum)
+                return res._replace(x_hat=res.x_hat.reshape(x.shape))
+        else:
+            def fn(x, z0):
+                return reconstruct(self.generator, x, z0, rec_iters=iters,
+                                   rec_lr=lr, momentum=cfg.rec_momentum)
+        self._reconstructors[sig] = fn
+        return fn
