@@ -51,17 +51,6 @@ struct EpiTanhGrad {
   }
 };
 
-// dh = acc * [h > 0] -> bf16.
-struct EpiReluMask {
-  const bf16* h;
-  bf16* dh;
-  int ld;
-  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
-    size_t i = (size_t)r * ld + c;
-    dh[i] = __float2bfloat16_rn(__bfloat162float(h[i]) > 0.0f ? acc : 0.0f);
-  }
-};
-
 }  // namespace
 
 // Runs `iters` projection steps on M rows, updating z and v in place.
@@ -86,7 +75,7 @@ extern "C" int fp_v2_run(float* z, float* v, const bf16* x, const bf16* w1,
                                EpiTanhGrad{bd, x, dout, P, scale}, st);
     if (e != cudaSuccess) return (int)e;
     e = fpk::launch_gemm<bf16>(dout, P, dt, F, M, F, P,
-                               EpiReluMask{h, dh, F}, st);
+                               fpk::EpiReluMask{h, dh, F}, st);
     if (e != cudaSuccess) return (int)e;
     e = fpk::launch_gemm<bf16>(dh, F, w1t, K, M, K, F,
                                fpk::EpiMomentum{z, v, zb, K, momentum, lr},

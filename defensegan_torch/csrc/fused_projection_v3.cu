@@ -1,0 +1,206 @@
+// Fused projection loop v3 (bf16) for the deep two-deconv generator in
+// space-to-depth form.
+//
+// Replaces the Pallas TPU kernel
+//   kernels/fused_projection_v3.py::_loop_kernel of the JAX package
+// (pallas_call in fused_projection_s2d). The generator z -> fc -> 7x7xc0
+// -> deconv -> 14x14 -> deconv -> 28x28 -> tanh is packed on the constant
+// g x g grid (g = 7, P2 = 49 pixels): both stride-2 deconvs are 3x3 SAME
+// convs with wide channels (c0 128 -> ca 256 -> cb 16). Per row of z, for
+// L steps, with taps k = (dy+1)*3 + (dx+1), off_k = dy*g + dx:
+//
+//   h0  = relu(bf16(z) @ W1 + b1)                       [M, P2*c0] bf16
+//   h1  = relu(sum_k h0[p+off_k] @ KA_k + ba)           [M, P2*ca] bf16
+//   obb = h1[p] @ [KB_0 .. KB_8]                        [M, P2*npk] bf16
+//   o   = bb + sum_k obb[p+off_k][k*cb : (k+1)*cb]      [P2*cb]
+//   do  = (tanh(o) - x)(1 - tanh(o)^2) * scale          bf16
+//   dop = [do[p-off_0] .. do[p-off_8]]                  [M, P2*kpk] bf16
+//   dh1 = (dop[p] @ KBT) * [h1 > 0]                     bf16, over h1
+//   dh0 = (sum_k bf16(dh1[p-off_k] @ KA_k^T)) * [h0>0]  bf16, over h0
+//   dz  = dh0 @ W1^T;  v = m*v + dz;  z -= lr*v         [M, K] f32
+//
+// A tap whose source pixel leaves the grid contributes nothing. bf16
+// operands, f32 accumulation, bf16 roundings exactly where the Pallas
+// kernel has them, its two layout artefacts included (obb is rounded
+// before the tap slices are summed; conv A's backward rounds each tap's
+// product before the sum): the plain version (kernels/
+// fused_projection_v3.py::s2d_loop_plain) rounds at the same points. The
+// relu masks are taken from the stored bf16 activations, which are
+// positive exactly where their f32 values were (bf16 keeps f32's exponent
+// range), so the gradients overwrite the activations in place.
+//
+// What bounds it on an H100: operations, at 989 TFLOP/s bf16. The function
+// itself (fc, the 5x5 stride-2 deconvs, forward and input gradient) needs
+// 37.9 MFLOP per row-step; the dense s2d form counts 68.2 MFLOP (the s2d
+// kernels' zero taps), of which this kernel computes 59.4 (border taps
+// skipped; conv B padded from 144 to 192 / 160). Per step the activations
+// also make one round trip through device memory each (about 70 KB
+// written per row), well under the compute time at WMMA rates.
+//
+// Its design: the TPU kernel keeps activations pixel-major [49*T, C] in
+// VMEM and shifts rows by slice + concat for every tap. Here every
+// activation stays latent-major and flat, [M, P2*C] in (pixel, channel)
+// order -- exactly what the fc product writes -- so no relayout exists:
+//   * fc forward / backward are v2's GEMM1 / GEMM4 unchanged;
+//   * conv A forward and backward are conv3x3_epilogue (wmma_gemm.cuh):
+//     a block owns 64 latents x 64 channels of one pixel, and a tap is a
+//     change of the A column offset and the weights' row block;
+//   * conv B (16 channels per pixel, under the 64-wide tile) is packed as
+//     on the TPU: one product [M*P2, ca] @ [ca, 9*cb -> npk] (the flat
+//     layout IS that matrix), then tanh_grad_pack, one block per latent,
+//     sums the nine shifted slices, takes the tanh gradient into shared
+//     memory and writes do packed tap-major [M*P2, 9*cb -> kpk], which one
+//     product with KBT [kpk, ca] turns into dh1.
+// Seven launches per step; the L loop runs here, so one call from Python
+// runs all L steps of a row chunk. The weights (4.6 MB) stay in L2.
+// wgmma + TMA, larger tiles and a fused conv B are later work.
+
+#include "wmma_gemm.cuh"
+
+namespace {
+
+using fpk::bf16;
+
+constexpr int kPackThreads = 256;
+
+// h = relu(acc + bias[c]) -> bf16 at out[r, pixel, c].
+struct EpiConvBiasRelu {
+  const float* bias;
+  bf16* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, int pix_off,
+                                             float acc) const {
+    out[(size_t)r * ld + pix_off + c] =
+        __float2bfloat16_rn(fmaxf(acc + bias[c], 0.0f));
+  }
+};
+
+// dh = acc * [h > 0] -> bf16, written over h[r, pixel, c].
+struct EpiConvReluMask {
+  bf16* h;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, int pix_off,
+                                             float acc) const {
+    size_t i = (size_t)r * ld + pix_off + c;
+    h[i] = __float2bfloat16_rn(__bfloat162float(h[i]) > 0.0f ? acc : 0.0f);
+  }
+};
+
+// out = bf16(acc): the packed conv-B product.
+struct EpiStoreBf16 {
+  bf16* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
+    out[(size_t)r * ld + c] = __float2bfloat16_rn(acc);
+  }
+};
+
+// One block per latent m. Phase 1: o[p, c] = bb[c] + sum over valid taps
+// of obb[m, p+off_k, k*cb + c] (k ascending, f32); t = tanh(o);
+// do[p, c] = bf16((t - x)(1 - t^2) * scale), kept in shared memory.
+// Phase 2: dop[m, p, k*cb + c] = do[p-off_k, c] where that pixel is in the
+// grid, else 0; columns 9*cb .. kpk are zero.
+__global__ void __launch_bounds__(kPackThreads)
+    tanh_grad_pack(const bf16* __restrict__ obb, const bf16* __restrict__ x,
+                   const float* __restrict__ bb,
+                   const float* __restrict__ masks, bf16* __restrict__ dop,
+                   int g, int cb, int npk, int kpk, float scale) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  bf16* s_do = reinterpret_cast<bf16*>(s_raw);
+  const int p2 = g * g;
+  const size_t m = blockIdx.x;
+  const bf16* ob = obb + m * p2 * npk;
+  const bf16* xr = x + m * p2 * cb;
+  for (int i = threadIdx.x; i < p2 * cb; i += kPackThreads) {
+    int p = i / cb, c = i - p * cb;
+    float o = bb[c];
+    for (int k = 0; k < 9; ++k) {
+      if (masks[p * 9 + k] != 0.0f) {
+        int off = (k / 3 - 1) * g + (k % 3 - 1);
+        o += __bfloat162float(ob[(p + off) * npk + k * cb + c]);
+      }
+    }
+    float t = tanhf(o);
+    float res = t - __bfloat162float(xr[i]);
+    s_do[i] = __float2bfloat16_rn(res * (1.0f - t * t) * scale);
+  }
+  __syncthreads();
+  bf16* dp = dop + m * p2 * kpk;
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  for (int i = threadIdx.x; i < p2 * kpk; i += kPackThreads) {
+    int p = i / kpk, j = i - p * kpk;
+    bf16 val = zero;
+    if (j < 9 * cb) {
+      int k = j / cb, c = j - k * cb;
+      if (masks[p * 9 + 8 - k] != 0.0f) {
+        int off = (k / 3 - 1) * g + (k % 3 - 1);
+        val = s_do[(p - off) * cb + c];
+      }
+    }
+    dp[i] = val;
+  }
+}
+
+}  // namespace
+
+// Runs `iters` projection steps on M rows, updating z and v in place.
+// z, v: [M, K] f32 (v zeroed by the caller); x: [M, P2*cb] bf16 tanh-space
+// targets in s2d-flat order. Weights: w1 [K, P2*c0], w1t [P2*c0, K],
+// ka [9*c0, ca], kat [9*ca, c0], kbp [ca, npk] (columns past 9*cb zero),
+// kbpt [kpk, ca] (rows past 9*cb zero) bf16; b1 [P2*c0], ba [ca], bb [cb],
+// masks [P2, 9] f32. Scratch (bf16): zb [M, K], h0 [M, P2*c0],
+// h1 [M, P2*ca], obb [M, P2*npk], dop [M, P2*kpk]. M, K, c0, ca, npk
+// multiples of 64; kpk of 32; M*P2/64 <= 65535. Returns the first CUDA
+// error, else 0.
+extern "C" int fp_v3_run(float* z, float* v, const bf16* x, const bf16* w1,
+                         const bf16* w1t, const float* b1, const bf16* ka,
+                         const bf16* kat, const float* ba, const bf16* kbp,
+                         const bf16* kbpt, const float* bb,
+                         const float* masks, bf16* zb, bf16* h0, bf16* h1,
+                         bf16* obb, bf16* dop, int M, int K, int c0, int ca,
+                         int cb, int g, int npk, int kpk, int iters,
+                         float lr, float momentum, float scale,
+                         void* stream_ptr) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  const int p2 = g * g;
+  const int F = p2 * c0;
+  cudaError_t e = fpk::launch_cast_bf16(z, zb, M * K, st);
+  if (e != cudaSuccess) return (int)e;
+  for (int it = 0; it < iters; ++it) {
+    // fc forward
+    e = fpk::launch_gemm<bf16>(zb, K, w1, F, M, F, K,
+                               fpk::EpiBiasRelu<bf16>{b1, h0, F}, st);
+    if (e != cudaSuccess) return (int)e;
+    // conv A forward
+    e = fpk::launch_conv3x3<false>(h0, ka, masks, M, g, c0, ca,
+                                   EpiConvBiasRelu{ba, h1, p2 * ca}, st);
+    if (e != cudaSuccess) return (int)e;
+    // conv B forward, packed: [M*P2, ca] @ [ca, npk]
+    e = fpk::launch_gemm<bf16>(h1, ca, kbp, npk, M * p2, npk, ca,
+                               EpiStoreBf16{obb, npk}, st);
+    if (e != cudaSuccess) return (int)e;
+    // tap sum, tanh gradient, tap-major pack of do
+    tanh_grad_pack<<<M, kPackThreads, p2 * cb * sizeof(bf16), st>>>(
+        obb, x, bb, masks, dop, g, cb, npk, kpk, scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    // conv B backward: [M*P2, kpk] @ [kpk, ca], masked by h1, over h1
+    e = fpk::launch_gemm<bf16>(dop, kpk, kbpt, ca, M * p2, ca, kpk,
+                               fpk::EpiReluMask{h1, h1, ca}, st);
+    if (e != cudaSuccess) return (int)e;
+    // conv A backward, each tap rounded, masked by h0, over h0
+    e = fpk::launch_conv3x3<true>(h1, kat, masks, M, g, ca, c0,
+                                  EpiConvReluMask{h0, p2 * c0}, st);
+    if (e != cudaSuccess) return (int)e;
+    // fc backward + momentum update
+    e = fpk::launch_gemm<bf16>(h0, F, w1t, K, M, K, F,
+                               fpk::EpiMomentum{z, v, zb, K, momentum, lr},
+                               st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+extern "C" const char* fp_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

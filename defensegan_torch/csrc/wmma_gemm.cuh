@@ -1,7 +1,11 @@
 // Tiled tensor-core GEMM with a fused elementwise epilogue, shared by the
-// fused projection loops (fused_projection_v2.cu, fused_projection_v2i.cu).
+// fused projection loops (fused_projection_v2.cu, fused_projection_v2i.cu,
+// fused_projection_v3.cu).
 //
 //   C[M, N] = A[M, K] @ B[K, N],  A and B row-major, then epi(row, col, acc)
+//
+// and, on the same tile machinery, a 3x3 SAME convolution on a small grid
+// as a sum of per-tap products (conv3x3_epilogue, for the deep loop).
 //
 // Element types: bf16 x bf16 -> f32 accumulators, or int8 x int8 -> int32.
 // The product runs on the tensor cores through WMMA 16x16x16 fragments
@@ -92,9 +96,14 @@ struct Geometry {
 };
 
 template <typename T>
-__device__ __forceinline__ void load_slab(unsigned char* stage, const T* A,
-                                          int lda, const T* B, int ldb,
-                                          int m0, int n0, int k0) {
+using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
+                                       typename Tile<T>::Acc>;
+
+// Copies one slab into a stage: kBM rows x BK of A from `a` (the slab's
+// first element, row stride lda) and BK rows x kBN of B from `b`.
+template <typename T>
+__device__ __forceinline__ void load_slab(unsigned char* stage, const T* a,
+                                          int lda, const T* b, int ldb) {
   using TT = Tile<T>;
   constexpr int kPerChunk = 16 / sizeof(T);
   const int t = threadIdx.x;
@@ -104,7 +113,7 @@ __device__ __forceinline__ void load_slab(unsigned char* stage, const T* A,
     int id = t + i * kThreads;
     int r = id >> 2, c = id & 3;
     cp_async16(stage + r * TT::kAStride + c * TT::kAPitch,
-               A + (size_t)(m0 + r) * lda + k0 + c * kPerChunk);
+               a + (size_t)r * lda + c * kPerChunk);
   }
   // B: BK rows x kBChunks chunks = 256 chunks, two per thread
   unsigned char* sb = stage + Geometry<T>::kASize;
@@ -113,76 +122,125 @@ __device__ __forceinline__ void load_slab(unsigned char* stage, const T* A,
     int id = t + i * kThreads;
     int r = id / TT::kBChunks, c = id % TT::kBChunks;
     cp_async16(sb + r * TT::kBStride + c * TT::kBPitch,
-               B + (size_t)(k0 + r) * ldb + n0 + c * kPerChunk);
+               b + (size_t)r * ldb + c * kPerChunk);
   }
 }
 
-// One 64x64 tile of C = A @ B, then epi(row, col, acc) on every element.
-template <typename T, typename Epi>
-__global__ void __launch_bounds__(kThreads)
-    gemm_epilogue(const T* __restrict__ A, int lda, const T* __restrict__ B,
-                  int ldb, int K, Epi epi) {
+// acc += (this warp's 32x32 quadrant of) one staged slab's product.
+template <typename T>
+__device__ __forceinline__ void mma_slab(AccFrag<T> (&acc)[2][2],
+                                         const unsigned char* sa, int wr,
+                                         int wc) {
   using namespace nvcuda;
   using TT = Tile<T>;
-  using Acc = typename TT::Acc;
+  const unsigned char* sb = sa + Geometry<T>::kASize;
+#pragma unroll
+  for (int kk = 0; kk < TT::BK / 16; ++kk) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // a 16-deep k step is 32 bytes into the A row for both types
+      const T* p = reinterpret_cast<const T*>(
+          sa + (wr * 32 + i * 16) * TT::kAStride + kk * 32);
+      wmma::load_matrix_sync(fa[i], p, TT::kAStride / sizeof(T));
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      // 16 columns span 32 bytes of a B row for both types
+      const T* p = reinterpret_cast<const T*>(
+          sb + (kk * 16) * TT::kBStride + (wc * 32 + j * 16) * 2);
+      wmma::load_matrix_sync(fb[j], p, TT::kBStride / sizeof(T));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+  }
+}
+
+// The K loop of one 64x64 tile: acc = sum over n_slabs slabs, streamed
+// through the 2-stage ring. src(s, pa, pb) names slab s: the first element
+// of its A rows (row stride lda) and of its B rows (row stride ldb); a
+// plain product walks K, a 3x3 grid conv walks its valid taps and each
+// tap's K (ConvTaps below). With kRoundTaps (bf16 only) every run of
+// slabs_per_tap slabs is summed on its own, rounded to bf16 and then added
+// to acc in float32: the per-tap rounding of the deep loop's conv-A
+// backward (fused_projection_v3.cu).
+template <typename T, bool kRoundTaps, typename Src>
+__device__ __forceinline__ void mma_pipeline(AccFrag<T> (&acc)[2][2],
+                                             unsigned char* smem,
+                                             const Src& src, int lda,
+                                             int ldb, int n_slabs,
+                                             int slabs_per_tap) {
+  using namespace nvcuda;
+  using Acc = typename Tile<T>::Acc;
   using G = Geometry<T>;
-  __shared__ __align__(128) unsigned char smem[G::kSmem];
-
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const int wr = warp >> 1, wc = warp & 1;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[2][2];
+  AccFrag<T> part[2][2];  // one tap's sum; unused unless kRoundTaps
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], Acc(0));
+    for (int j = 0; j < 2; ++j) {
+      wmma::fill_fragment(acc[i][j], Acc(0));
+      if constexpr (kRoundTaps) wmma::fill_fragment(part[i][j], Acc(0));
+    }
+  if (n_slabs <= 0) return;
 
-  const int kt_n = K / TT::BK;
-  load_slab<T>(smem, A, lda, B, ldb, m0, n0, 0);
+  const T* pa;
+  const T* pb;
+  src(0, pa, pb);
+  load_slab<T>(smem, pa, lda, pb, ldb);
   cp_async_commit();
-  for (int kt = 0; kt < kt_n; ++kt) {
-    if (kt + 1 < kt_n) {
-      load_slab<T>(smem + ((kt + 1) & 1) * G::kStage, A, lda, B, ldb, m0, n0,
-                   (kt + 1) * TT::BK);
+  int in_tap = 0;
+  for (int s = 0; s < n_slabs; ++s) {
+    if (s + 1 < n_slabs) {
+      src(s + 1, pa, pb);
+      load_slab<T>(smem + ((s + 1) & 1) * G::kStage, pa, lda, pb, ldb);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const unsigned char* sa = smem + (kt & 1) * G::kStage;
-    const unsigned char* sb = sa + G::kASize;
+    const unsigned char* sa = smem + (s & 1) * G::kStage;
+    if constexpr (kRoundTaps) {
+      mma_slab<T>(part, sa, wr, wc);
+      if (++in_tap == slabs_per_tap) {
+        in_tap = 0;
 #pragma unroll
-    for (int kk = 0; kk < TT::BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[2];
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        // a 16-deep k step is 32 bytes into the A row for both types
-        const T* p = reinterpret_cast<const T*>(
-            sa + (wr * 32 + i * 16) * TT::kAStride + kk * 32);
-        wmma::load_matrix_sync(fa[i], p, TT::kAStride / sizeof(T));
+          for (int j = 0; j < 2; ++j) {
+#pragma unroll
+            for (int e = 0; e < part[i][j].num_elements; ++e)
+              acc[i][j].x[e] +=
+                  __bfloat162float(__float2bfloat16_rn(part[i][j].x[e]));
+            wmma::fill_fragment(part[i][j], Acc(0));
+          }
       }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        // 16 columns span 32 bytes of a B row for both types
-        const T* p = reinterpret_cast<const T*>(
-            sb + (kk * 16) * TT::kBStride + (wc * 32 + j * 16) * 2);
-        wmma::load_matrix_sync(fb[j], p, TT::kBStride / sizeof(T));
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    } else {
+      mma_slab<T>(acc, sa, wr, wc);
     }
     __syncthreads();
   }
+}
 
-  Acc* stage = reinterpret_cast<Acc*>(smem + 2 * G::kStage) + warp * 256;
+// Hands every element of the block's 64x64 tile, with its (row, col) from
+// (m0, n0), to f(row, col, value), one staged 16x16 fragment at a time.
+template <typename T, typename F>
+__device__ __forceinline__ void store_tile(AccFrag<T> (&acc)[2][2],
+                                           unsigned char* smem, int m0,
+                                           int n0, const F& f) {
+  using namespace nvcuda;
+  using Acc = typename Tile<T>::Acc;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wr = warp >> 1, wc = warp & 1;
+  Acc* stage =
+      reinterpret_cast<Acc*>(smem + 2 * Geometry<T>::kStage) + warp * 256;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -196,11 +254,38 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         int idx = e * 32 + lane;
-        epi(row0 + (idx >> 4), col0 + (idx & 15), stage[idx]);
+        f(row0 + (idx >> 4), col0 + (idx & 15), stage[idx]);
       }
       __syncwarp();
     }
   }
+}
+
+// Slabs of a plain product: slab s is K rows [s*BK, (s+1)*BK).
+template <typename T>
+struct GemmSlabs {
+  const T* a;  // A + m0 * lda
+  const T* b;  // B + n0
+  int ldb;
+  __device__ __forceinline__ void operator()(int s, const T*& pa,
+                                             const T*& pb) const {
+    pa = a + s * Tile<T>::BK;
+    pb = b + (size_t)s * Tile<T>::BK * ldb;
+  }
+};
+
+// One 64x64 tile of C = A @ B, then epi(row, col, acc) on every element.
+template <typename T, typename Epi>
+__global__ void __launch_bounds__(kThreads)
+    gemm_epilogue(const T* __restrict__ A, int lda, const T* __restrict__ B,
+                  int ldb, int K, Epi epi) {
+  __shared__ __align__(128) unsigned char smem[Geometry<T>::kSmem];
+  const int m0 = blockIdx.y * kBM;
+  const int n0 = blockIdx.x * kBN;
+  AccFrag<T> acc[2][2];
+  GemmSlabs<T> src{A + (size_t)m0 * lda, B + n0, ldb};
+  mma_pipeline<T, false>(acc, smem, src, lda, ldb, K / Tile<T>::BK, 1);
+  store_tile<T>(acc, smem, m0, n0, epi);
 }
 
 template <typename T, typename Epi>
@@ -210,6 +295,90 @@ inline cudaError_t launch_gemm(const T* A, int lda, const T* B, int ldb,
   dim3 grid(N / kBN, M / kBM);
   gemm_epilogue<T, Epi><<<grid, kThreads, 0, stream>>>(A, lda, B, ldb, K,
                                                        epi);
+  return cudaGetLastError();
+}
+
+// ---- 3x3 SAME conv on a g x g grid, activations latent-major and flat ----
+//
+// An activation is [M, g*g*C] in (pixel, channel) order, so "pixel q of 64
+// latents" is a 64-row A operand at column offset q*C with row stride
+// g*g*C. One block computes a 64-latent x 64-channel tile of ONE output
+// pixel p (blockIdx.z): out[p] = sum over taps k of in[p +- off_k] @ W_k,
+// off_k = dy*g + dx, k = (dy+1)*3 + (dx+1). A tap is a change of the A
+// column offset and of the weights' row block, the same for the whole
+// block; a tap whose source pixel leaves the grid is skipped by the block
+// (masks[p*9 + k] == 0), not masked element by element.
+//
+// kBackward = false: out[p] = sum_k in[p + off_k] @ W_k, valid iff
+// masks[p, k]. kBackward = true (the input gradient): out[p] = sum_k
+// bf16(in[p - off_k] @ W_k), valid iff masks[p, 8 - k]; W_k are then the
+// per-tap transposes, and each tap's product is rounded to bf16 before
+// the sum, where the TPU kernel rounds it. Weights: [9*cin, cout], taps
+// stacked on rows. epi(row, channel, pixel_offset = p*cout, acc).
+struct ConvTaps {
+  const bf16* a;   // in + m0 * lda
+  const bf16* w;   // W + n0
+  int cin, cout, slabs_per_tap;
+  const int* pix;  // source pixel of each valid tap (shared memory)
+  const int* tap;  // its tap index k
+  __device__ __forceinline__ void operator()(int s, const bf16*& pa,
+                                             const bf16*& pb) const {
+    int t = s / slabs_per_tap;
+    int k0 = (s - t * slabs_per_tap) * Tile<bf16>::BK;
+    pa = a + pix[t] * cin + k0;
+    pb = w + (size_t)(tap[t] * cin + k0) * cout;
+  }
+};
+
+template <typename Epi>
+struct AtPixel {
+  Epi epi;
+  int offset;
+  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
+    epi(r, c, offset, acc);
+  }
+};
+
+template <bool kBackward, typename Epi>
+__global__ void __launch_bounds__(kThreads)
+    conv3x3_epilogue(const bf16* __restrict__ in, const bf16* __restrict__ W,
+                     const float* __restrict__ masks, int g, int cin,
+                     int cout, Epi epi) {
+  __shared__ __align__(128) unsigned char smem[Geometry<bf16>::kSmem];
+  __shared__ int s_pix[9], s_tap[9], s_n;
+  const int p = blockIdx.z;
+  const int m0 = blockIdx.y * kBM;
+  const int n0 = blockIdx.x * kBN;
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int k = 0; k < 9; ++k) {
+      int off = (k / 3 - 1) * g + (k % 3 - 1);
+      if (masks[p * 9 + (kBackward ? 8 - k : k)] != 0.0f) {
+        s_pix[n] = kBackward ? p - off : p + off;
+        s_tap[n] = k;
+        ++n;
+      }
+    }
+    s_n = n;
+  }
+  __syncthreads();
+  const int lda = g * g * cin;
+  const int spt = cin / Tile<bf16>::BK;
+  AccFrag<bf16> acc[2][2];
+  ConvTaps src{in + (size_t)m0 * lda, W + n0, cin, cout, spt, s_pix, s_tap};
+  mma_pipeline<bf16, kBackward>(acc, smem, src, lda, cout, s_n * spt, spt);
+  store_tile<bf16>(acc, smem, m0, n0, AtPixel<Epi>{epi, p * cout});
+}
+
+// in: [M, g*g*cin]; W: [9*cin, cout]; masks: [g*g, 9] f32 0/1. M % 64,
+// cout % 64, cin % 32 == 0.
+template <bool kBackward, typename Epi>
+inline cudaError_t launch_conv3x3(const bf16* in, const bf16* W,
+                                  const float* masks, int M, int g, int cin,
+                                  int cout, Epi epi, cudaStream_t stream) {
+  dim3 grid(cout / kBN, M / kBM, g * g);
+  conv3x3_epilogue<kBackward, Epi><<<grid, kThreads, 0, stream>>>(
+      in, W, masks, g, cin, cout, epi);
   return cudaGetLastError();
 }
 
@@ -257,6 +426,20 @@ struct EpiMomentum {
     v[i] = vv;
     z[i] = zz;
     zb[i] = __float2bfloat16_rn(zz);
+  }
+};
+
+// dh = acc * [h > 0] -> bf16. The mask is taken from the bf16 h, which is
+// positive exactly where the f32 h is (bf16 keeps f32's exponent range).
+// h and dh may be the same buffer: each element is read, then written, by
+// the one thread that owns it.
+struct EpiReluMask {
+  const bf16* h;
+  bf16* dh;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
+    size_t i = (size_t)r * ld + c;
+    dh[i] = __float2bfloat16_rn(__bfloat162float(h[i]) > 0.0f ? acc : 0.0f);
   }
 };
 

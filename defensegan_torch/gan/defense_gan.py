@@ -25,6 +25,8 @@ from defensegan_torch.defense.project import (BACK_PROP_TODO,
                                               reconstruct, sample_z0)
 from defensegan_torch.kernels.fused_projection_v2 import \
     dense_kernel_available
+from defensegan_torch.kernels.fused_projection_v3 import \
+    s2d_kernel_available
 from defensegan_torch.models import encoder_for, from_image_space, \
     generator_for, to_image_space
 
@@ -50,16 +52,18 @@ def resolve_projection_kernel(gan, *, back_prop: bool = False,
     """The projection path that actually runs for this call.
 
     Takes the JAX package's PROJECTION_KERNEL values; returns 'pallas'
-    (the bf16 fused CUDA kernel, v2), 'pallas_int8' (its int8 variant,
-    v2i), 'packed' or 'xla' (plain PyTorch paths). On CUDA with
-    back_prop=False and a wide (single-deconv) generator within the
-    dense-packing bound, 'auto' and 'pallas' run v2 and 'pallas_int8'
-    runs v2i, at any batch size (the kernel wrappers pad the rows to the
-    kernels' tile). Elsewhere 'auto', and any request on the CPU, resolves
-    to the plain per-topology path: 'packed' for single-deconv generators,
+    (a bf16 fused CUDA kernel: v2 for wide single-deconv generators within
+    the dense-packing bound, v3 for two-deconv deep ones), 'pallas_int8'
+    (v2's int8 variant, v2i), 'packed' or 'xla' (plain PyTorch paths). On
+    CUDA with back_prop=False, 'auto' and 'pallas' run the generator's
+    kernel at any batch size (the kernel wrappers pad the rows to the
+    kernels' tile); 'pallas_int8' runs v2i on a wide generator and the
+    bf16 v3 on a deep one (there is no int8 deep loop, as in the JAX
+    package). Elsewhere 'auto', and any request on the CPU, resolves to
+    the plain per-topology path: 'packed' for single-deconv generators,
     'xla' for deeper ones. An explicit kernel request that cannot run on
     CUDA raises: under back_prop, on a generator no ported kernel covers
-    (the deep two-deconv v3, the 64x64 v4), and 'pallas_v4'.
+    (the 64x64 stacks of v4), and 'pallas_v4'.
     """
     if requested is None:
         requested = gan.cfg.projection_kernel
@@ -70,9 +74,10 @@ def resolve_projection_kernel(gan, *, back_prop: bool = False,
     channels = gan.generator.channels
     xla_best = "packed" if len(channels) == 1 else "xla"
     dense_ok = dense_kernel_available(gan.generator)
+    s2d_ok = s2d_kernel_available(gan.generator)
     if requested == "auto":
-        return "pallas" if (on_cuda and not back_prop and dense_ok) \
-            else xla_best
+        return "pallas" if (on_cuda and not back_prop
+                            and (dense_ok or s2d_ok)) else xla_best
     if requested in ("xla", "packed"):
         return requested
     if not on_cuda:
@@ -87,14 +92,13 @@ def resolve_projection_kernel(gan, *, back_prop: bool = False,
             "attacks slice's work (ROADMAP.md)")
     if dense_ok:
         return requested
-    if len(channels) == 2:
-        raise NotImplementedError(
-            "the deep two-deconv loop (v3) is not ported yet: the "
-            "reference-depth slice in ROADMAP.md")
+    if s2d_ok:
+        return "pallas"       # deep topologies: the bf16 v3 only
     raise NotImplementedError(
         f"{requested!r}: no ported kernel covers this generator (channels "
         f"{channels}, base {gan.generator.base_hw}); the dense kernels take "
-        "single-deconv generators up to 16384 features (ROADMAP.md)")
+        "single-deconv generators up to 16384 features, the s2d kernel "
+        "two-deconv ones (ROADMAP.md, TPU kernels still to port)")
 
 
 class DefenseGAN:
@@ -223,22 +227,37 @@ class DefenseGAN:
                       momentum=cfg.rec_momentum)
         if kernel in ("pallas", "pallas_int8"):
             from defensegan_torch.kernels import (
-                make_dense_int8_reconstructor, make_dense_reconstructor)
-            make = (make_dense_int8_reconstructor if kernel == "pallas_int8"
-                    else make_dense_reconstructor)
+                make_dense_int8_reconstructor, make_dense_reconstructor,
+                make_s2d_reconstructor)
+            if not dense_kernel_available(self.generator):
+                make = make_s2d_reconstructor
+            elif kernel == "pallas_int8":
+                make = make_dense_int8_reconstructor
+            else:
+                make = make_dense_reconstructor
             fn = make(self.generator, cfg.image_shape, **common)
         elif kernel == "packed":
-            from defensegan_torch.defense.fastgen import packed_apply_for
-            apply_flat = packed_apply_for(
-                self.generator,
-                "conv" if cfg.packed_variant == "auto"
-                else cfg.packed_variant)
+            # For s2d the loop runs in space-to-depth pixel order (MSE is
+            # permutation-invariant); the un-shuffle is one gather outside
+            from defensegan_torch.defense.fastgen import (make_packed_apply,
+                                                          pack_generator)
+            variant = cfg.packed_variant
+            if variant == "auto":
+                variant = ("conv" if cfg.gen_arch == "wide"
+                           else "s2d" if len(self.generator.channels) == 2
+                           else "conv")
+            packed = pack_generator(self.generator, variant)
+            apply_flat = make_packed_apply(packed)
+            perm = packed.perm
 
             def fn(x, z0):
-                res = reconstruct(apply_flat, x.reshape(x.shape[0], -1), z0,
-                                  rec_iters=iters, rec_lr=lr,
-                                  momentum=cfg.rec_momentum)
-                return res._replace(x_hat=res.x_hat.reshape(x.shape))
+                x_flat = x.reshape(x.shape[0], -1)
+                if perm:
+                    x_flat = x_flat[:, perm[0]]
+                res = reconstruct(apply_flat, x_flat, z0, rec_iters=iters,
+                                  rec_lr=lr, momentum=cfg.rec_momentum)
+                x_hat = res.x_hat[:, perm[1]] if perm else res.x_hat
+                return res._replace(x_hat=x_hat.reshape(x.shape))
         else:
             def fn(x, z0):
                 return reconstruct(self.generator, x, z0, rec_iters=iters,

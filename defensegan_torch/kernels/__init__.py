@@ -5,11 +5,14 @@
     (csrc/fused_projection_v2.cu).
   - fused_projection_v2i: the same loop with the two D products in int8
     (csrc/fused_projection_v2i.cu); opt-in (`pallas_int8`).
+  - fused_projection_v3: the deep two-deconv generator's loop in
+    space-to-depth form, 3x3 grid convs as per-tap tensor-core products
+    (csrc/fused_projection_v3.cu).
 
 Each wrapper runs its plain PyTorch version on CPU tensors and its kernel
 on CUDA tensors. kernels/build.py compiles the sources with nvcc at first
-use and holds the launch counters. The deep (v3) and 64x64 (v4) loops are
-not ported yet (ROADMAP.md).
+use and holds the launch counters. The 64x64 (v4) loop is not ported yet
+(ROADMAP.md).
 """
 
 from defensegan_torch.kernels.fused_projection_v2 import (
@@ -18,8 +21,12 @@ from defensegan_torch.kernels.fused_projection_v2 import (
 from defensegan_torch.kernels.fused_projection_v2i import (
     fused_projection_dense_int8, make_dense_int8_reconstructor,
     pack_dense_int8)
+from defensegan_torch.kernels.fused_projection_v3 import (
+    fused_projection_s2d, make_s2d_reconstructor, pack_s2d,
+    s2d_kernel_available)
 
 __all__ = ["dense_kernel_available", "fused_projection_dense",
            "make_dense_reconstructor", "pack_dense",
            "fused_projection_dense_int8", "make_dense_int8_reconstructor",
-           "pack_dense_int8"]
+           "pack_dense_int8", "fused_projection_s2d",
+           "make_s2d_reconstructor", "pack_s2d", "s2d_kernel_available"]

@@ -28,7 +28,7 @@ outside the loop through the dense packed apply, as in the JAX package.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -46,7 +46,8 @@ ROW_TILE = 64        # rows of one kernel block (csrc/wmma_gemm.cuh kBM)
 COL_TILE = 64        # the kernel's k, F and P are multiples of this
 SCRATCH_CAP = 1 << 30  # bytes of per-row scratch (h, do, dh) in one call
 LIBRARY_ENTRY = {"fused_projection_v2": "fp_v2_run",
-                 "fused_projection_v2i": "fp_v2i_run"}
+                 "fused_projection_v2i": "fp_v2i_run",
+                 "fused_projection_v3": "fp_v3_run"}
 
 
 def _round_up(n: int, m: int) -> int:
@@ -152,16 +153,18 @@ def padded_fc(pack: DensePack):
 
 
 def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
-             weights, scratch, *, out_dim: int, rec_iters: int,
-             rec_lr: float, momentum: float,
+             weights, scratch, dims: Sequence[int], *, out_dim: int,
+             rec_iters: int, rec_lr: float, momentum: float,
              chunk: Optional[int] = None) -> torch.Tensor:
     """Drive a fused loop's library on CUDA tensors; z_final [N, k].
 
-    Shared by the v2 and v2i wrappers. `weights`: the padded pack tensors
-    in the library's argument order, W1 [kp, fp] first. `scratch`:
-    (columns, dtype) of each per-row scratch buffer, in argument order.
-    Rows are zero-padded up to the kernel's 64-row tile and cropped after.
-    They run in chunks of `chunk` rows, one library call (all L steps)
+    Shared by the v2, v2i and v3 wrappers. Every library entry takes
+    (z, v, x, *weights, *scratch, M, *dims, iters, lr, momentum, scale,
+    stream). `weights`: the padded pack tensors in the library's argument
+    order, W1 [kp, .] first. `scratch`: (columns, dtype) of each per-row
+    scratch buffer, in argument order. `dims`: the kernel's widths, kp
+    first. Rows are zero-padded up to the kernel's 64-row tile and cropped
+    after. They run in chunks of `chunk` rows, one library call (all L steps)
     each, counted in build.LAUNCHES[name]; by default one chunk, unless
     its scratch would pass SCRATCH_CAP bytes.
     """
@@ -175,8 +178,7 @@ def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
     if w1.dtype != torch.bfloat16:
         raise ValueError("the fused kernel takes a bf16 pack")
     n, k = z0_flat.shape
-    kp, fp = w1.shape
-    p = x_pad.shape[1]
+    kp = w1.shape[0]
     rows = _round_up(n, ROW_TILE)
     if chunk is None:
         row_bytes = sum(cols * torch.empty(0, dtype=dt).element_size()
@@ -196,12 +198,13 @@ def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
     lib = build.load(name)
     fn = getattr(lib, LIBRARY_ENTRY[name])
     fn.argtypes = [ctypes.c_void_p] * (3 + len(ptrs)) + \
-        [ctypes.c_int] * 5 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+        [ctypes.c_int] * (2 + len(dims)) + [ctypes.c_float] * 3 + \
+        [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     for lo in range(0, rows, m):
         rc = fn(z[lo].data_ptr(), v[lo].data_ptr(), x[lo].data_ptr(), *ptrs,
-                min(m, rows - lo), kp, fp, p, rec_iters, rec_lr, momentum,
+                min(m, rows - lo), *dims, rec_iters, rec_lr, momentum,
                 2.0 / out_dim, stream)
         build.check(lib, rc, name)
         build.LAUNCHES[name] += 1
@@ -230,8 +233,8 @@ def fused_projection_dense(pack: DensePack, x_flat_tanh: torch.Tensor,
         [w1, w1t, b1, pad_to(pack.d, 0, COL_TILE),
          pad_to(pack.dt, 1, COL_TILE), pack.bd],
         [(kp, bf16), (fp, bf16), (pack.d.shape[1], bf16), (fp, bf16)],
-        out_dim=pack.out_dim, rec_iters=rec_iters, rec_lr=rec_lr,
-        momentum=momentum, chunk=chunk)
+        (kp, fp, pack.d.shape[1]), out_dim=pack.out_dim,
+        rec_iters=rec_iters, rec_lr=rec_lr, momentum=momentum, chunk=chunk)
 
 
 def make_dense_reconstructor(generator, image_shape, *, rec_rr: int,

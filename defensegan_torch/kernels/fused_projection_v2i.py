@@ -133,8 +133,8 @@ def fused_projection_dense_int8(pack: DensePackInt8,
          base.bd],
         [(kp, torch.bfloat16), (fp, f32), (fp, i8), (1, f32), (p, f32),
          (p, i8), (1, f32), (fp, torch.bfloat16)],
-        out_dim=base.out_dim, rec_iters=rec_iters, rec_lr=rec_lr,
-        momentum=momentum, chunk=chunk)
+        (kp, fp, p), out_dim=base.out_dim, rec_iters=rec_iters,
+        rec_lr=rec_lr, momentum=momentum, chunk=chunk)
 
 
 def make_dense_int8_reconstructor(generator, image_shape, *, rec_rr: int,

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Where a fused projection call spends its device time, per CUDA kernel.
 
-Runs each hand-written loop of the PyTorch port (v2 bf16, v2i int8) once
-at the smoke's main shape (1024 images x R 10 = 10240 rows; L steps,
-default 20) on the flagship weights under torch.profiler, and prints one
-JSON line per loop: the device time of each kernel (GEMM epilogue
-variants, row quantization, casts) summed over the call, its share, and
+Runs each hand-written loop of the PyTorch port (v2 bf16 and v2i int8 on
+the flagship weights; v3 on the deep mnist.yml generator with the smoke's
+seeded weights) once at the smoke's main shape (1024 images x R 10 = 10240
+rows; L steps, default 20) under torch.profiler, and prints one JSON line
+per loop: the device time of each kernel (GEMM epilogue variants, the 3x3
+grid convs, row quantization, casts) summed over the call, its share, and
 the call's wall time under the profiler, and the median of 3 synchronized
-calls outside it (call_ms). --chunks repeats this for each row-chunk size
-of the wrappers (0: their default, one chunk up to the scratch cap). Needs
-one CUDA device:
+calls outside it (call_ms). For v3 each kernel is also named by the launch
+of the step it is (fc, conv A, conv B, their backwards). --chunks repeats
+this for each row-chunk size of the wrappers (0: their default, one chunk
+up to the scratch cap). Needs one CUDA device:
 
-    python3 scripts/torch_kernel_profile.py [--iters 20] [--chunks 0,4096]
+    python3 scripts/torch_kernel_profile.py [--kernel all|v2|v2i|v3] \
+        [--iters 20] [--chunks 0,4096]
 """
 
 from __future__ import annotations
@@ -27,13 +30,36 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# the launches of one v3 step, by a substring of the kernel's name
+V3_LAUNCHES = (("conv3x3_epilogue<false", "conv A forward"),
+               ("conv3x3_epilogue<true", "conv A backward"),
+               ("EpiStoreBf16", "conv B forward (packed product)"),
+               ("tanh_grad_pack", "conv B tap sum + tanh gradient + pack"),
+               ("EpiReluMask", "conv B backward"),
+               ("EpiBiasRelu", "fc forward"),
+               ("EpiMomentum", "fc backward + momentum"),
+               ("cast_bf16", "z -> bf16"))
+
+
 def pack_width(pack) -> int:
-    """The padded output width P the kernel runs over."""
-    return getattr(pack, "base", pack).d.shape[1]
+    """The padded output width P the kernel runs over (v2, v2i); for v3
+    the s2d output width."""
+    base = getattr(pack, "base", pack)
+    return base.d.shape[1] if hasattr(base, "d") else \
+        base.grid_hw ** 2 * base.cb
+
+
+def launch_of(kernel_name: str):
+    for needle, label in V3_LAUNCHES:
+        if needle in kernel_name:
+            return label
+    return None
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", default="all",
+                    choices=("all", "v2", "v2i", "v3"))
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--chunks", default="0",
                     help="comma-separated rows per library call; 0 = the "
@@ -46,28 +72,44 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from torch.profiler import ProfilerActivity, profile
 
+    from chip_smoke import seeded_deep_gan
     from defensegan_torch.configs import load_config
+    from defensegan_torch.defense.fastgen import pack_generator
     from defensegan_torch.gan import DefenseGAN
     from defensegan_torch.kernels import (fused_projection_dense,
                                           fused_projection_dense_int8,
-                                          pack_dense, pack_dense_int8)
-    run_dir = os.path.join(ROOT, "output", "gans", "mnist_fast")
-    gan = DefenseGAN(load_config(run_dir).replace(output_dir=run_dir)).load()
+                                          fused_projection_s2d, pack_dense,
+                                          pack_dense_int8, pack_s2d)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     n = 10240
-    x = gan.generate(g, n).reshape(n, -1) * 2.0 - 1.0
-    z0 = torch.randn(n, gan.cfg.latent_dim, device="cuda", generator=g)
-    kw = dict(rec_iters=args.iters, rec_lr=gan.cfg.rec_lr,
-              momentum=gan.cfg.rec_momentum)
-    loops = [("fused_projection_v2", fused_projection_dense,
-              pack_dense(gan.generator)),
-             ("fused_projection_v2i", fused_projection_dense_int8,
-              pack_dense_int8(gan.generator))]
-    for (name, loop, pack), chunk in [
+    want = ("v2", "v2i", "v3") if args.kernel == "all" else (args.kernel,)
+    loops = []
+    if "v2" in want or "v2i" in want:
+        run_dir = os.path.join(ROOT, "output", "gans", "mnist_fast")
+        gan = DefenseGAN(load_config(run_dir).replace(
+            output_dir=run_dir)).load()
+        x = gan.generate(g, n).reshape(n, -1) * 2.0 - 1.0
+        for tag, loop, pack_fn in (
+                ("v2", fused_projection_dense, pack_dense),
+                ("v2i", fused_projection_dense_int8, pack_dense_int8)):
+            if tag in want:
+                loops.append(("fused_projection_" + tag, loop,
+                              pack_fn(gan.generator), x, gan.cfg))
+    if "v3" in want:
+        deep = seeded_deep_gan()
+        perm = pack_generator(deep.generator, "s2d").perm[0]
+        x = (deep.generate(g, n).reshape(n, -1) * 2.0 - 1.0)[:, perm]
+        loops.append(("fused_projection_v3", fused_projection_s2d,
+                      pack_s2d(deep.generator), x, deep.cfg))
+    z0 = torch.randn(n, 128, device="cuda", generator=g)
+    for (name, loop, pack, x, cfg), chunk in [
             (lp, int(c)) for lp in loops for c in args.chunks.split(",")]:
+        kw = dict(rec_iters=args.iters, rec_lr=cfg.rec_lr,
+                  momentum=cfg.rec_momentum)
+
         def run():
             loop(pack, x, z0, **kw, **({"chunk": chunk} if chunk else {}))
             torch.cuda.synchronize()
@@ -94,7 +136,8 @@ def main(argv=None) -> int:
             "chunk": chunk or "default", "p": pack_width(pack),
             "call_ms": statistics.median(calls),
             "wall_ms": wall * 1e3, "device_ms": total / 1e3,
-            "kernels": [{"kernel": k[:120], "ms": us / 1e3, "count": c,
+            "kernels": [{"kernel": k[:120], "launch": launch_of(k),
+                         "ms": us / 1e3, "count": c,
                          "share": us / total if total else None}
                         for k, us, c in sorted(rows, key=lambda r: -r[1])]}),
             flush=True)

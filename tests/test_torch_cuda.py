@@ -7,8 +7,9 @@ it runs on a machine that has only the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (--noconftest: tests/conftest.py sets JAX up for the CPU suite.) The
-widths here (latent 32, F 1568) exercise the wrappers' padding of k and F
-to the kernels' 64-wide tiles; chip_smoke.py checks the flagship widths.
+widths here (latent 32; wide F 1568; deep c0 8, ca 16) exercise the
+wrappers' padding of k, F and the deep loop's channels to the kernels'
+64-wide tiles; chip_smoke.py checks the full widths.
 Tolerances are chip_smoke.py's elementwise bounds: kernel and plain
 version differ only in float32 summation order, which flips a bf16
 rounding (2^-8 relative) of an intermediate now and then, carried forward
@@ -24,6 +25,8 @@ from defensegan_torch.kernels.fused_projection_v2 import (
     dense_loop_plain, fused_projection_dense, pack_dense, pad_targets)
 from defensegan_torch.kernels.fused_projection_v2i import (
     dense_int8_loop_plain, fused_projection_dense_int8, pack_dense_int8)
+from defensegan_torch.kernels.fused_projection_v3 import (
+    fused_projection_s2d, pack_s2d, s2d_loop_plain)
 from defensegan_torch.models.generator import generator_for
 
 LR, MOM = 10.0, 0.7
@@ -37,8 +40,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _case(dev, n=128):
-    tg = generator_for("mnist", 4, torch.bfloat16, "wide", 32,
+def _case(dev, n=128, arch="wide"):
+    tg = generator_for("mnist", 4, torch.bfloat16, arch, 32,
                        gen=torch.Generator().manual_seed(0))
     tg = tg.to(dev).requires_grad_(False)
     rng = np.random.RandomState(0)
@@ -49,6 +52,8 @@ def _case(dev, n=128):
 
 def _kernel(name, tg):
     """(pack, wrapper, plain version, bf16 base pack) of a kernel."""
+    if name == "fused_projection_v3":
+        return pack_s2d(tg), fused_projection_s2d, s2d_loop_plain, None
     if name == "fused_projection_v2":
         pack = pack_dense(tg)
         return pack, fused_projection_dense, dense_loop_plain, pack
@@ -57,22 +62,32 @@ def _kernel(name, tg):
             pack.base)
 
 
-KERNELS = ["fused_projection_v2", "fused_projection_v2i"]
+KERNELS = ["fused_projection_v2", "fused_projection_v2i",
+           "fused_projection_v3"]
+
+
+def _arch(name):
+    return "deep" if name == "fused_projection_v3" else "wide"
+
+
+def _targets(base, x):
+    """The plain version's x: v2 / v2i pad it to P; v3 takes it as is."""
+    return x if base is None else pad_targets(base, x, x.shape[0])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("steps", [1, 5])
 @pytest.mark.parametrize("name", KERNELS)
 def test_kernel_matches_plain(cuda_device, name, steps):
-    tg, x, z0 = _case(cuda_device)
+    tg, x, z0 = _case(cuda_device, arch=_arch(name))
     pack, run, plain, base = _kernel(name, tg)
     before = build.LAUNCHES[name]
     got = run(pack, x, z0, rec_iters=steps, rec_lr=LR, momentum=MOM,
               chunk=64)
     torch.cuda.synchronize()
     assert build.LAUNCHES[name] == before + 2     # two 64-row chunks
-    ref = plain(pack, pad_targets(base, x, x.shape[0]), z0,
-                rec_iters=steps, rec_lr=LR, momentum=MOM)
+    ref = plain(pack, _targets(base, x), z0, rec_iters=steps, rec_lr=LR,
+                momentum=MOM)
     moved = (ref - z0).abs().max().item()
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max().item() <= TOL[steps] * moved
@@ -85,7 +100,7 @@ def test_kernel_pads_rows_and_chunks_exactly(cuda_device, name):
     cropped; a row's result does not depend on the other rows, so 64-row
     chunks (the last one short after padding) equal one chunk bit for
     bit, and both match the plain version."""
-    tg, x, z0 = _case(cuda_device, n=200)
+    tg, x, z0 = _case(cuda_device, n=200, arch=_arch(name))
     pack, run, plain, base = _kernel(name, tg)
     kw = dict(rec_iters=5, rec_lr=LR, momentum=MOM)
     before = build.LAUNCHES[name]
@@ -94,7 +109,7 @@ def test_kernel_pads_rows_and_chunks_exactly(cuda_device, name):
     torch.cuda.synchronize()
     assert build.LAUNCHES[name] == before + 1 + 4   # 256 padded rows
     assert one.shape == (200, 32) and torch.equal(one, chunked)
-    ref = plain(pack, pad_targets(base, x, 200), z0, **kw)
+    ref = plain(pack, _targets(base, x), z0, **kw)
     moved = (ref - z0).abs().max().item()
     assert (one - ref).abs().max().item() <= TOL[5] * moved
 

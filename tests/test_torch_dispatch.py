@@ -1,0 +1,165 @@
+"""PyTorch port: which projection path runs on the deep two-deconv
+generator (defensegan_torch/gan/defense_gan.py), and the `packed` route's
+parity with the JAX package.
+
+`resolve_projection_kernel` is held against the JAX package's resolver on
+the same requests (JAX's on_tpu plays the port's on_cuda; JAX degrades a
+kernel request under back_prop to the plain path where the port raises).
+`packed` with PACKED_VARIANT auto packs s2d on a deep generator in both
+packages, runs the loop in s2d pixel order and returns x_hat in image
+order: float32, same weights, x and z0, tolerance 1e-3 relative on the
+losses (float32 summation order carried through the lr = 10 momentum
+steps), equal argmins.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from defensegan_tpu.configs import Config as JaxConfig
+from defensegan_tpu.gan import DefenseGAN as JaxGAN
+from defensegan_tpu.gan.defense_gan import \
+    resolve_projection_kernel as jax_resolve
+from defensegan_torch.ckpt.bridge import load_flax_tree
+from defensegan_torch.configs import Config
+from defensegan_torch.defense import fastgen
+from defensegan_torch.gan import DefenseGAN, resolve_projection_kernel
+
+torch.set_num_threads(2)
+
+LATENT, RR, ITERS = 16, 3, 5
+
+
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("run"))
+    kw = dict(type="mnist", gen_arch="deep", gen_dim=4, disc_dim=4,
+              latent_dim=LATENT, rec_rr=RR, rec_iters=ITERS,
+              compute_dtype="float32", output_dir=out)
+    jgan = JaxGAN(JaxConfig(**kw))
+    tgan = DefenseGAN(Config(**kw), device="cpu")
+    load_flax_tree(tgan.generator,
+                   jax.tree.map(np.asarray, jgan.state.gen_params),
+                   jax.tree.map(np.asarray, jgan.state.gen_stats))
+    return jgan, tgan
+
+
+@pytest.mark.parametrize("requested,on_cuda,back_prop,path", [
+    ("auto", True, False, "pallas"),
+    ("pallas", True, False, "pallas"),
+    ("pallas_int8", True, False, "pallas"),      # bf16 v3: no int8 deep loop
+    ("packed", True, False, "packed"),
+    ("xla", True, False, "xla"),
+    ("auto", True, True, "xla"),
+    ("packed", True, True, "packed"),
+    ("xla", True, True, "xla"),
+    ("auto", False, False, "xla"),
+    ("pallas", False, False, "xla"),
+    ("pallas_int8", False, False, "xla"),
+    ("packed", False, False, "packed"),
+    ("xla", False, False, "xla"),
+    ("pallas", False, True, "xla"),
+])
+def test_deep_dispatch_matches_jax(pair, requested, on_cuda, back_prop, path):
+    jgan, tgan = pair
+    got = resolve_projection_kernel(tgan, requested=requested,
+                                    back_prop=back_prop, on_cuda=on_cuda)
+    assert got == path
+    # n = 64 rows: a batch JAX's tile-64 guard lets through (the port pads)
+    assert jax_resolve(jgan, n=64, back_prop=back_prop, requested=requested,
+                       on_tpu=on_cuda) == path
+
+
+@pytest.mark.parametrize("requested", ["pallas", "pallas_int8"])
+def test_deep_kernel_request_under_back_prop_raises_on_cuda(pair, requested):
+    """An explicit kernel request that cannot run raises on CUDA instead
+    of changing path quietly (JAX degrades it to the plain path)."""
+    _, tgan = pair
+    with pytest.raises(NotImplementedError, match="backward"):
+        resolve_projection_kernel(tgan, requested=requested, back_prop=True,
+                                  on_cuda=True)
+
+
+def test_uncovered_generator_still_raises_and_names_the_roadmap(tmp_path):
+    celeba = DefenseGAN(Config(type="celeba", gen_arch="deep", gen_dim=2,
+                               latent_dim=8, image_size=64, channels=3,
+                               output_dir=str(tmp_path)), device="cpu")
+    assert resolve_projection_kernel(celeba, requested="auto",
+                                     on_cuda=True) == "xla"
+    for requested in ("pallas", "pallas_int8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            resolve_projection_kernel(celeba, requested=requested,
+                                      on_cuda=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        resolve_projection_kernel(celeba, requested="pallas_v4",
+                                  on_cuda=True)
+
+
+def _inputs(seed=0, b=4):
+    rng = np.random.RandomState(seed)
+    return (rng.rand(b, 28, 28, 1).astype(np.float32),
+            rng.randn(b, RR, LATENT).astype(np.float32))
+
+
+def _jax_packed(jgan, x, z0):
+    fn, mode = jgan._reconstructor_for("packed", RR, ITERS, jgan.cfg.rec_lr,
+                                       False)
+    assert mode == "xz"
+    return fn(jnp.asarray(x), jnp.asarray(z0))
+
+
+def test_packed_auto_on_deep_takes_the_s2d_route(pair, monkeypatch):
+    jgan, tgan = pair
+    x, z0 = _inputs()
+    ref = _jax_packed(jgan, x, z0)
+    seen = []
+    real = fastgen.pack_generator
+    monkeypatch.setattr(
+        fastgen, "pack_generator",
+        lambda g, variant="conv", dtype=None: (
+            seen.append(variant), real(g, variant, dtype))[1])
+    tgan._reconstructors.clear()
+    got = tgan.reconstruct(torch.from_numpy(x), kernel="packed",
+                           z0=torch.from_numpy(z0))
+    assert seen == ["s2d"] and tgan.last_kernel == "packed"
+    assert got.x_hat.shape == (4, 28, 28, 1)
+    np.testing.assert_allclose(got.all_losses.numpy(),
+                               np.asarray(ref.all_losses), rtol=1e-3)
+    np.testing.assert_array_equal(got.all_losses.numpy().argmin(1),
+                                  np.asarray(ref.all_losses).argmin(1))
+    # x_hat is back in image order: equal to JAX's and to the plain path's
+    np.testing.assert_allclose(got.x_hat.numpy(), np.asarray(ref.x_hat),
+                               atol=1e-3)
+    xla = tgan.reconstruct(torch.from_numpy(x), kernel="xla",
+                           z0=torch.from_numpy(z0))
+    np.testing.assert_allclose(got.x_hat.numpy(), xla.x_hat.numpy(),
+                               atol=1e-3)
+    np.testing.assert_allclose(got.all_losses.numpy(),
+                               xla.all_losses.numpy(), rtol=1e-3)
+
+
+@pytest.mark.parametrize("variant", ["conv", "phase", "hybrid", "s2d"])
+def test_packed_variants_agree_on_deep(pair, variant):
+    """Every PACKED_VARIANT the JAX package accepts runs in the port and
+    projects to the same result as the plain path."""
+    _, tgan = pair
+    x, z0 = _inputs(seed=1)
+    xla = tgan.reconstruct(torch.from_numpy(x), kernel="xla",
+                           z0=torch.from_numpy(z0))
+    gan = DefenseGAN(tgan.cfg.replace(packed_variant=variant), device="cpu")
+    gan.generator.load_state_dict(tgan.generator.state_dict())
+    got = gan.reconstruct(torch.from_numpy(x), kernel="packed",
+                          z0=torch.from_numpy(z0))
+    np.testing.assert_allclose(got.all_losses.numpy(),
+                               xla.all_losses.numpy(), rtol=1e-3)
+    np.testing.assert_allclose(got.x_hat.numpy(), xla.x_hat.numpy(),
+                               atol=1e-3)
+
+
+def test_cpu_auto_on_deep_runs_the_plain_path(pair):
+    _, tgan = pair
+    x, z0 = _inputs(seed=2, b=2)
+    tgan.reconstruct(torch.from_numpy(x), z0=torch.from_numpy(z0))
+    assert tgan.last_kernel == "xla"

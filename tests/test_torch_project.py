@@ -169,10 +169,10 @@ def test_resolve_projection_kernel(tmp_path):
     assert r(wide, "pallas", on_cuda=False) == "packed"
     assert r(wide, "pallas_int8", back_prop=True, on_cuda=False) == "packed"
     assert r(wide, "xla") == "xla"
-    assert r(deep, "auto") == "xla"
+    # the deep two-deconv generator runs the bf16 s2d kernel (v3)
+    assert r(deep, "auto") == "pallas"
+    assert r(deep, "pallas") == "pallas"
     assert r(deep, "pallas", on_cuda=False) == "xla"
-    with pytest.raises(NotImplementedError, match="v3"):
-        r(deep, "pallas")
     assert r(big, "auto") == "packed"
     with pytest.raises(NotImplementedError, match="no ported kernel"):
         r(big, "pallas")
