@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's two served paths and holds every kernel of them against
-its plain PyTorch version:
+Drives the port's three served paths and holds every kernel of them
+against its plain PyTorch version:
 
   - the flagship (configs/gans/mnist_fast.yml: wide generator, k 128,
     F 6272, 784 outputs padded to P 832; trained step-20000 weights from
@@ -15,34 +15,50 @@ its plain PyTorch version:
     weights are the seeded init, with every BatchNorm's scale, bias,
     running mean and variance set from a seeded generator so that the BN
     fold is not the identity. No accuracy is stated for it.
+  - the 64x64 generator (configs/gans/celeba.yml: k 128, fc -> 4x4x512 ->
+    three 5x5/2 deconvs -> 32x32x64 -> deconv -> 64x64x3, R 2, L 200) on
+    kernel v4, requested as PROJECTION_KERNEL pallas_v4 (opt-in: auto stays
+    on the generic path). Seeded weights like the deep model's: no trained
+    64x64 checkpoint is in the repository. celeba_wide.yml (three levels)
+    and imagenet64.yml (k 256, widths of 96) run one step each against the
+    plain version, and the deep MNIST model runs through v4 once as its
+    two-level edge case.
 
   1. device: the card's name and power limit; builds the CUDA kernels
      from csrc/ (one nvcc per source, concurrently)
   2. load: DefenseGAN on cuda, the flagship from output/gans/mnist_fast/
-     export, the deep one seeded
+     export, the deep and the 64x64 ones seeded
   3. kernels vs plain versions at full width:
-       a. z_final after L = 1 and L = 5 steps at 512 rows, elementwise;
-          and 192-row chunks (the last one short) bit for bit against one
-          chunk
-       b. L = 200, R = 10 at the timed shape, 1024 images (512 clean, 512
-          with +-0.1 noise): [B, R] final losses by the tie-aware
-          measure, each kernel against its own plain version; int8
-          against the fp32 plain path with the bf16 kernel as the control
-          (the int8_gate.json criterion); v3 also by the relative error of
-          the final losses (its seeded weights can leave the tie-aware
-          gate vacuous, which the line then says)
+       a. z_final after L = 1 and L = 5 steps at 512 rows, elementwise
+          (v3 and v4 row by row, beside the plain version's own float32
+          against float64 drift); and 192-row chunks (the last one short)
+          bit for bit against one chunk; v4 also at L = 1, 128 rows, on
+          celeba_wide.yml and imagenet64.yml
+       b. L = 200 at the timed shapes (R 10, 1024 images; v4: R 2, 512
+          images), half clean and half with +-0.1 noise: [B, R] final
+          losses by the tie-aware measure, each kernel against its own
+          plain version; int8 against the fp32 plain path with the bf16
+          kernel as the control (the int8_gate.json criterion); v3 and v4
+          also by the relative error of the final losses (seeded weights
+          can leave the tie-aware gate vacuous, which the line then says);
+          v4 against the fp32 generic path (kernel="xla") with its plain
+          version as the control
   4. serving, all launch counters set to 0 just before: DefendedPipeline
      (classifier E, seeded random init: no trained classifier is in the
      repository) calibrate + predict on the flagship with
      PROJECTION_KERNEL auto (-> v2), pallas_int8 (-> v2i) and
-     rec_init=encoder, and on the deep model with auto (-> v3); direct
-     reconstructs of 100 images (1000 rows); one AuditedPipeline (serve
-     R 2 x L 50 encoder init, audit R 10 x L 200, audit_prob 0.1) on the
-     flagship; every kernel's counter must have risen
-  5. timing at 1024 images x R 10 x L 200 (median of 3, synchronized):
-     each kernel, its plain version, the library yardstick (the same loop
-     on torch.matmul / torch._int_mm / cuDNN convolutions, which the port
-     never calls), and the fp32 plain path of the flagship
+     rec_init=encoder, on the deep model with auto (-> v3), and on the
+     64x64 model with pallas_v4 (-> v4; a two-class classifier, the
+     requests as uint8); direct reconstructs of 100 images (auto on the
+     64x64 model must report xla and launch nothing); one AuditedPipeline
+     (serve R 2 x L 50 encoder init, audit R 10 x L 200, audit_prob 0.1)
+     on the flagship; every kernel's counter must have risen
+  5. timing at 1024 images x R 10 x L 200 (v4: 512 images x R 2 x L 200),
+     median of 3, synchronized: each kernel, its plain version (v4's: one
+     run after the warm-up), the library yardstick (the same loop on
+     torch.matmul / torch._int_mm / cuDNN convolutions, which the port
+     never calls), the fp32 plain path of the flagship and the generic
+     path (kernel="xla") of the 64x64 model in fp32 and in its own bf16
   6. the `kernels` line, then {"ok": true, "device": {...}} last.
 
 Every phase prints one JSON line; any failed check exits nonzero. There is
@@ -61,8 +77,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(ROOT, "output", "gans", "mnist_fast")
-DEEP_CFG = os.path.join(ROOT, "defensegan_torch", "configs", "gans",
-                        "mnist.yml")
+CFG_DIR = os.path.join(ROOT, "defensegan_torch", "configs", "gans")
+DEEP_CFG = os.path.join(CFG_DIR, "mnist.yml")
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet)
 PEAK_BF16 = 989e12
@@ -85,12 +101,26 @@ ELEMENTWISE_TOL = {1: 4e-3, 5: 2e-2}
 # misplaced tap or mask moves every row by tens of percent), and the worst
 # row within the looser bound below.
 V3_WORST_ROW_TOL = {1: 5e-2, 5: 1e-1}
+# v4 is held the same way, relative to the same control. A row of
+# celeba.yml holds 139264 activations over four levels, each a sum of up to
+# 9 x 512 products (9 x 768 for imagenet64.yml), so every row carries some
+# flipped bf16 roundings and the control itself moves the MEDIAN row: by
+# 1.4e-3 of its step at L = 1 and 7.7e-3 at L = 5 on celeba.yml, 2.3e-3 at
+# L = 1 on imagenet64.yml. Over three models, three seeds and 128 or 512
+# rows the kernel's median row moved 1.1 to 2.1 times as far as the
+# control's (at most 2.2e-3 on celeba.yml, 4.9e-3 on imagenet64.yml) and
+# its worst row 0.7 to 2.2 times (scripts/torch_v4_row_drift.py; NVIDIA
+# H100 80GB HBM3, 700.00 W). So v4's median row is held to the larger of
+# the elementwise bound above and 3 times the control's median row, its
+# worst row to the larger of v3's bound and 3 times the control's worst
+# row. A misplaced tap, lane or interleave moves every row by tens of
+# percent (v4_row_bounds below).
 # (b) restart selection of a kernel against its own plain version:
 # material disagreement and best-loss p95 |delta| (the bf16 tie tau)
 MATERIAL_MAX = 0.03
 P95_MAX = 2e-3
-# (b) for v3 also the relative error of the kernel's final [B, R] losses
-# against the plain version's: median and 95th percentile
+# (b) for v3 and v4 also the relative error of the kernel's final [B, R]
+# losses against the plain version's: median and 95th percentile
 V3_LOSS_REL_P50_MAX = 1e-2
 V3_LOSS_REL_P95_MAX = 1e-1
 # (4) mean best-restart tanh-space MSE on clean G(z) requests: an
@@ -98,6 +128,13 @@ V3_LOSS_REL_P95_MAX = 1e-1
 CLEAN_LOSS_MAX = 0.02
 
 RECORD: dict = {}
+
+
+def v4_row_bounds(steps: int, control: dict):
+    """(median-row bound, worst-row bound) of v4 against its plain version,
+    given the plain version's float32-against-float64 row errors."""
+    return (max(ELEMENTWISE_TOL[steps], 3.0 * control["row_rel_p50"]),
+            max(V3_WORST_ROW_TOL[steps], 3.0 * control["row_rel_max"]))
 
 
 def emit(phase: str, **kw) -> None:
@@ -111,8 +148,10 @@ def fail(msg: str) -> None:
 
 
 def median_ms(fn, repeats: int = 3) -> float:
+    """Median host time of `repeats` synchronized calls after one warm-up
+    call (which also takes the first-use build)."""
     import torch
-    fn()                                   # warm-up (and first-use build)
+    fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
@@ -200,6 +239,59 @@ def library_loop_v3(pack, x_s2d, z0, *, rec_iters, rec_lr, momentum):
     return z
 
 
+def library_loop_v4(pack, x_flat, z0, *, rec_iters, rec_lr, momentum):
+    """The v4 loop on the library's calls, in bf16: torch.matmul for the
+    fc, F.conv2d (cuDNN, channels-last) for every level's 3x3 grid conv and
+    its input gradient, the interleaves as reshapes. The yardstick only; it
+    rounds where bf16 tensors round, not where the kernel does."""
+    import torch
+    import torch.nn.functional as F
+    from defensegan_torch.defense.fastgen import _s2d, _s2d_inv
+    bf, cl = torch.bfloat16, torch.channels_last
+    n, g0, c0, fg = z0.shape[0], pack.base_hw, pack.c0, pack.final_g
+    convs = []
+    for lv in pack.levels:
+        w = lv.w.reshape(3, 3, lv.ci, lv.co).permute(3, 2, 0, 1)   # OIHW
+        convs.append((w.contiguous(memory_format=cl),
+                      w.flip(2, 3).transpose(0, 1).contiguous(
+                          memory_format=cl), lv.b.reshape(1, -1, 1, 1)))
+
+    def nhwc(t):
+        return t.permute(0, 2, 3, 1)
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    b1 = pack.b1.reshape(1, -1)
+    x = nchw(x_flat.float().reshape(n, fg, fg, pack.out_lanes))
+    scale = 2.0 / pack.out_dim
+    z = z0.clone()
+    v = torch.zeros_like(z)
+    for _ in range(rec_iters):
+        h0 = torch.relu(torch.matmul(z.to(bf), pack.w1).float() + b1)
+        acts = [nchw(h0.reshape(n, g0, g0, c0))]
+        h = acts[0].to(bf)
+        for lv, (w, _, b) in zip(pack.levels, convs):
+            a = F.conv2d(h, w, padding=1).float() + b
+            acts.append(torch.relu(a) if lv.relu else a)
+            h = acts[-1].to(bf)
+            if lv.interleave_after is not None:
+                h = nchw(_s2d_inv(nhwc(h), 2, lv.interleave_after))
+        t = torch.tanh(acts[-1])
+        d = ((t - x) * (1.0 - t * t) * scale).to(bf)
+        for i in range(len(pack.levels) - 1, -1, -1):
+            lv = pack.levels[i]
+            if lv.interleave_after is not None:
+                d = nchw(_s2d(nhwc(d), 2))
+            if lv.relu:
+                d = torch.where(acts[i + 1] > 0, d, 0.0)
+            d = F.conv2d(d, convs[i][1], padding=1)
+        dh0 = nhwc(torch.where(acts[0] > 0, d, 0.0)).reshape(n, -1)
+        v = momentum * v + torch.matmul(dh0, pack.w1t).float()
+        z = z - rec_lr * v
+    return z
+
+
 def bounds(name: str, pack, n: int, iters: int) -> dict:
     """Least time for the loop at this shape: max(bytes / HBM rate,
     operations / peak rate per type). Inputs read once (weights, x, z0),
@@ -260,26 +352,96 @@ def bounds_v3(generator, pack, n: int, iters: int) -> dict:
             "kernel_mflop": computed / 1e6}
 
 
-def seeded_deep_gan():
-    """The deep mnist.yml model on cuda as this smoke serves it: seeded
-    init (no trained deep checkpoint is in the repository) with every
-    BatchNorm's scale, bias, running mean and variance drawn from a seeded
-    generator, so that the BN fold is not the identity."""
+def bounds_v4(generator, pack, n: int, iters: int) -> dict:
+    """As `bounds_v3`, for the multi-level loop: the operations are the
+    function's own (fc and every 5x5 stride-2 transpose conv, forward and
+    input gradient, only the multiply-adds that land inside the output);
+    the dense grid-conv form counts the zero taps of the space-to-depth
+    kernels on top, and the kernel issues that form less the skipped
+    border taps plus its padding (kernel_mflop)."""
+    from defensegan_torch.kernels.fused_projection_v3 import _tap_masks
+    from defensegan_torch.kernels.fused_projection_v4 import padded_v4
+    k, hw = generator.latent_dim, generator.base_hw
+    chans = list(generator.channels) + [generator.out_channels]
+    macs = k * hw * hw * chans[0]
+    for i in range(len(chans) - 1):
+        macs += deconv_macs(hw << i, chans[i], chans[i + 1])
+    t_ops = n * iters * 4 * macs / PEAK_BF16
+    tensors = [pack.w1, pack.w1t, pack.b1] + [
+        t for lv in pack.levels for t in (lv.w, lv.wt, lv.b)]
+    w_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_bytes = (w_bytes + 2 * n * k * 4 + n * pack.out_dim * 2) / PEAK_BYTES
+    fc = k * hw * hw * chans[0]
+    dense = 4 * (fc + sum(lv.g ** 2 * 9 * lv.ci * lv.co
+                          for lv in pack.levels))
+    pp = padded_v4(pack)
+    computed = 4 * (pp.z_dim * hw * hw * pp.c0 + sum(
+        int(_tap_masks(lv.g).sum()) * lv.ci * lv.co for lv in pp.levels))
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "function_mflop": 4 * macs / 1e6, "s2d_dense_mflop": dense / 1e6,
+            "kernel_mflop": computed / 1e6, "weight_mbytes": w_bytes / 1e6}
+
+
+def seeded_gan(cfg_path: str, running_stats: bool = False):
+    """A model on cuda with seeded weights, as this smoke serves the ones
+    that have no trained checkpoint in the repository: seeded init with
+    every BatchNorm's scale, bias, running mean and variance drawn from a
+    seeded generator, so that the BN fold is not the identity.
+
+    running_stats=True centres each BatchNorm's mean and variance draws on
+    the statistics of the activations it normalises (over 256 seeded
+    latents, layer by layer), as the running averages of a trained network
+    are. A stride-2 5x5 transpose conv meets only a quarter of its taps per
+    output, so under the plain init each level shrinks its activations: a
+    four-deconv stack with unit variances then generates nearly constant
+    images whose projection gradient is close to zero. With running
+    statistics the seeded generator has contrast and about half of every
+    relu mask set, which is what the loop has to get right.
+    """
     import torch
     from defensegan_torch.configs import load_config
     from defensegan_torch.gan import DefenseGAN
-    cfg = load_config(DEEP_CFG)
-    deep = DefenseGAN(cfg)
-    gb = torch.Generator(device=deep.device).manual_seed(cfg.seed + 7)
-    for bn in (deep.generator.bn_in, deep.generator.bn_0):
+    cfg = load_config(cfg_path)
+    gan = DefenseGAN(cfg)
+    gb = torch.Generator(device=gan.device).manual_seed(cfg.seed + 7)
+    z = torch.randn(256, cfg.latent_dim, device=gan.device, generator=gb) \
+        if running_stats else None
+    for name, bn in gan.generator.named_children():
+        if not name.startswith("bn_"):
+            continue
+
         def draw(scale, kind=torch.randn):
-            return scale * kind(bn.scale.shape, device=deep.device,
+            return scale * kind(bn.scale.shape, device=gan.device,
                                 generator=gb)
         bn.scale.copy_(1.0 + draw(0.3))
         bn.bias.copy_(draw(0.2))
         bn.mean.copy_(draw(0.2))
         bn.var.copy_(0.5 + draw(1.0, torch.rand))
-    return deep
+        if running_stats:
+            seen = []
+            hook = bn.register_forward_pre_hook(
+                lambda mod, args: seen.append(args[0].float()))
+            with torch.no_grad():
+                gan.generator(z)
+            hook.remove()
+            var, mean = torch.var_mean(seen[0], dim=(0, 2, 3))
+            bn.mean.copy_(mean + bn.mean * var.sqrt())
+            bn.var.copy_(bn.var * var)
+    return gan
+
+
+def seeded_deep_gan():
+    """The deep mnist.yml model (bn_in, bn_0), seeded."""
+    return seeded_gan(DEEP_CFG)
+
+
+def seeded_celeba_gan(name: str = "celeba"):
+    """A 64x64 model, seeded: celeba (fc -> 4x4x512, four deconvs),
+    celeba_wide (fc -> 8x8x256, three) or imagenet64 (k 256, widths of
+    96)."""
+    return seeded_gan(os.path.join(CFG_DIR, name + ".yml"),
+                      running_stats=True)
 
 
 def row_errors(got, ref, z0) -> dict:
@@ -325,6 +487,8 @@ def main() -> int:
         dense_int8_loop_plain, fused_projection_dense_int8, pack_dense_int8)
     from defensegan_torch.kernels.fused_projection_v3 import (
         fused_projection_s2d, pack_s2d, s2d_loop_plain)
+    from defensegan_torch.kernels.fused_projection_v4 import (
+        fused_projection_v4, pack_v4, v4_loop_plain, x_rows)
     from defensegan_torch.models import build_classifier, from_image_space
 
     # fp32 references run in full float32 (no TF32 in products or convs)
@@ -368,8 +532,25 @@ def main() -> int:
          channels=list(deep.generator.channels), latent=dcfg.latent_dim,
          rr=dcfg.rec_rr, iters=dcfg.rec_iters)
 
+    # the 64x64 model: seeded like the deep one (no trained 64x64
+    # checkpoint is in the repository); a float32 copy of it is the fp32
+    # generic path that v4 is gated against
+    celeba = seeded_celeba_gan()
+    ccfg = celeba.cfg
+    celeba32 = DefenseGAN(ccfg.replace(compute_dtype="float32"))
+    celeba32.generator.load_state_dict(celeba.generator.state_dict())
+    if (ccfg.latent_dim, ccfg.rec_iters, ccfg.rec_lr, ccfg.rec_momentum) \
+            != (k, iters, lr, mom):
+        fail("celeba.yml and mnist_fast.yml differ in k, L, lr or m")
+    emit("load_celeba", weights="seeded", device=str(celeba.device),
+         dtype=str(celeba.dtype), gen_arch=ccfg.gen_arch,
+         channels=list(celeba.generator.channels), latent=ccfg.latent_dim,
+         rr=ccfg.rec_rr, iters=ccfg.rec_iters,
+         image_shape=list(ccfg.image_shape))
+
     g = torch.Generator(device=dev).manual_seed(1234)
     gd = torch.Generator(device=dev).manual_seed(4321)   # the deep phases'
+    gc = torch.Generator(device=dev).manual_seed(2468)   # the 64x64 phases'
     p2 = pack_dense(gan.generator)
     p8 = pack_dense_int8(gan.generator)
     p32 = pack_dense(gan.generator, torch.float32)
@@ -380,6 +561,19 @@ def main() -> int:
     s2d_packed = pack_generator(deep.generator, "s2d")
     apply_s2d = make_packed_apply(s2d_packed)
     pdim = p2.d.shape[1]
+    t0 = time.perf_counter()
+    p4 = pack_v4(celeba.generator)
+    pack_v4_s = time.perf_counter() - t0
+    apply_conv = make_packed_apply(pack_generator(celeba.generator, "conv"))
+
+    def rows_v4(x_img, r, pack=None):
+        """The v4 loop's targets: tanh rows in double-blocked order."""
+        return tile_restarts(x_rows(pack or p4, from_image_space(x_img)), r)
+
+    def apply_v4(z):
+        """G(z) in the order of the v4 loop's targets (the loss is a mean
+        over all outputs, so any one order serves on both sides)."""
+        return x_rows(p4, apply_conv(z).reshape((-1,) + ccfg.image_shape))
 
     def x_pad_of(x_flat_tanh):
         return F.pad(x_flat_tanh.to(torch.bfloat16),
@@ -394,32 +588,42 @@ def main() -> int:
         return rows_flat(x_img, r)[:, s2d_packed.perm[0]]
 
     # per kernel: its model and generator stream, the wrapper's x rows,
-    # the plain version's x, and the packed apply that scores z_final
+    # the plain version's x, the packed apply that scores z_final, and the
+    # timed shape (images, restarts; L = 200 for all)
+    big = dict(b=1024, rr=rr)
     kernels = {
         "fused_projection_v2": dict(
             run=fused_projection_dense, plain=dense_loop_plain, pack=p2,
             library=library_loop_v2, gan=gan, gen=g, rows=rows_flat,
-            plain_x=x_pad_of, apply=apply_bf, request="pallas",
+            plain_x=x_pad_of, apply=apply_bf, request="pallas", **big,
             source="defensegan_torch/csrc/fused_projection_v2.cu",
             replaces="defensegan_tpu/kernels/fused_projection_v2.py:85"),
         "fused_projection_v2i": dict(
             run=fused_projection_dense_int8, plain=dense_int8_loop_plain,
             pack=p8, library=library_loop_v2i, gan=gan, gen=g,
             rows=rows_flat, plain_x=x_pad_of, apply=apply_bf,
-            request="pallas_int8",
+            request="pallas_int8", **big,
             source="defensegan_torch/csrc/fused_projection_v2i.cu",
             replaces="defensegan_tpu/kernels/fused_projection_v2i.py:81"),
         "fused_projection_v3": dict(
             run=fused_projection_s2d, plain=s2d_loop_plain, pack=p3,
             library=library_loop_v3, gan=deep, gen=gd, rows=rows_s2d,
-            plain_x=lambda x: x, apply=apply_s2d, request="pallas",
+            plain_x=lambda x: x, apply=apply_s2d, request="pallas", **big,
             source="defensegan_torch/csrc/fused_projection_v3.cu",
             replaces="defensegan_tpu/kernels/fused_projection_v3.py:138"),
+        "fused_projection_v4": dict(
+            run=fused_projection_v4, plain=v4_loop_plain, pack=p4,
+            library=library_loop_v4, gan=celeba, gen=gc, rows=rows_v4,
+            plain_x=lambda x: x, apply=apply_v4, request="pallas_v4",
+            b=512, rr=ccfg.rec_rr,
+            source="defensegan_torch/csrc/fused_projection_v4.cu",
+            replaces="defensegan_tpu/kernels/fused_projection_v4.py:251"),
     }
-    V3 = "fused_projection_v3"
+    V3, V4 = "fused_projection_v3", "fused_projection_v4"
+    ROW_WISE = (V3, V4)          # held row by row, with the f64 control
 
     def images(n, kk=kernels["fused_projection_v2"]):
-        """Clean requests G(z_true), [n, 28, 28, 1] in [0, 1]."""
+        """Clean requests G(z_true), [n, H, W, C] in [0, 1]."""
         return kk["gan"].generate(kk["gen"], n)
 
     def noisy(x, gen=g):
@@ -429,7 +633,7 @@ def main() -> int:
 
     # ------------------------------------- 3a. elementwise, L = 1 and 5
     inputs = {}
-    for name in ("fused_projection_v2", V3):        # v2i shares v2's draws
+    for name in ("fused_projection_v2", V3, V4):    # v2i shares v2's draws
         kk = kernels[name]
         inputs[name] = (kk["rows"](images(512, kk), 1),
                         torch.randn(512, k, device=dev, generator=kk["gen"]))
@@ -437,27 +641,28 @@ def main() -> int:
     errs = {name: {} for name in kernels}
     for steps, tol in ELEMENTWISE_TOL.items():
         for name, kk in kernels.items():
-            x_rows, z0 = inputs[name]
+            xr, z0 = inputs[name]
             kw = dict(rec_iters=steps, rec_lr=lr, momentum=mom)
-            zk = kk["run"](kk["pack"], x_rows, z0, **kw)
-            zp = kk["plain"](kk["pack"], kk["plain_x"](x_rows), z0, **kw)
+            zk = kk["run"](kk["pack"], xr, z0, **kw)
+            zp = kk["plain"](kk["pack"], kk["plain_x"](xr), z0, **kw)
             # a row's result does not depend on the other rows: 192-row
             # chunks (192, 192, 128) must equal one chunk bit for bit
-            zc = kk["run"](kk["pack"], x_rows, z0, chunk=192, **kw)
+            zc = kk["run"](kk["pack"], xr, z0, chunk=192, **kw)
             torch.cuda.synchronize()
             e = row_errors(zk, zp, z0)
             chunked_equal = bool(torch.equal(zc, zk))
             errs[name][steps] = e["max_abs_err"]
             ok = bool(torch.isfinite(zk).all()) and chunked_equal
             extra = {}
-            if name == V3:
-                worst = V3_WORST_ROW_TOL[steps]
-                ok = ok and e["row_rel_p50"] <= tol \
-                    and e["row_rel_max"] <= worst
-                z64 = s2d_loop_plain(kk["pack"], x_rows, z0,
-                                     product_dtype=torch.float64, **kw)
+            if name in ROW_WISE:
+                z64 = kk["plain"](kk["pack"], xr, z0,
+                                  product_dtype=torch.float64, **kw)
                 c = row_errors(zp, z64, z0)
-                extra = dict(tol_row_p50=tol, tol_row_max=worst,
+                p50, worst = v4_row_bounds(steps, c) if name == V4 \
+                    else (tol, V3_WORST_ROW_TOL[steps])
+                ok = ok and e["row_rel_p50"] <= p50 \
+                    and e["row_rel_max"] <= worst
+                extra = dict(tol_row_p50=p50, tol_row_max=worst,
                              control_plain_f32_vs_f64=dict(
                                  rel=c["rel"], row_rel_p50=c["row_rel_p50"],
                                  row_rel_max=c["row_rel_max"]))
@@ -470,32 +675,76 @@ def main() -> int:
                 fail(f"{name} L={steps}: {e} against {extra} or chunks "
                      f"differ ({chunked_equal})")
 
-    # ------- 3b. L = 200, R = 10, 1024 images: 512 clean, 512 noisy
-    b = 1024
+    # 3a'. the level list at other widths: celeba_wide.yml (three levels,
+    # fc -> 8x8x256) and imagenet64.yml (k 256, widths of 96: 768 -> 384 ->
+    # 192 -> 96), one step at 128 rows against the plain version
+    for cfg_name in ("celeba_wide", "imagenet64"):
+        other = seeded_celeba_gan(cfg_name)
+        ocfg = other.cfg
+        t0 = time.perf_counter()
+        po = pack_v4(other.generator)
+        pack_s = time.perf_counter() - t0
+        xr = rows_v4(other.generate(gc, 128), 1, po)
+        z0 = torch.randn(128, ocfg.latent_dim, device=dev, generator=gc)
+        kw = dict(rec_iters=1, rec_lr=ocfg.rec_lr,
+                  momentum=ocfg.rec_momentum)
+        zk = fused_projection_v4(po, xr, z0, **kw)
+        torch.cuda.synchronize()
+        zp = v4_loop_plain(po, xr, z0, **kw)
+        e = row_errors(zk, zp, z0)
+        c = row_errors(zp, v4_loop_plain(po, xr, z0,
+                                         product_dtype=torch.float64, **kw),
+                       z0)
+        p50, worst = v4_row_bounds(1, c)
+        ok = bool(torch.isfinite(zk).all()) and e["row_rel_p50"] <= p50 \
+            and e["row_rel_max"] <= worst
+        emit(f"elementwise_{V4}_{cfg_name}_L1", **e,
+             levels=[[lv.g, lv.ci, lv.co, lv.interleave_after]
+                     for lv in po.levels], latent=ocfg.latent_dim,
+             pack_s=pack_s, tol_row_p50=p50, tol_row_max=worst,
+             control_plain_f32_vs_f64=dict(
+                 rel=c["rel"], row_rel_p50=c["row_rel_p50"],
+                 row_rel_max=c["row_rel_max"]), ok=ok)
+        if not ok:
+            fail(f"{V4} on {cfg_name}: {e}")
+        del other, po, xr, zk, zp
+
+    # ------- 3b. L = 200 at the timed shapes: half clean, half noisy
     loop_kw = dict(rec_iters=iters, rec_lr=lr, momentum=mom)
     losses = {}
-    for name in ("fused_projection_v2", V3):
+    for name in ("fused_projection_v2", V3, V4):
         kk = kernels[name]
-        clean = images(b // 2, kk)
-        x_rep = kk["rows"](torch.cat([clean, noisy(clean, kk["gen"])]), rr)
-        z0 = torch.randn(b * rr, k, device=dev, generator=kk["gen"])
+        clean = images(kk["b"] // 2, kk)
+        x_img = torch.cat([clean, noisy(clean, kk["gen"])])
+        x_rep = kk["rows"](x_img, kk["rr"])
+        z0 = torch.randn(kk["b"] * kk["rr"], k, device=dev,
+                         generator=kk["gen"])
         inputs[name] = (x_rep, z0)
+        if name == V4:
+            # the fp32 generic path on the same images and draws
+            losses["v4_fp32_xla"] = celeba32.reconstruct(
+                x_img, kernel="xla",
+                z0=z0.reshape(kk["b"], kk["rr"], k)).all_losses.cpu().numpy()
+            if celeba32.last_kernel != "xla":
+                fail(f"the fp32 generic path ran {celeba32.last_kernel}")
     inputs["fused_projection_v2i"] = inputs["fused_projection_v2"]
 
-    def final_losses(z_fin, apply, x_rep):
-        return rec_losses(apply, z_fin, x_rep).reshape(b, rr).cpu().numpy()
+    def final_losses(z_fin, kk, x_rep):
+        return rec_losses(kk["apply"], z_fin, x_rep).reshape(
+            kk["b"], kk["rr"]).cpu().numpy()
 
     for name, kk in kernels.items():
         x_rep, z0 = inputs[name]
         losses[name] = final_losses(
-            kk["run"](kk["pack"], x_rep, z0, **loop_kw), kk["apply"], x_rep)
+            kk["run"](kk["pack"], x_rep, z0, **loop_kw), kk, x_rep)
         losses[name + "_plain"] = final_losses(
             kk["plain"](kk["pack"], kk["plain_x"](x_rep), z0, **loop_kw),
-            kk["apply"], x_rep)
+            kk, x_rep)
     x_rep, z0 = inputs["fused_projection_v2"]
-    losses["fp32"] = final_losses(
-        dense_loop_plain(p32, F.pad(x_rep, (0, pdim - x_rep.shape[1])), z0,
-                         **loop_kw), apply_32, x_rep)
+    b = big["b"]
+    losses["fp32"] = rec_losses(apply_32, dense_loop_plain(
+        p32, F.pad(x_rep, (0, pdim - x_rep.shape[1])), z0, **loop_kw),
+        x_rep).reshape(b, rr).cpu().numpy()
     gate = {}
     for name in kernels:
         ref, test = losses[name + "_plain"], losses[name]
@@ -503,7 +752,8 @@ def main() -> int:
         p95 = best_loss_p95(ref, test)
         ok = tie["material_disagreement"] <= MATERIAL_MAX and p95 <= P95_MAX
         extra = {}
-        if name == V3:
+        if name in ROW_WISE:
+            half = kernels[name]["b"] // 2
             # with seeded weights the R restarts of an image can all end
             # within the tie threshold of each other, and then no pick is
             # ever "materially worse": say so, and hold the losses
@@ -514,8 +764,8 @@ def main() -> int:
                 tie_gate_vacuous=bool((spread < tie["tau"]).mean() > 0.5),
                 images_with_restart_spread_below_tau=float(
                     (spread < tie["tau"]).mean()),
-                mean_loss_clean=float(ref[:b // 2].mean()),
-                mean_loss_noisy=float(ref[b // 2:].mean()),
+                mean_loss_clean=float(ref[:half].mean()),
+                mean_loss_noisy=float(ref[half:].mean()),
                 loss_rel_p50=float(np.quantile(rel, 0.5)),
                 loss_rel_p95=float(np.quantile(rel, 0.95)),
                 loss_rel_p50_max=V3_LOSS_REL_P50_MAX,
@@ -542,8 +792,27 @@ def main() -> int:
          mean_best_loss_fp32_clean=float(ref32[:b // 2].min(1).mean()),
          mean_best_loss_fp32_noisy=float(ref32[b // 2:].min(1).mean()),
          criterion=criterion, ok=int8_ok)
-    if not all(gate.values()) or not int8_ok:
-        fail(f"selection gates: {gate}, int8 gate: {int8_ok}")
+    # v4 against the fp32 generic path, its plain version as the control
+    # (the int8 gate's criterion, control-relative on both axes: what bf16
+    # itself costs against fp32 is the plain version's to show, the kernel
+    # may add no more than the criterion's slack)
+    ref32, l4, l4p = losses["v4_fp32_xla"], losses[V4], losses[V4 + "_plain"]
+    t4, t4p = tie_aware_disagreement(ref32, l4), \
+        tie_aware_disagreement(ref32, l4p)
+    p4_, p4p = best_loss_p95(ref32, l4), best_loss_p95(ref32, l4p)
+    v4_ok = int8_gate_ok(t4["material_disagreement"],
+                         t4p["material_disagreement"], p4_, p4p)
+    emit("v4_gate_vs_fp32_xla",
+         argmin_agreement=float((ref32.argmin(1) == l4.argmin(1)).mean()),
+         material_v4=t4["material_disagreement"],
+         material_plain_control=t4p["material_disagreement"],
+         mean_regret=t4["mean_regret"], best_loss_p95_v4=p4_,
+         best_loss_p95_plain_control=p4p,
+         best_loss_mean_fp32=float(ref32.min(1).mean()),
+         best_loss_mean_v4=float(l4.min(1).mean()), ok=v4_ok)
+    if not all(gate.values()) or not int8_ok or not v4_ok:
+        fail(f"selection gates: {gate}, int8 gate: {int8_ok}, v4 against "
+             f"fp32: {v4_ok}")
 
     # ---------------------------------------------------- 4. serving path
     clf = build_classifier("E", gen=torch.Generator().manual_seed(0)) \
@@ -555,10 +824,22 @@ def main() -> int:
     xd_cal = images(256, kd)
     xd_clean = images(128, kd)
     xd_req = torch.cat([xd_clean, noisy(xd_clean, gd)])
+    # the 64x64 model: a two-class classifier (seeded), requests as uint8
+    kc = kernels[V4]
+    clf_c = build_classifier("E", num_classes=2,
+                             image_shape=ccfg.image_shape,
+                             gen=torch.Generator().manual_seed(1)) \
+        .to(dev).requires_grad_(False)
+    def as_uint8(x):
+        return (x * 255.0).round().to(torch.uint8)
+
+    xc_cal = as_uint8(images(256, kc))     # calibrated as it is served
+    xc_clean = images(128, kc)
+    xc_req = as_uint8(torch.cat([xc_clean, noisy(xc_clean, gc)]))
     build.reset_launches()
     serving = {}
 
-    def serve(label, model, cal, req, n_clean, loss_max, **kw):
+    def serve(label, model, cal, req, n_clean, loss_max, clf=clf, **kw):
         pipe = DefendedPipeline(model, clf, fpr=0.05, **kw)
         t0 = time.perf_counter()
         pipe.calibrate(cal)
@@ -590,10 +871,22 @@ def main() -> int:
           rec_kernel="auto")
     serving["deep_auto"]["unrelated_latent_loss"] = deep_unrelated
     v3_after_pipeline = build.LAUNCHES[V3]
+    with torch.no_grad():
+        celeba_unrelated = float(rec_losses(
+            apply_v4, torch.randn(128, k, device=dev, generator=gc),
+            rows_v4(xc_clean, 1)).mean())
+    serve("celeba_pallas_v4", celeba, xc_cal, xc_req, 128, celeba_unrelated,
+          clf=clf_c, rec_kernel="pallas_v4")
+    serving["celeba_pallas_v4"]["unrelated_latent_loss"] = celeba_unrelated
+    v4_after_pipeline = build.LAUNCHES[V4]
     # a direct call at a batch the kernels' 64-row tile does not divide
     # (100 images x R 10 = 1000 rows) still runs the requested kernel;
     # on the deep model pallas_int8 runs the bf16 v3 (there is no int8
-    # deep loop) and packed the plain s2d path
+    # deep loop) and packed the plain s2d path; on the 64x64 model
+    # pallas_v4 runs v4 and auto the generic path (v4 is opt-in); the deep
+    # model through pallas_v4 is v4's two-level edge case
+    limits = {id(gan): (g, CLEAN_LOSS_MAX), id(deep): (gd, deep_unrelated),
+              id(celeba): (gc, celeba_unrelated)}
     for label, model, x100, kernel, path, counter in (
             ("direct_pallas", gan, x_clean[:100], "pallas", "pallas",
              "fused_projection_v2"),
@@ -604,17 +897,22 @@ def main() -> int:
             ("deep_direct_pallas_int8", deep, xd_clean[:100], "pallas_int8",
              "pallas", V3),
             ("deep_direct_packed", deep, xd_clean[:100], "packed", "packed",
+             None),
+            ("deep_direct_pallas_v4", deep, xd_clean[:100], "pallas_v4",
+             "pallas_v4", V4),
+            ("celeba_direct_pallas_v4", celeba, xc_clean[:100], "pallas_v4",
+             "pallas_v4", V4),
+            ("celeba_direct_auto", celeba, xc_clean[:100], "auto", "xla",
              None)):
         before = dict(build.LAUNCHES)
-        res = model.reconstruct(x100, g if model is gan else gd,
-                                kernel=kernel)
+        gen_m, loss_max = limits[id(model)]
+        res = model.reconstruct(x100, gen_m, kernel=kernel)
         torch.cuda.synchronize()
         rose = {n: build.LAUNCHES[n] - before[n] for n in kernels}
         serving[label] = dict(
             path=model.last_kernel, clean_mean_loss=float(res.loss.mean()),
             finite=bool(torch.isfinite(res.x_hat).all()),
             shape=list(res.x_hat.shape), launched=rose)
-        loss_max = CLEAN_LOSS_MAX if model is gan else deep_unrelated
         if model.last_kernel != path or not serving[label]["finite"] \
                 or float(res.loss.mean()) > loss_max \
                 or res.x_hat.shape != x100.shape \
@@ -653,50 +951,66 @@ def main() -> int:
     if serving["auto"]["path"] != "pallas" or \
             serving["pallas_int8"]["path"] != "pallas_int8" or \
             serving["deep_auto"]["path"] != "pallas" or \
-            v3_after_pipeline <= 0:
+            serving["celeba_pallas_v4"]["path"] != "pallas_v4" or \
+            v3_after_pipeline <= 0 or v4_after_pipeline <= 0:
         fail(f"dispatch: {serving}")
     if not all(launches[name] > 0 for name in kernels):
         fail(f"a kernel of the main path never launched: {launches}")
 
     # ------------------------------------------------------- 5. timing
-    b = 1024
-    n = b * rr
     timing = {}
     for name, kk in kernels.items():
         pack = kk["pack"]
+        b, n = kk["b"], kk["b"] * kk["rr"]
         x_img = images(b, kk)
-        x_rep = kk["rows"](x_img, rr)
+        x_rep = kk["rows"](x_img, kk["rr"])
         z0 = torch.randn(n, k, device=dev, generator=kk["gen"])
         inputs[name] = (x_rep, z0)
         xp = kk["plain_x"](x_rep)
+        # v4's plain version takes tens of seconds a call: one timed run
+        plain_repeats = 1 if name == V4 else 3
         t = dict(
+            images=b, rr=kk["rr"], rows=n,
             ms=median_ms(lambda: kk["run"](pack, x_rep, z0, **loop_kw)),
-            plain_ms=median_ms(lambda: kk["plain"](pack, xp, z0,
-                                                   **loop_kw)),
+            plain_ms=median_ms(lambda: kk["plain"](pack, xp, z0, **loop_kw),
+                               plain_repeats),
+            plain_repeats=plain_repeats,
             library_ms=median_ms(lambda: kk["library"](pack, xp, z0,
                                                        **loop_kw)),
             recon_ms=median_ms(lambda: kk["gan"].reconstruct(
                 x_img, kk["gen"], kernel=kk["request"])))
         t["recon_per_s"] = b / (t["recon_ms"] / 1e3)
         t.update(bounds_v3(deep.generator, pack, n, iters) if name == V3
-                 else bounds(name, pack, n, iters))
+                 else bounds_v4(celeba.generator, pack, n, iters)
+                 if name == V4 else bounds(name, pack, n, iters))
         timing[name] = t
-        if name == V3:
+        if name in ROW_WISE:
             # the yardstick computes the same function: one step of it
             # against the plain version on the timed inputs' first rows
             # (median row within 10% of its step: it rounds elsewhere)
             one = dict(rec_iters=1, rec_lr=lr, momentum=mom)
-            e = row_errors(library_loop_v3(pack, xp[:512], z0[:512], **one),
-                           s2d_loop_plain(pack, xp[:512], z0[:512], **one),
+            e = row_errors(kk["library"](pack, xp[:512], z0[:512], **one),
+                           kk["plain"](pack, xp[:512], z0[:512], **one),
                            z0[:512])
             t["library_vs_plain_L1_row_rel_p50"] = e["row_rel_p50"]
             if e["row_rel_p50"] > 1e-1:
-                fail(f"the v3 library loop is another function: {e}")
+                fail(f"the {name} library loop is another function: {e}")
+        if name == V4:
+            # the fp32 generic path (autograd through the generator's own
+            # transpose convs) on the same images: one run after a warm-up
+            t["fp32_xla_recon_ms"] = median_ms(
+                lambda: celeba32.reconstruct(x_img, gc, kernel="xla"), 1)
+            t["fp32_xla_recon_per_s"] = b / (t["fp32_xla_recon_ms"] / 1e3)
+            # and in the model's own bf16, which is what `auto` serves
+            t["bf16_xla_recon_ms"] = median_ms(
+                lambda: celeba.reconstruct(x_img, gc, kernel="xla"), 1)
+            t["bf16_xla_recon_per_s"] = b / (t["bf16_xla_recon_ms"] / 1e3)
+            t["pack_s"] = pack_v4_s
     x_rep, z0 = inputs["fused_projection_v2"]
     fp32_ms = median_ms(lambda: dense_loop_plain(
         p32, F.pad(x_rep, (0, pdim - x_rep.shape[1])), z0, **loop_kw))
-    emit("timing", images=b, rr=rr, iters=iters, rows=n, **timing,
-         fp32_plain_ms=fp32_ms, fp32_plain_recon_per_s=b / (fp32_ms / 1e3))
+    emit("timing", iters=iters, **timing, fp32_plain_ms=fp32_ms,
+         fp32_plain_recon_per_s=big["b"] / (fp32_ms / 1e3))
 
     # ------------------------------------------------- 6. kernels line
     line = {"kernels": [

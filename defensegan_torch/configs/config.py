@@ -9,7 +9,8 @@ the reference's `--cfg <output-dir>` convention.
 
 PROJECTION_KERNEL takes the JAX package's values; in the port `pallas`
 names the hand-written CUDA kernel for the same loop (fused_projection_v2)
-and `pallas_int8` its int8 variant (fused_projection_v2i). See
+and `pallas_int8` its int8 variant (fused_projection_v2i); `pallas_v4`
+names the multi-deconv loop of the 64x64 configs (fused_projection_v4). See
 gan/defense_gan.py::resolve_projection_kernel.
 """
 
@@ -84,7 +85,9 @@ class Config:
     #            (kernels/fused_projection_v2i.py); opt-in because
     #            quantized defense quality is gated per checkpoint
     #            (the int8_gate.json criterion) rather than assumed
-    #   pallas_v4 = the 64x64 multi-deconv loop, not yet ported
+    #   pallas_v4 = OPT-IN fused loop for multi-deconv generators, the
+    #            64x64 stacks (kernels/fused_projection_v4.py); auto
+    #            never resolves to it, as in the JAX package
     #   see gan/defense_gan.py::resolve_projection_kernel
     packed_variant: str = "auto"     # PACKED_VARIANT (kernel=packed):
     #   auto = conv (the port packs conv | dense so far)

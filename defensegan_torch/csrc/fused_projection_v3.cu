@@ -63,29 +63,6 @@ using fpk::bf16;
 
 constexpr int kPackThreads = 256;
 
-// h = relu(acc + bias[c]) -> bf16 at out[r, pixel, c].
-struct EpiConvBiasRelu {
-  const float* bias;
-  bf16* out;
-  int ld;
-  __device__ __forceinline__ void operator()(int r, int c, int pix_off,
-                                             float acc) const {
-    out[(size_t)r * ld + pix_off + c] =
-        __float2bfloat16_rn(fmaxf(acc + bias[c], 0.0f));
-  }
-};
-
-// dh = acc * [h > 0] -> bf16, written over h[r, pixel, c].
-struct EpiConvReluMask {
-  bf16* h;
-  int ld;
-  __device__ __forceinline__ void operator()(int r, int c, int pix_off,
-                                             float acc) const {
-    size_t i = (size_t)r * ld + pix_off + c;
-    h[i] = __float2bfloat16_rn(__bfloat162float(h[i]) > 0.0f ? acc : 0.0f);
-  }
-};
-
 // out = bf16(acc): the packed conv-B product.
 struct EpiStoreBf16 {
   bf16* out;
@@ -173,7 +150,7 @@ extern "C" int fp_v3_run(float* z, float* v, const bf16* x, const bf16* w1,
     if (e != cudaSuccess) return (int)e;
     // conv A forward
     e = fpk::launch_conv3x3<false>(h0, ka, masks, M, g, c0, ca,
-                                   EpiConvBiasRelu{ba, h1, p2 * ca}, st);
+                                   fpk::EpiConvBiasRelu{ba, h1, p2 * ca}, st);
     if (e != cudaSuccess) return (int)e;
     // conv B forward, packed: [M*P2, ca] @ [ca, npk]
     e = fpk::launch_gemm<bf16>(h1, ca, kbp, npk, M * p2, npk, ca,
@@ -190,7 +167,7 @@ extern "C" int fp_v3_run(float* z, float* v, const bf16* x, const bf16* w1,
     if (e != cudaSuccess) return (int)e;
     // conv A backward, each tap rounded, masked by h0, over h0
     e = fpk::launch_conv3x3<true>(h1, kat, masks, M, g, ca, c0,
-                                  EpiConvReluMask{h0, p2 * c0}, st);
+                                  fpk::EpiConvReluMask{h0, p2 * c0}, st);
     if (e != cudaSuccess) return (int)e;
     // fc backward + momentum update
     e = fpk::launch_gemm<bf16>(h0, F, w1t, K, M, K, F,

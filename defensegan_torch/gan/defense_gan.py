@@ -27,6 +27,7 @@ from defensegan_torch.kernels.fused_projection_v2 import \
     dense_kernel_available
 from defensegan_torch.kernels.fused_projection_v3 import \
     s2d_kernel_available
+from defensegan_torch.kernels.fused_projection_v4 import v4_kernel_available
 from defensegan_torch.models import encoder_for, from_image_space, \
     generator_for, to_image_space
 
@@ -54,16 +55,20 @@ def resolve_projection_kernel(gan, *, back_prop: bool = False,
     Takes the JAX package's PROJECTION_KERNEL values; returns 'pallas'
     (a bf16 fused CUDA kernel: v2 for wide single-deconv generators within
     the dense-packing bound, v3 for two-deconv deep ones), 'pallas_int8'
-    (v2's int8 variant, v2i), 'packed' or 'xla' (plain PyTorch paths). On
-    CUDA with back_prop=False, 'auto' and 'pallas' run the generator's
-    kernel at any batch size (the kernel wrappers pad the rows to the
-    kernels' tile); 'pallas_int8' runs v2i on a wide generator and the
-    bf16 v3 on a deep one (there is no int8 deep loop, as in the JAX
-    package). Elsewhere 'auto', and any request on the CPU, resolves to
+    (v2's int8 variant, v2i), 'pallas_v4' (the multi-deconv loop, v4: the
+    64x64 stacks, and the two-deconv deep generator as its edge case),
+    'packed' or 'xla' (plain PyTorch paths). On CUDA with back_prop=False,
+    'auto' and 'pallas' run the generator's kernel at any batch size (the
+    kernel wrappers pad the rows to the kernels' tile); 'pallas_int8' runs
+    v2i on a wide generator and the bf16 v3 on a deep one (there is no int8
+    deep loop, as in the JAX package); 'pallas_v4' is opt-in, as in the
+    JAX package: 'auto' never resolves to it, so on a 64x64 stack 'auto'
+    is 'xla'. Elsewhere 'auto', and any request on the CPU, resolves to
     the plain per-topology path: 'packed' for single-deconv generators,
     'xla' for deeper ones. An explicit kernel request that cannot run on
-    CUDA raises: under back_prop, on a generator no ported kernel covers
-    (the 64x64 stacks of v4), and 'pallas_v4'.
+    CUDA raises: under back_prop, and on a generator the requested kernel
+    does not cover ('pallas' / 'pallas_int8' on a 64x64 stack, which
+    'pallas_v4' serves; 'pallas_v4' on a single-deconv generator).
     """
     if requested is None:
         requested = gan.cfg.projection_kernel
@@ -75,6 +80,7 @@ def resolve_projection_kernel(gan, *, back_prop: bool = False,
     xla_best = "packed" if len(channels) == 1 else "xla"
     dense_ok = dense_kernel_available(gan.generator)
     s2d_ok = s2d_kernel_available(gan.generator)
+    v4_ok = v4_kernel_available(gan.generator)
     if requested == "auto":
         return "pallas" if (on_cuda and not back_prop
                             and (dense_ok or s2d_ok)) else xla_best
@@ -82,23 +88,27 @@ def resolve_projection_kernel(gan, *, back_prop: bool = False,
         return requested
     if not on_cuda:
         return xla_best
-    if requested == "pallas_v4":
-        raise NotImplementedError(
-            "pallas_v4 (the 64x64 multi-deconv loop) is not ported yet "
-            "(ROADMAP.md, TPU kernels still to port)")
     if back_prop:
         raise NotImplementedError(
             f"{requested!r} has no backward pass; back_prop=True is the "
             "attacks slice's work (ROADMAP.md)")
+    if requested == "pallas_v4":
+        if v4_ok:
+            return requested
+        raise NotImplementedError(
+            f"'pallas_v4' covers multi-deconv generators up to "
+            f"channels[0] = 768, not channels {channels}; a single-deconv "
+            "generator has the dense kernels ('pallas', 'pallas_int8')")
     if dense_ok:
         return requested
     if s2d_ok:
         return "pallas"       # deep topologies: the bf16 v3 only
     raise NotImplementedError(
-        f"{requested!r}: no ported kernel covers this generator (channels "
-        f"{channels}, base {gan.generator.base_hw}); the dense kernels take "
-        "single-deconv generators up to 16384 features, the s2d kernel "
-        "two-deconv ones (ROADMAP.md, TPU kernels still to port)")
+        f"{requested!r}: no ported kernel covers this generator under that "
+        f"name (channels {channels}, base {gan.generator.base_hw}); the "
+        "dense kernels take single-deconv generators up to 16384 features, "
+        "the s2d kernel two-deconv ones"
+        + (", and 'pallas_v4' serves this one" if v4_ok else ""))
 
 
 class DefenseGAN:
@@ -225,7 +235,11 @@ class DefenseGAN:
         cfg = self.cfg
         common = dict(rec_rr=rr, rec_iters=iters, rec_lr=lr,
                       momentum=cfg.rec_momentum)
-        if kernel in ("pallas", "pallas_int8"):
+        if kernel == "pallas_v4":
+            from defensegan_torch.kernels import make_v4_reconstructor
+            fn = make_v4_reconstructor(self.generator, cfg.image_shape,
+                                       **common)
+        elif kernel in ("pallas", "pallas_int8"):
             from defensegan_torch.kernels import (
                 make_dense_int8_reconstructor, make_dense_reconstructor,
                 make_s2d_reconstructor)

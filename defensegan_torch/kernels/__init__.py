@@ -8,11 +8,14 @@
   - fused_projection_v3: the deep two-deconv generator's loop in
     space-to-depth form, 3x3 grid convs as per-tap tensor-core products
     (csrc/fused_projection_v3.cu).
+  - fused_projection_v4: the multi-deconv generators' loop (the 64x64
+    stacks), every deconv level a 3x3 grid conv, the interleaves folded
+    into the convs' addressing (csrc/fused_projection_v4.cu); opt-in
+    (`pallas_v4`).
 
 Each wrapper runs its plain PyTorch version on CPU tensors and its kernel
 on CUDA tensors. kernels/build.py compiles the sources with nvcc at first
-use and holds the launch counters. The 64x64 (v4) loop is not ported yet
-(ROADMAP.md).
+use and holds the launch counters.
 """
 
 from defensegan_torch.kernels.fused_projection_v2 import (
@@ -24,9 +27,15 @@ from defensegan_torch.kernels.fused_projection_v2i import (
 from defensegan_torch.kernels.fused_projection_v3 import (
     fused_projection_s2d, make_s2d_reconstructor, pack_s2d,
     s2d_kernel_available)
+# the v4 wrapper shares its module's name: import it from the module, so
+# that `kernels.fused_projection_v4` stays the module
+from defensegan_torch.kernels.fused_projection_v4 import (
+    make_v4_reconstructor, pack_v4, v4_kernel_available)
 
 __all__ = ["dense_kernel_available", "fused_projection_dense",
            "make_dense_reconstructor", "pack_dense",
            "fused_projection_dense_int8", "make_dense_int8_reconstructor",
            "pack_dense_int8", "fused_projection_s2d",
-           "make_s2d_reconstructor", "pack_s2d", "s2d_kernel_available"]
+           "make_s2d_reconstructor", "pack_s2d", "s2d_kernel_available",
+           "make_v4_reconstructor", "pack_v4",
+           "v4_kernel_available"]

@@ -47,7 +47,8 @@ COL_TILE = 64        # the kernel's k, F and P are multiples of this
 SCRATCH_CAP = 1 << 30  # bytes of per-row scratch (h, do, dh) in one call
 LIBRARY_ENTRY = {"fused_projection_v2": "fp_v2_run",
                  "fused_projection_v2i": "fp_v2i_run",
-                 "fused_projection_v3": "fp_v3_run"}
+                 "fused_projection_v3": "fp_v3_run",
+                 "fused_projection_v4": "fp_v4_run"}
 
 
 def _round_up(n: int, m: int) -> int:
@@ -158,10 +159,12 @@ def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
              chunk: Optional[int] = None) -> torch.Tensor:
     """Drive a fused loop's library on CUDA tensors; z_final [N, k].
 
-    Shared by the v2, v2i and v3 wrappers. Every library entry takes
+    Shared by the v2, v2i, v3 and v4 wrappers. Every library entry takes
     (z, v, x, *weights, *scratch, M, *dims, iters, lr, momentum, scale,
     stream). `weights`: the padded pack tensors in the library's argument
-    order, W1 [kp, .] first. `scratch`: (columns, dtype) of each per-row
+    order, W1 [kp, .] first; an entry that is no tensor (a host table of
+    pointers or widths, as ctypes builds it) is handed on as it is.
+    `scratch`: (columns, dtype) of each per-row
     scratch buffer, in argument order. `dims`: the kernel's widths, kp
     first. Rows are zero-padded up to the kernel's 64-row tile and cropped
     after. They run in chunks of `chunk` rows, one library call (all L steps)
@@ -172,7 +175,8 @@ def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
     dev = z0_flat.device
     if dev.type != "cuda":
         raise ValueError(f"the fused kernel runs on CUDA tensors, got {dev}")
-    if any(t.device != dev for t in weights) or x_pad.device != dev:
+    tensors = [t for t in weights if isinstance(t, torch.Tensor)]
+    if any(t.device != dev for t in tensors) or x_pad.device != dev:
         raise ValueError(f"pack on {w1.device}, x on {x_pad.device}, z0 on "
                          f"{dev}: all must be on one device")
     if w1.dtype != torch.bfloat16:
@@ -193,8 +197,8 @@ def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
     x = pad_to(x_pad, 0, ROW_TILE).contiguous()
     bufs = [torch.empty((m, cols), dtype=dt, device=dev)
             for cols, dt in scratch]
-    ptrs = [t.contiguous().data_ptr() for t in weights] + \
-        [t.data_ptr() for t in bufs]
+    ptrs = [t.contiguous().data_ptr() if isinstance(t, torch.Tensor) else t
+            for t in weights] + [t.data_ptr() for t in bufs]
     lib = build.load(name)
     fn = getattr(lib, LIBRARY_ENTRY[name])
     fn.argtypes = [ctypes.c_void_p] * (3 + len(ptrs)) + \

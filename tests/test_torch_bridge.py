@@ -112,6 +112,41 @@ def test_flagship_loads_through_the_entry_point():
     assert z.shape == (2, 128) and torch.isfinite(z).all()
 
 
+def test_64x64_run_exports_and_loads(tmp_path):
+    """The export script on a run of a 64x64 config, as on the day a
+    trained checkpoint exists: a (narrow, untrained) JAX CelebA model saves
+    a checkpoint, `export_torch_weights.py --run <dir>` writes the numpy
+    export, and the port's DefenseGAN loads it through its entry point and
+    generates the same images (float32: 1e-5, summation order)."""
+    import jax
+    import jax.numpy as jnp
+    from defensegan_tpu.configs import Config as JaxConfig
+    from defensegan_tpu.gan import DefenseGAN as JaxGAN
+    run = str(tmp_path / "celeba")
+    jgan = JaxGAN(JaxConfig(type="celeba", gen_arch="deep", gen_dim=4,
+                            disc_dim=4, latent_dim=16, image_size=64,
+                            channels=3, compute_dtype="float32",
+                            output_dir=run))
+    rng = np.random.RandomState(0)
+    stats = jax.tree.map(lambda a: np.asarray(a) + 0.5 * rng.rand(
+        *a.shape).astype(np.float32), jgan.state.gen_stats)
+    jgan.state = jgan.state.replace(gen_stats=stats)
+    jgan.save()
+    _load_script("export_torch_weights").main(["--run", run])
+    step = int(jgan.state.step)
+    assert export_path(run).endswith(os.path.join("export", f"{step}.npz"))
+    gan = DefenseGAN(load_config(run).replace(output_dir=run),
+                     device="cpu").load()
+    assert gan.step == step and not gan.has_encoder()
+    assert gan.generator.channels == (32, 16, 8, 4)
+    z = rng.randn(3, 16).astype(np.float32)
+    ref = np.asarray(jgan.gen_apply_tanh(jnp.asarray(z)))
+    with torch.no_grad():
+        got = gan.gen_apply_tanh(torch.from_numpy(z)).numpy()
+    assert got.shape == ref.shape == (3, 64, 64, 3)
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
 def test_layout_maps():
     k = np.arange(5 * 5 * 3 * 2, dtype=np.float32).reshape(5, 5, 3, 2)
     np.testing.assert_array_equal(conv_weight(k)[1, 2, 3, 4], k[3, 4, 2, 1])
@@ -133,13 +168,16 @@ def test_bridge_rejects_mismatched_trees():
         load_flax_tree(g, {"fc_in": {}})
 
 
-@pytest.mark.parametrize("name", ["mnist_fast", "mnist"])
+@pytest.mark.parametrize("name", ["mnist_fast", "mnist", "celeba",
+                                  "celeba_wide", "imagenet64"])
 def test_config_copy_reads_yaml_like_jax(name, tmp_path):
     path = ROOT / "defensegan_torch" / "configs" / "gans" / f"{name}.yml"
     jax_path = ROOT / "defensegan_tpu" / "configs" / "gans" / f"{name}.yml"
     assert path.read_text() == jax_path.read_text()
     cfg = load_config(str(path))
-    assert cfg.to_yaml_dict() == jax_load_config(str(path)).to_yaml_dict()
+    ref = jax_load_config(str(path))
+    assert cfg.to_yaml_dict() == ref.to_yaml_dict()
+    assert cfg.image_shape == ref.image_shape
     cfg = cfg.replace(output_dir=str(tmp_path))
     save_config(cfg)
     assert load_config(str(tmp_path)) == cfg

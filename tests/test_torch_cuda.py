@@ -7,9 +7,12 @@ it runs on a machine that has only the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (--noconftest: tests/conftest.py sets JAX up for the CPU suite.) The
-widths here (latent 32; wide F 1568; deep c0 8, ca 16) exercise the
-wrappers' padding of k, F and the deep loop's channels to the kernels'
-64-wide tiles; chip_smoke.py checks the full widths.
+widths here (latent 32; wide F 1568; deep c0 8, ca 16; the 64x64 stacks at
+GEN_DIM 4) exercise the wrappers' padding of k, F and the deep loops'
+channels to the kernels' 64-wide tiles -- for v4 every run of an
+interleaved level is padded to 64 on its own, so that a tile never
+straddles two runs; chip_smoke.py checks the full widths, where only the
+out level is padded.
 Tolerances are chip_smoke.py's elementwise bounds: kernel and plain
 version differ only in float32 summation order, which flips a bf16
 rounding (2^-8 relative) of an intermediate now and then, carried forward
@@ -27,10 +30,17 @@ from defensegan_torch.kernels.fused_projection_v2i import (
     dense_int8_loop_plain, fused_projection_dense_int8, pack_dense_int8)
 from defensegan_torch.kernels.fused_projection_v3 import (
     fused_projection_s2d, pack_s2d, s2d_loop_plain)
+from defensegan_torch.kernels.fused_projection_v4 import (
+    fused_projection_v4, pack_v4, v4_loop_plain, x_rows)
 from defensegan_torch.models.generator import generator_for
 
 LR, MOM = 10.0, 0.7
 TOL = {1: 4e-3, 5: 2e-2}
+V4 = "fused_projection_v4"
+# v4's topologies: (dataset, arch, image size, channels, levels)
+V4_TOPOLOGIES = {"celeba_deep": ("celeba", "deep", 64, 3, 4),
+                 "celeba_wide": ("celeba", "wide", 64, 3, 3),
+                 "mnist_deep": ("mnist", "deep", 28, 1, 2)}
 
 
 @pytest.fixture
@@ -124,3 +134,79 @@ def test_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="one device"):
         fused_projection_dense(cpu_pack, x[:64], z0[:64], rec_iters=1,
                                rec_lr=LR, momentum=MOM)
+
+
+def _v4_case(dev, topology, n=128):
+    dataset, arch, size, ch, levels = V4_TOPOLOGIES[topology]
+    tg = generator_for(dataset, 4, torch.bfloat16, arch, 32,
+                       gen=torch.Generator().manual_seed(0))
+    tg.requires_grad_(False)
+    # BatchNorm statistics away from the identity, from a seeded generator
+    gb = torch.Generator().manual_seed(1)
+    for name, mod in tg.named_modules():
+        if name.startswith("bn_"):
+            mod.scale.copy_(1.0 + 0.3 * torch.randn(mod.scale.shape,
+                                                    generator=gb))
+            mod.bias.copy_(0.2 * torch.randn(mod.bias.shape, generator=gb))
+            mod.mean.copy_(0.2 * torch.randn(mod.mean.shape, generator=gb))
+            mod.var.copy_(0.5 + torch.rand(mod.var.shape, generator=gb))
+    pack = pack_v4(tg.to(dev))
+    assert len(pack.levels) == levels
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(np.tanh(rng.randn(n, size, size, ch))
+                         .astype(np.float32))
+    z0 = torch.from_numpy(rng.randn(n, 32).astype(np.float32))
+    return pack, x_rows(pack, x.to(dev)), z0.to(dev)
+
+
+def _row_rel(got, ref, z0):
+    """Each row's error relative to its own step."""
+    return ((got - ref).abs().amax(1) / (ref - z0).abs().amax(1)).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 5])
+@pytest.mark.parametrize("topology", list(V4_TOPOLOGIES))
+def test_v4_kernel_matches_plain(cuda_device, topology, steps):
+    """Row by row, as chip_smoke.py holds the deep loops: with one relu
+    mask per level a pre-activation within float32 noise of zero takes the
+    other side of its relu in a few rows, so the median row is held to the
+    elementwise bound and the worst row to 5e-2 (L = 1) / 1e-1 (L = 5)."""
+    pack, x, z0 = _v4_case(cuda_device, topology)
+    kw = dict(rec_iters=steps, rec_lr=LR, momentum=MOM)
+    before = build.LAUNCHES[V4]
+    got = fused_projection_v4(pack, x, z0, chunk=64, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[V4] == before + 2       # two 64-row chunks
+    ref = v4_loop_plain(pack, x, z0, **kw)
+    assert torch.isfinite(got).all()
+    rel = _row_rel(got, ref, z0)
+    assert rel.median().item() <= TOL[steps]
+    assert rel.max().item() <= {1: 5e-2, 5: 1e-1}[steps]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology", list(V4_TOPOLOGIES))
+def test_v4_kernel_pads_rows_and_chunks_exactly(cuda_device, topology):
+    pack, x, z0 = _v4_case(cuda_device, topology, n=200)
+    kw = dict(rec_iters=5, rec_lr=LR, momentum=MOM)
+    before = build.LAUNCHES[V4]
+    one = fused_projection_v4(pack, x, z0, **kw)
+    chunked = fused_projection_v4(pack, x, z0, chunk=64, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[V4] == before + 1 + 4     # 256 padded rows
+    assert one.shape == (200, 32) and torch.equal(one, chunked)
+    rel = _row_rel(one, v4_loop_plain(pack, x, z0, **kw), z0)
+    assert rel.median().item() <= TOL[5] and rel.max().item() <= 1e-1
+
+
+@pytest.mark.cuda
+def test_v4_kernel_rejects_bad_inputs(cuda_device):
+    pack, x, z0 = _v4_case(cuda_device, "celeba_wide")
+    kw = dict(rec_iters=1, rec_lr=LR, momentum=MOM)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fused_projection_v4(pack, x, z0, chunk=100, **kw)
+    with pytest.raises(ValueError, match="out_dim"):
+        fused_projection_v4(pack, x[:, :64], z0, **kw)
+    with pytest.raises(ValueError, match="one device"):
+        fused_projection_v4(pack, x.cpu(), z0, **kw)

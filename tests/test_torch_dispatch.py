@@ -1,6 +1,6 @@
 """PyTorch port: which projection path runs on the deep two-deconv
-generator (defensegan_torch/gan/defense_gan.py), and the `packed` route's
-parity with the JAX package.
+generator and on the 64x64 stacks (defensegan_torch/gan/defense_gan.py),
+and the `packed` route's parity with the JAX package.
 
 `resolve_projection_kernel` is held against the JAX package's resolver on
 the same requests (JAX's on_tpu plays the port's on_cuda; JAX degrades a
@@ -83,18 +83,97 @@ def test_deep_kernel_request_under_back_prop_raises_on_cuda(pair, requested):
 
 
 def test_uncovered_generator_still_raises_and_names_the_roadmap(tmp_path):
+    """'pallas' / 'pallas_int8' name the dense and s2d kernels, which do not
+    cover a 64x64 stack: they still raise there, and the message names the
+    request that does serve it. ROADMAP.md has no kernel left to name."""
     celeba = DefenseGAN(Config(type="celeba", gen_arch="deep", gen_dim=2,
                                latent_dim=8, image_size=64, channels=3,
                                output_dir=str(tmp_path)), device="cpu")
     assert resolve_projection_kernel(celeba, requested="auto",
                                      on_cuda=True) == "xla"
     for requested in ("pallas", "pallas_int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(NotImplementedError, match="'pallas_v4' serves"):
             resolve_projection_kernel(celeba, requested=requested,
                                       on_cuda=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        resolve_projection_kernel(celeba, requested="pallas_v4",
-                                  on_cuda=True)
+    assert resolve_projection_kernel(celeba, requested="pallas_v4",
+                                     on_cuda=True) == "pallas_v4"
+
+
+@pytest.fixture(scope="module")
+def stacks(tmp_path_factory):
+    """JAX and port models of every topology `pallas_v4` is asked for:
+    the 64x64 stacks, the two-deconv MNIST deep generator (v4's edge
+    case) and the single-deconv wide one (not covered)."""
+    out = str(tmp_path_factory.mktemp("stacks"))
+    made = {}
+    for name, kw in (
+            ("celeba_deep", dict(type="celeba", gen_arch="deep",
+                                 image_size=64, channels=3)),
+            ("celeba_wide", dict(type="celeba", gen_arch="wide",
+                                 image_size=64, channels=3)),
+            ("mnist_deep", dict(type="mnist", gen_arch="deep")),
+            ("mnist_wide", dict(type="mnist", gen_arch="wide"))):
+        kw = dict(kw, gen_dim=4, disc_dim=4, latent_dim=LATENT,
+                  output_dir=out)
+        made[name] = (JaxGAN(JaxConfig(**kw)),
+                      DefenseGAN(Config(**kw), device="cpu"))
+    return made
+
+
+@pytest.mark.parametrize("name,requested,on_cuda,back_prop,path", [
+    ("celeba_deep", "pallas_v4", True, False, "pallas_v4"),
+    ("celeba_wide", "pallas_v4", True, False, "pallas_v4"),
+    ("mnist_deep", "pallas_v4", True, False, "pallas_v4"),
+    ("celeba_deep", "auto", True, False, "xla"),    # v4 is opt-in
+    ("celeba_wide", "auto", True, False, "xla"),
+    ("celeba_deep", "auto", True, True, "xla"),
+    ("celeba_deep", "xla", True, False, "xla"),
+    ("celeba_deep", "packed", True, False, "packed"),
+    ("celeba_deep", "pallas_v4", False, False, "xla"),
+    ("celeba_wide", "pallas_v4", False, True, "xla"),
+    ("mnist_deep", "pallas_v4", False, False, "xla"),
+    ("mnist_wide", "pallas_v4", False, False, "packed"),
+    ("celeba_deep", "auto", False, False, "xla"),
+])
+def test_v4_dispatch_matches_jax(stacks, name, requested, on_cuda, back_prop,
+                                 path):
+    jgan, tgan = stacks[name]
+    assert resolve_projection_kernel(tgan, requested=requested,
+                                     back_prop=back_prop,
+                                     on_cuda=on_cuda) == path
+    # n = 64 rows: a multiple of the JAX kernel's tile of 32 (the port pads
+    # the rows itself and so has no such guard)
+    assert jax_resolve(jgan, n=64, back_prop=back_prop, requested=requested,
+                       on_tpu=on_cuda) == path
+
+
+@pytest.mark.parametrize("name,back_prop,match", [
+    ("mnist_wide", False, "single-deconv"),
+    ("celeba_deep", True, "backward"),
+    ("mnist_deep", True, "backward"),
+])
+def test_v4_request_that_cannot_run_raises_on_cuda(stacks, name, back_prop,
+                                                   match):
+    """Where the JAX package degrades an explicit `pallas_v4` to the plain
+    path (a generator v4 does not cover; back_prop), the port raises on
+    CUDA, as it does for the other kernels."""
+    jgan, tgan = stacks[name]
+    with pytest.raises(NotImplementedError, match=match):
+        resolve_projection_kernel(tgan, requested="pallas_v4",
+                                  back_prop=back_prop, on_cuda=True)
+    assert jax_resolve(jgan, n=64, back_prop=back_prop,
+                       requested="pallas_v4", on_tpu=True) in ("xla", "packed")
+
+
+def test_cpu_pallas_v4_on_a_64x64_stack_runs_the_plain_path(stacks):
+    _, tgan = stacks["celeba_wide"]
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.rand(2, 64, 64, 3).astype(np.float32))
+    z0 = torch.from_numpy(rng.randn(2, 2, LATENT).astype(np.float32))
+    res = tgan.reconstruct(x, kernel="pallas_v4", z0=z0, rec_iters=2)
+    assert tgan.last_kernel == "xla"
+    assert res.x_hat.shape == (2, 64, 64, 3)
+    assert res.all_losses.shape == (2, 2)
 
 
 def _inputs(seed=0, b=4):

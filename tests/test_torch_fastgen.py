@@ -16,7 +16,8 @@ import torch
 
 from defensegan_tpu.defense import fastgen as jfast
 from defensegan_tpu.models.generator import generator_for as jax_generator
-from defensegan_torch.ckpt.bridge import load_flax_tree, read_export
+from defensegan_torch.ckpt.bridge import (conv_transpose_weight,
+                                          load_flax_tree, read_export)
 from defensegan_torch.defense.fastgen import (_probe_grid_conv, _s2d,
                                               _s2d_flat_perm, _s2d_inv,
                                               apply_phase_conv,
@@ -28,15 +29,15 @@ from defensegan_torch.models.generator import generator_for
 torch.set_num_threads(2)
 
 
-def _pair(arch, dtype="float32", dim=4, latent=16, seed=0):
-    jg = jax_generator("mnist", dim, getattr(jnp, dtype), arch)
+def _pair(arch, dtype="float32", dim=4, latent=16, seed=0, dataset="mnist"):
+    jg = jax_generator(dataset, dim, getattr(jnp, dtype), arch)
     v = jg.init(jax.random.key(seed), jnp.zeros((1, latent)))
     rng = np.random.RandomState(seed)
     params = jax.tree.map(lambda a: np.asarray(a) + 0.1 * rng.randn(
         *a.shape).astype(np.float32), v["params"])
     stats = jax.tree.map(lambda a: np.asarray(a) + 0.5 * rng.rand(
         *a.shape).astype(np.float32), v["batch_stats"])
-    tg = generator_for("mnist", dim, getattr(torch, dtype), arch, latent)
+    tg = generator_for(dataset, dim, getattr(torch, dtype), arch, latent)
     load_flax_tree(tg, params, stats)
     return jg, params, stats, tg.requires_grad_(False)
 
@@ -181,6 +182,82 @@ def test_packed_apply_equals_generator(arch, variant):
     jref = np.asarray(jfast.make_packed_apply(jfast.pack_generator(
         jg, params, stats, variant=variant))(jnp.asarray(z)))
     np.testing.assert_allclose(got, jref, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,dtype", [("deep", "float32"),
+                                        ("wide", "float32"),
+                                        ("deep", "bfloat16")])
+def test_conv_pack_of_a_64x64_stack_equals_jax(arch, dtype):
+    """The 3- and 4-deconv generators of the 64x64 configs: the conv pack
+    (the fused v4 loop's source) equals the JAX package's bit for bit, and
+    its apply equals G(z) (float32: 1e-5, summation order)."""
+    jg, params, stats, tg = _pair(arch, dtype, dataset="celeba")
+    jp = jfast.pack_generator(jg, params, stats, variant="conv")
+    tp = pack_generator(tg, "conv")
+    n = 4 if arch == "deep" else 3
+    assert len(tp.convs) == len(jp.convs) == n
+    assert (tp.base_hw, tp.out_hw, tp.out_channels) == \
+        (4 if arch == "deep" else 8, 64, 3)
+    _eq(tp.w_fc, jp.w_fc)
+    _eq(tp.b_fc, jp.b_fc)
+    for (gk, gb, grelu), (rk, rb, rrelu) in zip(tp.convs, jp.convs):
+        assert grelu == rrelu
+        # the port keeps torch's transpose-conv layout, [in, out, kh, kw]
+        # with both spatial axes flipped (ckpt/bridge.py)
+        _eq(gk.flip(2, 3).permute(2, 3, 0, 1), rk, "conv kernel")
+        _eq(gb, rb, "conv bias")
+    if dtype == "float32":
+        z = np.random.RandomState(1).randn(3, 16).astype(np.float32)
+        ref = np.asarray(jg.apply({"params": params, "batch_stats": stats},
+                                  z, train=False)).reshape(3, -1)
+        got = make_packed_apply(tp)(torch.from_numpy(z)).numpy()
+        assert got.shape == (3, 64 * 64 * 3)
+        np.testing.assert_allclose(got, ref, atol=1e-5)
+        jref = np.asarray(jfast.make_packed_apply(jp)(jnp.asarray(z)))
+        np.testing.assert_allclose(got, jref, atol=1e-5)
+
+
+@pytest.mark.parametrize("level", ["mid", "out"])
+def test_probe_grid_conv_on_the_levels_of_a_64x64_stack(level):
+    """The two linear maps the fused v4 loop probes: a mid level (stride-2
+    deconv, then space-to-depth: [g, g, ci] -> [g, g, 4 co]) and the folded
+    out level (inverse s2d, out deconv, two s2ds: [g, g, 4 ci] ->
+    [g, g, 16 out_c]). Each has 3x3 support on its grid (the probe raises
+    past it), equals the JAX probe of the same map bit for bit, and the
+    probed kernel applied as a 3x3 SAME conv reproduces the map."""
+    rng = np.random.RandomState(7)
+    ci, co, g = (6, 5, 4) if level == "mid" else (4, 3, 4)
+    kern = rng.randn(5, 5, ci, co).astype(np.float32)          # HWIO
+    w = torch.from_numpy(conv_transpose_weight(kern).copy())
+
+    def jdeconv(x):
+        return jax.lax.conv_transpose(
+            x, jnp.asarray(kern), strides=(2, 2), padding="SAME",
+            dimension_numbers=("NHWC", "HWIO", "NHWC"))
+
+    def tdeconv(x):
+        return conv_transpose_same(x.permute(0, 3, 1, 2), w).permute(
+            0, 2, 3, 1)
+
+    if level == "mid":
+        lanes = ci
+        jlin = lambda x: jfast._s2d(jdeconv(x), 2)
+        tlin = lambda x: _s2d(tdeconv(x), 2)
+    else:
+        lanes = 4 * ci
+        jlin = lambda x: jfast._s2d(jfast._s2d(
+            jdeconv(jfast._s2d_inv(x, 2, ci)), 2), 2)
+        tlin = lambda x: _s2d(_s2d(tdeconv(_s2d_inv(x, 2, ci)), 2), 2)
+    got = _probe_grid_conv(tlin, g, lanes)
+    ref = np.asarray(jfast._probe_grid_conv(jlin, g, lanes))
+    assert got.shape == ref.shape == \
+        (3, 3, lanes, 4 * co if level == "mid" else 16 * co)
+    np.testing.assert_array_equal(got, ref)
+    x = torch.from_numpy(rng.randn(2, g, g, lanes).astype(np.float32))
+    conv = torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2), torch.from_numpy(got).permute(3, 2, 0, 1),
+        padding=1).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(conv.numpy(), tlin(x).numpy(), atol=1e-5)
 
 
 def test_bf16_dense_apply_matches_jax():

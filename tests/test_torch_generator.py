@@ -42,7 +42,8 @@ def _perturbed_init(gen, latent, seed=0):
 
 @pytest.mark.parametrize("dataset,arch", [("mnist", "wide"), ("mnist", "deep"),
                                           ("celeba", "wide"),
-                                          ("celeba", "deep")])
+                                          ("celeba", "deep"),
+                                          ("imagenet64", "deep")])
 def test_generator_matches_jax_f32(dataset, arch):
     latent = 16
     jg = jax_generator(dataset, 4, arch=arch)
@@ -75,6 +76,29 @@ def test_flagship_export_matches_jax(dtype):
     else:
         np.testing.assert_allclose(out, ref, atol=2.0 ** -8)
         assert (out == ref).mean() >= 0.99
+
+
+def test_64x64_generator_matches_jax_bf16():
+    """The 4-deconv CelebA generator in its configured compute dtype,
+    bfloat16: params and batch stats cross as numpy, both sides round at
+    the same points, and a sum taken in another order now and then rounds
+    to the neighbouring bf16 value, which the next three deconvs carry
+    forward: the tanh outputs agree to two bf16 ulps (2^-7), and 95% of
+    them exactly."""
+    latent = 16
+    jg = jax_generator("celeba", 4, jnp.bfloat16, "deep")
+    params, stats = _perturbed_init(jg, latent)
+    z = np.random.RandomState(4).randn(3, latent).astype(np.float32)
+    ref = np.asarray(jg.apply({"params": params, "batch_stats": stats}, z,
+                              train=False)).astype(np.float32)
+    tg = generator_for("celeba", 4, torch.bfloat16, "deep", latent)
+    assert tg.channels == (32, 16, 8, 4) and tg.base_hw == 4
+    load_flax_tree(tg, params, stats)
+    with torch.no_grad():
+        out = tg(torch.from_numpy(z)).float().numpy()
+    assert out.shape == ref.shape == (3, 64, 64, 3)
+    np.testing.assert_allclose(out, ref, atol=2.0 ** -7)
+    assert (out == ref).mean() >= 0.95
 
 
 def test_conv_transpose_is_flax_same_unflipped():

@@ -176,8 +176,14 @@ def test_resolve_projection_kernel(tmp_path):
     assert r(big, "auto") == "packed"
     with pytest.raises(NotImplementedError, match="no ported kernel"):
         r(big, "pallas")
+    # pallas_v4 serves multi-deconv generators, the deep one as its edge
+    # case; a single-deconv generator has the dense kernels
     with pytest.raises(NotImplementedError, match="pallas_v4"):
         r(wide, "pallas_v4")
+    assert r(deep, "pallas_v4") == "pallas_v4"
+    assert r(deep, "pallas_v4", on_cuda=False) == "xla"
+    with pytest.raises(NotImplementedError, match="backward"):
+        r(deep, "pallas_v4", back_prop=True)
     with pytest.raises(ValueError):
         r(wide, "nope")
     # the CPU model resolves from its own device
