@@ -34,6 +34,10 @@ against its plain PyTorch version:
           against float64 drift); and 192-row chunks (the last one short)
           bit for bit against one chunk; v4 also at L = 1, 128 rows, on
           celeba_wide.yml and imagenet64.yml
+       a''. every grid conv of v3 and v4 (the Hopper conv, celeba.yml's
+          levels and v3's conv A, forward and backward) on its own at 256
+          rows against its plain version, within one bf16 ulp of the
+          output plus one of every rounded tap
        b. L = 200 at the timed shapes (R 10, 1024 images; v4: R 2, 512
           images), half clean and half with +-0.1 noise: [B, R] final
           losses by the tie-aware measure, each kernel against its own
@@ -485,10 +489,12 @@ def main() -> int:
         dense_loop_plain, fused_projection_dense, pack_dense)
     from defensegan_torch.kernels.fused_projection_v2i import (
         dense_int8_loop_plain, fused_projection_dense_int8, pack_dense_int8)
+    from defensegan_torch.kernels.conv3x3 import (conv3x3, conv3x3_plain,
+                                                  rounding_excess)
     from defensegan_torch.kernels.fused_projection_v3 import (
-        fused_projection_s2d, pack_s2d, s2d_loop_plain)
+        fused_projection_s2d, pack_s2d, padded_s2d, s2d_loop_plain)
     from defensegan_torch.kernels.fused_projection_v4 import (
-        fused_projection_v4, pack_v4, v4_loop_plain, x_rows)
+        fused_projection_v4, pack_v4, padded_v4, v4_loop_plain, x_rows)
     from defensegan_torch.models import build_classifier, from_image_space
 
     # fp32 references run in full float32 (no TF32 in products or convs)
@@ -708,6 +714,51 @@ def main() -> int:
         if not ok:
             fail(f"{V4} on {cfg_name}: {e}")
         del other, po, xr, zk, zp
+
+    # 3a''. every grid conv of the two deep paths on its own (the Hopper
+    # conv of csrc/conv3x3_sm90.cuh at celeba.yml's levels, forward and
+    # backward, and v3's conv A both ways; 256 rows, seeded activations)
+    # against its plain version, within one bf16 ulp of the output plus one
+    # of every rounded tap (conv3x3.rounding_excess <= 0)
+    convs = {}
+    pp4, pp3 = padded_v4(p4), padded_s2d(p3)
+    cases = [("v3_conv_a_forward", "chain", pp3.grid_hw, pp3.ka, pp3.ba, 0,
+              0), ("v3_conv_a_backward", "backward", pp3.grid_hw, pp3.kat,
+                   None, 0, 0)]
+    for i, lv in enumerate(pp4.levels):
+        fine = lv.interleave_after or 0
+        cases += [(f"v4_level{i}_forward", "per_tap" if lv.relu
+                   else "tanh_grad", lv.g, lv.w, lv.b, 0, fine),
+                  (f"v4_level{i}_backward", "backward", lv.g, lv.wt, None,
+                   fine, 0)]
+    for label, mode, gg, w, bias, in_fine, out_fine in cases:
+        cin, cout = w.shape[0] // 9, w.shape[1]
+        act = torch.relu(torch.randn(256, gg * gg * cin, device=dev,
+                                     generator=gc)).to(torch.bfloat16)
+        kw = dict(in_fine=in_fine, out_fine=out_fine)
+        if mode == "backward":
+            kw["h"] = torch.randn(256, gg * gg * cout, device=dev,
+                                  generator=gc).to(torch.bfloat16)
+        else:
+            kw["bias"] = bias.reshape(-1)
+        if mode == "tanh_grad":
+            kw["x"] = torch.tanh(torch.randn(256, gg * gg * cout, device=dev,
+                                             generator=gc)).to(torch.bfloat16)
+            kw["scale"] = 2.0 / p4.out_dim
+        got = conv3x3(act, w, gg, mode, **kw)
+        torch.cuda.synchronize()
+        ref = conv3x3_plain(act, w, gg, mode, **kw)
+        excess = rounding_excess(got, ref, act, w, gg, mode,
+                                 in_fine=in_fine, out_fine=out_fine,
+                                 scale=kw.get("scale", 1.0))
+        convs[label] = dict(mode=mode, g=gg, cin=cin, cout=cout,
+                            in_fine=in_fine, out_fine=out_fine,
+                            max_abs_err=(got.float() - ref.float()).abs()
+                            .max().item(), rounding_excess=excess,
+                            ok=excess <= 0)
+    emit("grid_convs_vs_plain", **convs)
+    if not all(c["ok"] for c in convs.values()):
+        fail(f"a grid conv left its rounding band: {convs}")
 
     # ------- 3b. L = 200 at the timed shapes: half clean, half noisy
     loop_kw = dict(rec_iters=iters, rec_lr=lr, momentum=mom)

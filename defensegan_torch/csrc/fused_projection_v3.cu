@@ -35,16 +35,20 @@
 // kernels' zero taps), of which this kernel computes 59.4 (border taps
 // skipped; conv B padded from 144 to 192 / 160). Per step the activations
 // also make one round trip through device memory each (about 70 KB
-// written per row), well under the compute time at WMMA rates.
+// written per row), well under the compute time.
 //
 // Its design: the TPU kernel keeps activations pixel-major [49*T, C] in
 // VMEM and shifts rows by slice + concat for every tap. Here every
 // activation stays latent-major and flat, [M, P2*C] in (pixel, channel)
 // order -- exactly what the fc product writes -- so no relayout exists:
-//   * fc forward / backward are v2's GEMM1 / GEMM4 unchanged;
-//   * conv A forward and backward are conv3x3_epilogue (wmma_gemm.cuh):
-//     a block owns 64 latents x 64 channels of one pixel, and a tap is a
-//     change of the A column offset and the weights' row block;
+//   * fc forward / backward are v2's GEMM1 / GEMM4 unchanged
+//     (wmma_gemm.cuh);
+//   * conv A forward and backward are the Hopper grid conv
+//     (conv3x3_sm90.cuh): persistent blocks of two wgmma consumer
+//     warpgroups and a TMA producer, a tile of 128 latents x 128 channels
+//     of one pixel, a tap a change of the TMA box's coordinates, 64-deep
+//     slabs through a 6-stage ring; the forward sums its taps in one
+//     chain, the backward rounds each tap's sum to bf16;
 //   * conv B (16 channels per pixel, under the 64-wide tile) is packed as
 //     on the TPU: one product [M*P2, ca] @ [ca, 9*cb -> npk] (the flat
 //     layout IS that matrix), then tanh_grad_pack, one block per latent,
@@ -52,9 +56,10 @@
 //     memory and writes do packed tap-major [M*P2, 9*cb -> kpk], which one
 //     product with KBT [kpk, ca] turns into dh1.
 // Seven launches per step; the L loop runs here, so one call from Python
-// runs all L steps of a row chunk. The weights (4.6 MB) stay in L2.
-// wgmma + TMA, larger tiles and a fused conv B are later work.
+// runs all L steps of a row chunk. The weights (4.6 MB) stay in L2. The
+// conv B products on wgmma and a fused conv B are later work.
 
+#include "conv3x3_sm90.cuh"
 #include "wmma_gemm.cuh"
 
 namespace {
@@ -125,23 +130,30 @@ __global__ void __launch_bounds__(kPackThreads)
 // targets in s2d-flat order. Weights: w1 [K, P2*c0], w1t [P2*c0, K],
 // ka [9*c0, ca], kat [9*ca, c0], kbp [ca, npk] (columns past 9*cb zero),
 // kbpt [kpk, ca] (rows past 9*cb zero) bf16; b1 [P2*c0], ba [ca], bb [cb],
-// masks [P2, 9] f32. Scratch (bf16): zb [M, K], h0 [M, P2*c0],
-// h1 [M, P2*ca], obb [M, P2*npk], dop [M, P2*kpk]. M, K, c0, ca, npk
-// multiples of 64; kpk of 32; M*P2/64 <= 65535. Returns the first CUDA
-// error, else 0.
+// masks [P2, 9] f32, order [P2] int32 (the pixels, 9 taps first).
+// Scratch (bf16): zb [M, K], h0 [M, P2*c0], h1 [M, P2*ca], obb
+// [M, P2*npk], dop [M, P2*kpk]. M, K, c0, ca, npk multiples of 64; kpk of
+// 32; M*P2/64 <= 65535. Returns the first CUDA error, else 0.
 extern "C" int fp_v3_run(float* z, float* v, const bf16* x, const bf16* w1,
                          const bf16* w1t, const float* b1, const bf16* ka,
                          const bf16* kat, const float* ba, const bf16* kbp,
                          const bf16* kbpt, const float* bb,
-                         const float* masks, bf16* zb, bf16* h0, bf16* h1,
-                         bf16* obb, bf16* dop, int M, int K, int c0, int ca,
-                         int cb, int g, int npk, int kpk, int iters,
-                         float lr, float momentum, float scale,
-                         void* stream_ptr) {
+                         const float* masks, const int* order, bf16* zb,
+                         bf16* h0, bf16* h1, bf16* obb, bf16* dop, int M,
+                         int K, int c0, int ca, int cb, int g, int npk,
+                         int kpk, int iters, float lr, float momentum,
+                         float scale, void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   const int p2 = g * g;
   const int F = p2 * c0;
-  cudaError_t e = fpk::launch_cast_bf16(z, zb, M * K, st);
+  // conv A: h0 -> h1 forward; dh1 (over h1) -> dh0 (over h0) backward
+  fpk::Conv3x3 conv_a, conv_at;
+  cudaError_t e = fpk::make_conv3x3(&conv_a, h0, ka, masks, order, M, g, c0,
+                                    ca);
+  if (e == cudaSuccess)
+    e = fpk::make_conv3x3(&conv_at, h1, kat, masks, order, M, g, ca, c0);
+  if (e != cudaSuccess) return (int)e;
+  e = fpk::launch_cast_bf16(z, zb, M * K, st);
   if (e != cudaSuccess) return (int)e;
   for (int it = 0; it < iters; ++it) {
     // fc forward
@@ -149,8 +161,8 @@ extern "C" int fp_v3_run(float* z, float* v, const bf16* x, const bf16* w1,
                                fpk::EpiBiasRelu<bf16>{b1, h0, F}, st);
     if (e != cudaSuccess) return (int)e;
     // conv A forward
-    e = fpk::launch_conv3x3<false>(h0, ka, masks, M, g, c0, ca,
-                                   fpk::EpiConvBiasRelu{ba, h1, p2 * ca}, st);
+    e = fpk::launch_conv3x3<fpk::kChain, false>(
+        conv_a, fpk::EpiConvBiasRelu{ba, h1, p2 * ca}, st);
     if (e != cudaSuccess) return (int)e;
     // conv B forward, packed: [M*P2, ca] @ [ca, npk]
     e = fpk::launch_gemm<bf16>(h1, ca, kbp, npk, M * p2, npk, ca,
@@ -166,8 +178,8 @@ extern "C" int fp_v3_run(float* z, float* v, const bf16* x, const bf16* w1,
                                fpk::EpiReluMask{h1, h1, ca}, st);
     if (e != cudaSuccess) return (int)e;
     // conv A backward, each tap rounded, masked by h0, over h0
-    e = fpk::launch_conv3x3<true>(h1, kat, masks, M, g, ca, c0,
-                                  fpk::EpiConvReluMask{h0, p2 * c0}, st);
+    e = fpk::launch_conv3x3<fpk::kPerTapBf16, true>(
+        conv_at, fpk::EpiConvReluMask{h0, p2 * c0}, st);
     if (e != cudaSuccess) return (int)e;
     // fc backward + momentum update
     e = fpk::launch_gemm<bf16>(h0, F, w1t, K, M, K, F,

@@ -40,18 +40,22 @@
 // zero taps of the space-to-depth kernels), of which this kernel issues
 // 884 (border taps skipped, the out level padded from 48 to 64 lanes). Per
 // step every activation also makes one round trip through device memory
-// (about 280 KB written per row), under the compute time at WMMA rates.
+// (about 280 KB written per row), well under the compute time.
 //
 // Its design: the TPU kernel keeps a tile's activations pixel-major in
 // on-chip memory, shifts rows by slice + concat for every tap and copies
 // 4*g*g slices for every interleave. Here every activation stays
 // latent-major and flat, [M, g*g*C] in (pixel, channel) order, as in v3:
-//   * fc forward / backward are v2's GEMM1 / GEMM4 unchanged;
-//   * every level, forward and backward, is conv3x3_epilogue
-//     (wmma_gemm.cuh): a block owns 64 latents x 64 channels of one pixel,
-//     a tap is a change of the A column offset and the weights' row block,
-//     and a forward conv's taps are summed one by one in float32 (the
-//     tensor cores' running sum drifts with the length of its chain);
+//   * fc forward / backward are v2's GEMM1 / GEMM4 unchanged
+//     (wmma_gemm.cuh);
+//   * every level, forward and backward, is the Hopper grid conv
+//     (conv3x3_sm90.cuh): persistent blocks of two wgmma consumer
+//     warpgroups and a TMA producer, a tile of 128 latents x 128 (the out
+//     level: 64) channels of one pixel, a tap a change of the TMA box's
+//     coordinates, 64-deep slabs through a 6-stage ring; a forward conv's
+//     taps are summed one by one in float32 (the tensor cores' running sum
+//     drifts with the length of its chain), a backward conv's rounded to
+//     bf16 one by one;
 //   * the interleave is a permutation of runs within a row, so a level
 //     that interleaves stores straight into fine order and its backward
 //     reads the gradient back through the same map: no launch, no copy;
@@ -61,10 +65,11 @@
 // 2 + 2 per level launches per step (10 for celeba.yml); the L loop runs
 // here, so one call from Python runs all L steps of a row chunk, and the
 // level list comes in as host arrays, so one library serves 2 to 4 levels.
-// celeba.yml's weights (29 MB with the transposes) fit the 50 MB L2,
-// imagenet64.yml's (69 MB) do not. wgmma + TMA, larger tiles and a
-// persistent loop are later work.
+// The tensor maps of every conv are encoded once per call. celeba.yml's
+// weights (29 MB with the transposes) fit the 50 MB L2, imagenet64.yml's
+// (69 MB) do not.
 
+#include "conv3x3_sm90.cuh"
 #include "wmma_gemm.cuh"
 
 namespace {
@@ -74,19 +79,28 @@ using fpk::bf16;
 constexpr int kMaxLevels = 4;
 
 // o = acc + bias[c]; t = tanh(o); d = (t - x)(1 - t^2) * scale -> bf16 at
-// dout[r, pixel, c]; x has dout's layout.
+// dout[r, pixel, c] (channels c, c + 1); x has dout's layout.
 struct EpiConvTanhGrad {
   const float* bias;
   const bf16* x;
   bf16* dout;
   int ld;
   float scale;
+  static constexpr bool kReads = true;
+  __device__ __forceinline__ void prefetch(int r, int c, int pix_off) const {
+    fpk::prefetch_l2(x + (size_t)r * ld + pix_off + c);
+  }
+  __device__ __forceinline__ float grad(float acc, float b, float xv) const {
+    float t = tanhf(acc + b);
+    return (t - xv) * (1.0f - t * t) * scale;
+  }
   __device__ __forceinline__ void operator()(int r, int c, int pix_off,
-                                             float acc) const {
+                                             float a0, float a1) const {
     size_t i = (size_t)r * ld + pix_off + c;
-    float t = tanhf(acc + bias[c]);
-    float res = t - __bfloat162float(x[i]);
-    dout[i] = __float2bfloat16_rn(res * (1.0f - t * t) * scale);
+    const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + i);
+    *reinterpret_cast<__nv_bfloat162*>(dout + i) = __floats2bfloat162_rn(
+        grad(a0, bias[c], __low2float(xv)),
+        grad(a1, bias[c + 1], __high2float(xv)));
   }
 };
 
@@ -96,6 +110,8 @@ struct Level {
   const bf16* wt;
   const float* b;
   const float* masks;
+  const int* order;
+  fpk::Conv3x3 fwd, bwd;   // tensor maps of the forward and backward conv
 };
 
 }  // namespace
@@ -106,13 +122,14 @@ struct Level {
 // [K, g0*g0*c0], w1t [g0*g0*c0, K] bf16; b1 [g0*g0*c0] f32. The level list
 // is two HOST arrays, read before this returns: level_ptrs holds, per
 // level, the device pointers w [9*ci, co], wt [9*co, ci] (bf16), b [co],
-// masks [g*g, 9] (f32); level_dims holds g, ci, co and the fine lane count
-// of the level's interleave (0: none). The last level is the out level
-// (tanh gradient, no relu); every other level has a relu. Scratch (bf16):
-// zb [M, K]; acts [M * (g0*g0*c0 + sum of g*g*co)], h0 and every level's
-// output one after the other. M, K, c0, every ci and co multiples of 64;
-// a level's ci equals the lanes its predecessor hands on. Returns the
-// first CUDA error, else 0.
+// masks [g*g, 9] (f32), order [g*g] (int32: the pixels, 9 taps first);
+// level_dims holds g, ci, co and the fine lane count of the level's
+// interleave (0: none). The last level is the out level (tanh gradient,
+// no relu); every other level has a relu. Scratch (bf16): zb [M, K];
+// acts [M * (g0*g0*c0 + sum of g*g*co)], h0 and every level's output one
+// after the other. M, K, c0, every ci and co multiples of 64; a level's
+// ci equals the lanes its predecessor hands on. Returns the first CUDA
+// error, else 0.
 extern "C" int fp_v4_run(float* z, float* v, const bf16* x, const bf16* w1,
                          const bf16* w1t, const float* b1,
                          const void* const* level_ptrs,
@@ -134,10 +151,11 @@ extern "C" int fp_v4_run(float* z, float* v, const bf16* x, const bf16* w1,
     l.ci = level_dims[4 * i + 1];
     l.co = level_dims[4 * i + 2];
     l.fine = level_dims[4 * i + 3];
-    l.w = static_cast<const bf16*>(level_ptrs[4 * i]);
-    l.wt = static_cast<const bf16*>(level_ptrs[4 * i + 1]);
-    l.b = static_cast<const float*>(level_ptrs[4 * i + 2]);
-    l.masks = static_cast<const float*>(level_ptrs[4 * i + 3]);
+    l.w = static_cast<const bf16*>(level_ptrs[5 * i]);
+    l.wt = static_cast<const bf16*>(level_ptrs[5 * i + 1]);
+    l.b = static_cast<const float*>(level_ptrs[5 * i + 2]);
+    l.masks = static_cast<const float*>(level_ptrs[5 * i + 3]);
+    l.order = static_cast<const int*>(level_ptrs[5 * i + 4]);
     bool widths = l.ci % 64 == 0 && l.co % 64 == 0 &&
                   l.g * l.g * l.ci == cols[i] &&
                   (l.fine == 0 || (l.fine % 64 == 0 && 4 * l.fine == l.co));
@@ -145,6 +163,14 @@ extern "C" int fp_v4_run(float* z, float* v, const bf16* x, const bf16* w1,
       return (int)cudaErrorInvalidValue;
     cols[i + 1] = l.g * l.g * l.co;
     act[i + 1] = act[i] + (size_t)M * cols[i];
+    // forward: act[i] -> act[i + 1]; backward: the gradient in act[i + 1]
+    // (read in fine order where the level interleaves) -> over act[i]
+    cudaError_t e = fpk::make_conv3x3(&l.fwd, act[i], l.w, l.masks, l.order,
+                                      M, l.g, l.ci, l.co, 0, l.fine);
+    if (e == cudaSuccess)
+      e = fpk::make_conv3x3(&l.bwd, act[i + 1], l.wt, l.masks, l.order, M,
+                            l.g, l.co, l.ci, l.fine, 0);
+    if (e != cudaSuccess) return (int)e;
   }
   cudaError_t e = fpk::launch_cast_bf16(z, zb, M * K, st);
   if (e != cudaSuccess) return (int)e;
@@ -157,14 +183,12 @@ extern "C" int fp_v4_run(float* z, float* v, const bf16* x, const bf16* w1,
     for (int i = 0; i < n_levels; ++i) {
       const Level& l = lv[i];
       if (i + 1 < n_levels) {
-        e = fpk::launch_conv3x3<false, fpk::kPerTap>(
-            act[i], l.w, l.masks, M, l.g, l.ci, l.co,
-            fpk::EpiConvBiasRelu{l.b, act[i + 1], cols[i + 1]}, st, 0,
-            l.fine);
+        e = fpk::launch_conv3x3<fpk::kPerTap, false>(
+            l.fwd, fpk::EpiConvBiasRelu{l.b, act[i + 1], cols[i + 1]}, st);
       } else {
-        e = fpk::launch_conv3x3<false, fpk::kPerTap>(
-            act[i], l.w, l.masks, M, l.g, l.ci, l.co,
-            EpiConvTanhGrad{l.b, x, act[i + 1], cols[i + 1], scale}, st);
+        e = fpk::launch_conv3x3<fpk::kPerTap, false>(
+            l.fwd, EpiConvTanhGrad{l.b, x, act[i + 1], cols[i + 1], scale},
+            st);
       }
       if (e != cudaSuccess) return (int)e;
     }
@@ -172,10 +196,8 @@ extern "C" int fp_v4_run(float* z, float* v, const bf16* x, const bf16* w1,
     // activation's relu, written over it
     for (int i = n_levels - 1; i >= 0; --i) {
       const Level& l = lv[i];
-      e = fpk::launch_conv3x3<true>(act[i + 1], l.wt, l.masks, M, l.g, l.co,
-                                    l.ci,
-                                    fpk::EpiConvReluMask{act[i], cols[i]},
-                                    st, l.fine, 0);
+      e = fpk::launch_conv3x3<fpk::kPerTapBf16, true>(
+          l.bwd, fpk::EpiConvReluMask{act[i], cols[i]}, st);
       if (e != cudaSuccess) return (int)e;
     }
     // fc backward + momentum update
@@ -185,6 +207,49 @@ extern "C" int fp_v4_run(float* z, float* v, const bf16* x, const bf16* w1,
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
+}
+
+// One grid conv on its own, for checking the conv against a reference.
+// in: [M, g*g*cin] (fine order where in_fine), w: [9*cin, cout], out:
+// [M, g*g*cout] (fine order where out_fine). mode 0: forward, one chain,
+// out = bf16(relu(acc + bias)); 1: the same, taps summed one by one; 2:
+// forward per tap, out = the tanh gradient of acc + bias against x (out's
+// layout) times scale; 3: backward, each tap rounded, out = bf16(acc) where
+// out > 0, else 0, written over out. Returns the CUDA error, else 0.
+extern "C" int fp_conv3x3(const bf16* in, const bf16* w, const float* bias,
+                          const float* masks, const int* order,
+                          const bf16* x, bf16* out, int M, int g, int cin,
+                          int cout, int in_fine, int out_fine, int mode,
+                          float scale, void* stream_ptr) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  fpk::Conv3x3 c;
+  cudaError_t e = fpk::make_conv3x3(&c, in, w, masks, order, M, g, cin, cout,
+                                    in_fine, out_fine);
+  if (e != cudaSuccess) return (int)e;
+  const int ld = g * g * cout;
+  switch (mode) {
+    case 0:
+      e = fpk::launch_conv3x3<fpk::kChain, false>(
+          c, fpk::EpiConvBiasRelu{bias, out, ld}, st);
+      break;
+    case 1:
+      e = fpk::launch_conv3x3<fpk::kPerTap, false>(
+          c, fpk::EpiConvBiasRelu{bias, out, ld}, st);
+      break;
+    case 2:
+      if (out_fine) return (int)cudaErrorInvalidValue;
+      e = fpk::launch_conv3x3<fpk::kPerTap, false>(
+          c, EpiConvTanhGrad{bias, x, out, ld, scale}, st);
+      break;
+    case 3:
+      if (out_fine) return (int)cudaErrorInvalidValue;
+      e = fpk::launch_conv3x3<fpk::kPerTapBf16, true>(
+          c, fpk::EpiConvReluMask{out, ld}, st);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)e;
 }
 
 extern "C" const char* fp_error_string(int code) {

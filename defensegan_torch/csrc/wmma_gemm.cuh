@@ -1,11 +1,10 @@
 // Tiled tensor-core GEMM with a fused elementwise epilogue, shared by the
 // fused projection loops (fused_projection_v2.cu, fused_projection_v2i.cu,
-// fused_projection_v3.cu, fused_projection_v4.cu).
+// fused_projection_v3.cu, fused_projection_v4.cu): their fc products, v3's
+// packed conv B, and v2's and v2i's four products. The 3x3 grid convs of
+// v3 and v4 run on Hopper's wgmma + TMA instead (conv3x3_sm90.cuh).
 //
 //   C[M, N] = A[M, K] @ B[K, N],  A and B row-major, then epi(row, col, acc)
-//
-// and, on the same tile machinery, a 3x3 SAME convolution on a small grid
-// as a sum of per-tap products (conv3x3_epilogue, for the deep loops).
 //
 // Element types: bf16 x bf16 -> f32 accumulators, or int8 x int8 -> int32.
 // The product runs on the tensor cores through WMMA 16x16x16 fragments
@@ -23,8 +22,8 @@
 // start 16-byte aligned. Nothing is allocated here; launches go on the
 // caller's stream.
 //
-// A later PR replaces this with wgmma + TMA (Hopper's full tensor-core
-// rate); this first version is the simple one that is right.
+// These products still run at mma.sync's rate; the grid convs run on wgmma
+// + TMA (conv3x3_sm90.cuh), and the same design is the way for these too.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -161,43 +160,23 @@ __device__ __forceinline__ void mma_slab(AccFrag<T> (&acc)[2][2],
 }
 
 // The K loop of one 64x64 tile: acc = sum over n_slabs slabs, streamed
-// through the 2-stage ring. src(s, pa, pb) names slab s: the first element
-// of its A rows (row stride lda) and of its B rows (row stride ldb); a
-// plain product walks K, a 3x3 grid conv walks its valid taps and each
-// tap's K (ConvTaps below). How the slabs are summed:
-//   kChain       one accumulation chain over all slabs (the plain product);
-//   kPerTap      every run of slabs_per_tap slabs is summed on its own and
-//                then added to acc in float32. The tensor cores do not round
-//                their running sum to nearest, so a chain's error grows with
-//                its length; a grid conv's 9*cin-long sum taken tap by tap
-//                stays about as close to a float32 sum as two float32 orders
-//                are to each other, for 6 to 9% of a forward conv's time on
-//                an H100 (the forward convs of the multi-level loop, whose
-//                rows pass four levels of such sums);
-//   kPerTapBf16  as kPerTap, each tap's sum rounded to bf16 before it is
-//                added (bf16 only): the per-tap rounding of the deep loops'
-//                backward convs, where the TPU kernels round.
-enum TapSum { kChain, kPerTap, kPerTapBf16 };
-
-template <typename T, TapSum kSum, typename Src>
+// through the 2-stage ring in one accumulation chain. src(s, pa, pb) names
+// slab s: the first element of its A rows (row stride lda) and of its B
+// rows (row stride ldb).
+template <typename T, typename Src>
 __device__ __forceinline__ void mma_pipeline(AccFrag<T> (&acc)[2][2],
                                              unsigned char* smem,
                                              const Src& src, int lda,
-                                             int ldb, int n_slabs,
-                                             int slabs_per_tap) {
+                                             int ldb, int n_slabs) {
   using namespace nvcuda;
   using Acc = typename Tile<T>::Acc;
   using G = Geometry<T>;
   const int warp = threadIdx.x >> 5;
   const int wr = warp >> 1, wc = warp & 1;
-  AccFrag<T> part[2][2];  // one tap's sum; unused with kChain
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc[i][j], Acc(0));
-      if constexpr (kSum != kChain) wmma::fill_fragment(part[i][j], Acc(0));
-    }
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], Acc(0));
   if (n_slabs <= 0) return;
 
   const T* pa;
@@ -205,7 +184,6 @@ __device__ __forceinline__ void mma_pipeline(AccFrag<T> (&acc)[2][2],
   src(0, pa, pb);
   load_slab<T>(smem, pa, lda, pb, ldb);
   cp_async_commit();
-  int in_tap = 0;
   for (int s = 0; s < n_slabs; ++s) {
     if (s + 1 < n_slabs) {
       src(s + 1, pa, pb);
@@ -216,30 +194,7 @@ __device__ __forceinline__ void mma_pipeline(AccFrag<T> (&acc)[2][2],
       cp_async_wait<0>();
     }
     __syncthreads();
-    const unsigned char* sa = smem + (s & 1) * G::kStage;
-    if constexpr (kSum != kChain) {
-      mma_slab<T>(part, sa, wr, wc);
-      if (++in_tap == slabs_per_tap) {
-        in_tap = 0;
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-#pragma unroll
-            for (int e = 0; e < part[i][j].num_elements; ++e) {
-              if constexpr (kSum == kPerTapBf16) {
-                acc[i][j].x[e] +=
-                    __bfloat162float(__float2bfloat16_rn(part[i][j].x[e]));
-              } else {
-                acc[i][j].x[e] += part[i][j].x[e];
-              }
-            }
-            wmma::fill_fragment(part[i][j], Acc(0));
-          }
-      }
-    } else {
-      mma_slab<T>(acc, sa, wr, wc);
-    }
+    mma_slab<T>(acc, smem + (s & 1) * G::kStage, wr, wc);
     __syncthreads();
   }
 }
@@ -300,7 +255,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n0 = blockIdx.x * kBN;
   AccFrag<T> acc[2][2];
   GemmSlabs<T> src{A + (size_t)m0 * lda, B + n0, ldb};
-  mma_pipeline<T, kChain>(acc, smem, src, lda, ldb, K / Tile<T>::BK, 1);
+  mma_pipeline<T>(acc, smem, src, lda, ldb, K / Tile<T>::BK);
   store_tile<T>(acc, smem, m0, n0, epi);
 }
 
@@ -313,145 +268,6 @@ inline cudaError_t launch_gemm(const T* A, int lda, const T* B, int ldb,
                                                        epi);
   return cudaGetLastError();
 }
-
-// ---- 3x3 SAME conv on a g x g grid, activations latent-major and flat ----
-//
-// An activation is [M, g*g*C] in (pixel, channel) order, so "pixel q of 64
-// latents" is a 64-row A operand at column offset q*C with row stride
-// g*g*C. One block computes a 64-latent x 64-channel tile of ONE output
-// pixel p (blockIdx.z): out[p] = sum over taps k of in[p +- off_k] @ W_k,
-// off_k = dy*g + dx, k = (dy+1)*3 + (dx+1). A tap is a change of the A
-// column offset and of the weights' row block, the same for the whole
-// block; a tap whose source pixel leaves the grid is skipped by the block
-// (masks[p*9 + k] == 0), not masked element by element.
-//
-// kBackward = false: out[p] = sum_k in[p + off_k] @ W_k, valid iff
-// masks[p, k]. kBackward = true (the input gradient): out[p] = sum_k
-// bf16(in[p - off_k] @ W_k), valid iff masks[p, 8 - k]; W_k are then the
-// per-tap transposes, and each tap's product is rounded to bf16 before
-// the sum, where the TPU kernel rounds it. Weights: [9*cin, cout], taps
-// stacked on rows. epi(row, channel, pixel_offset, acc) writes channel c of
-// pixel p at pixel_offset + c.
-//
-// Interleaved activations (the multi-level loop, fused_projection_v4.cu). A
-// blocked activation [g*g, 4*f], lanes (py, px, channel), is the fine
-// activation [(2g)*(2g), f] up to a permutation of f-wide runs within a
-// row. A level that interleaves stores its output directly in fine order
-// (out_fine = f > 0) and its backward reads the gradient from there
-// (in_fine = f > 0), so the interleave is no pass of its own. f % 64 == 0:
-// an output tile and a K slab each lie inside one run. in_fine = out_fine
-// = 0: plain [g*g, C] on both sides.
-
-// Offset of lane c of blocked pixel p in the fine layout.
-__device__ __forceinline__ int interleaved_offset(int p, int c, int g,
-                                                  int fine) {
-  int run = c / fine;
-  int y = p / g, x = p - y * g;
-  int fp = (2 * y + (run >> 1)) * 2 * g + 2 * x + (run & 1);
-  return fp * fine + (c - run * fine);
-}
-
-struct ConvTaps {
-  const bf16* a;   // in + m0 * lda
-  const bf16* w;   // W + n0
-  int cin, cout, slabs_per_tap;
-  int g, in_fine;
-  const int* pix;  // source pixel of each valid tap (shared memory)
-  const int* tap;  // its tap index k
-  __device__ __forceinline__ void operator()(int s, const bf16*& pa,
-                                             const bf16*& pb) const {
-    int t = s / slabs_per_tap;
-    int k0 = (s - t * slabs_per_tap) * Tile<bf16>::BK;
-    pa = a + (in_fine ? interleaved_offset(pix[t], k0, g, in_fine)
-                      : pix[t] * cin + k0);
-    pb = w + (size_t)(tap[t] * cin + k0) * cout;
-  }
-};
-
-template <typename Epi>
-struct AtPixel {
-  Epi epi;
-  int offset;
-  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
-    epi(r, c, offset, acc);
-  }
-};
-
-template <bool kBackward, TapSum kForwardSum, typename Epi>
-__global__ void __launch_bounds__(kThreads)
-    conv3x3_epilogue(const bf16* __restrict__ in, const bf16* __restrict__ W,
-                     const float* __restrict__ masks, int g, int cin,
-                     int cout, int in_fine, int out_fine, Epi epi) {
-  __shared__ __align__(128) unsigned char smem[Geometry<bf16>::kSmem];
-  __shared__ int s_pix[9], s_tap[9], s_n;
-  const int p = blockIdx.z;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  if (threadIdx.x == 0) {
-    int n = 0;
-    for (int k = 0; k < 9; ++k) {
-      int off = (k / 3 - 1) * g + (k % 3 - 1);
-      if (masks[p * 9 + (kBackward ? 8 - k : k)] != 0.0f) {
-        s_pix[n] = kBackward ? p - off : p + off;
-        s_tap[n] = k;
-        ++n;
-      }
-    }
-    s_n = n;
-  }
-  __syncthreads();
-  const int lda = g * g * cin;
-  const int spt = cin / Tile<bf16>::BK;
-  AccFrag<bf16> acc[2][2];
-  ConvTaps src{in + (size_t)m0 * lda, W + n0, cin, cout, spt, g, in_fine,
-               s_pix, s_tap};
-  mma_pipeline<bf16, kBackward ? kPerTapBf16 : kForwardSum>(
-      acc, smem, src, lda, cout, s_n * spt, spt);
-  // the epilogue adds the tile's global column n0 + j to the offset
-  const int offset =
-      out_fine ? interleaved_offset(p, n0, g, out_fine) - n0 : p * cout;
-  store_tile<bf16>(acc, smem, m0, n0, AtPixel<Epi>{epi, offset});
-}
-
-// kForwardSum: how a forward conv sums its taps (kChain or kPerTap); the
-// backward always sums per tap, rounded (kPerTapBf16).
-// in: [M, g*g*cin]; W: [9*cin, cout]; masks: [g*g, 9] f32 0/1. M % 64,
-// cout % 64, cin % 32 == 0; in_fine % 32 == 0 and 4*in_fine == cin,
-// out_fine % 64 == 0 and 4*out_fine == cout, where they are not 0.
-template <bool kBackward, TapSum kForwardSum = kChain, typename Epi>
-inline cudaError_t launch_conv3x3(const bf16* in, const bf16* W,
-                                  const float* masks, int M, int g, int cin,
-                                  int cout, Epi epi, cudaStream_t stream,
-                                  int in_fine = 0, int out_fine = 0) {
-  dim3 grid(cout / kBN, M / kBM, g * g);
-  conv3x3_epilogue<kBackward, kForwardSum, Epi>
-      <<<grid, kThreads, 0, stream>>>(in, W, masks, g, cin, cout, in_fine,
-                                      out_fine, epi);
-  return cudaGetLastError();
-}
-
-// h = relu(acc + bias[c]) -> bf16 at out[r, pixel, c].
-struct EpiConvBiasRelu {
-  const float* bias;
-  bf16* out;
-  int ld;
-  __device__ __forceinline__ void operator()(int r, int c, int pix_off,
-                                             float acc) const {
-    out[(size_t)r * ld + pix_off + c] =
-        __float2bfloat16_rn(fmaxf(acc + bias[c], 0.0f));
-  }
-};
-
-// dh = acc * [h > 0] -> bf16, written over h[r, pixel, c].
-struct EpiConvReluMask {
-  bf16* h;
-  int ld;
-  __device__ __forceinline__ void operator()(int r, int c, int pix_off,
-                                             float acc) const {
-    size_t i = (size_t)r * ld + pix_off + c;
-    h[i] = __float2bfloat16_rn(__bfloat162float(h[i]) > 0.0f ? acc : 0.0f);
-  }
-};
 
 // z (f32) -> bf16 copy: the first step's A operand of z @ W1.
 __global__ void cast_bf16(const float* __restrict__ z, bf16* __restrict__ zb,

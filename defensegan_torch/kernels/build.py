@@ -42,7 +42,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
+    """Every counter to 0, the kernels' and any other wrapper's."""
+    for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 

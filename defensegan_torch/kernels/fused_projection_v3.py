@@ -98,6 +98,14 @@ def _tap_masks(g: int) -> np.ndarray:
     return m
 
 
+def pixel_order(g: int) -> np.ndarray:
+    """[g*g] int32: the grid's pixels by their count of valid taps, most
+    first (9 inside, 6 on an edge, 4 in a corner), in pixel order within a
+    count. The grid conv (csrc/conv3x3_sm90.cuh) walks each 128-row slice
+    of the activation in this order, so the cheapest tiles come last."""
+    return np.argsort(-_tap_masks(g).sum(1), kind="stable").astype(np.int32)
+
+
 def pack_s2d(generator) -> S2DPack:
     """Pack the frozen deep generator for the v3 kernel (equal to the JAX
     package's pack: s2d-packed in the generator's compute dtype, then
@@ -247,6 +255,7 @@ def fused_projection_s2d(pack: S2DPack, x_s2d: torch.Tensor,
                               rec_lr=rec_lr, momentum=momentum)
     pp = padded_s2d(pack)
     npk, kpk = pp.kbp.shape[1], pp.kbpt.shape[0]
+    order = torch.from_numpy(pixel_order(pp.grid_hw)).to(z0_flat.device)
     bf = torch.bfloat16
     # dh1 and dh0 overwrite h1 and h0 in place (the kernel's epilogue
     # reads the relu mask and writes the gradient at the same index), so
@@ -254,7 +263,7 @@ def fused_projection_s2d(pack: S2DPack, x_s2d: torch.Tensor,
     return run_loop(
         "fused_projection_v3", x_s2d.to(bf), z0_flat,
         [pp.w1, pp.w1t, pp.b1, pp.ka, pp.kat, pp.ba, pp.kbp, pp.kbpt, pp.bb,
-         pp.masks],
+         pp.masks, order],
         [(pp.z_dim, bf), (p2 * pp.c0, bf), (p2 * pp.ca, bf), (p2 * npk, bf),
          (p2 * kpk, bf)],
         (pp.z_dim, pp.c0, pp.ca, pp.cb, pp.grid_hw, npk, kpk),

@@ -71,7 +71,8 @@ from defensegan_torch.kernels.fused_projection_v2 import (COL_TILE, _round_up,
 from defensegan_torch.kernels.fused_projection_v3 import (_bf16_round,
                                                           _pad_blocks,
                                                           _tap_masks,
-                                                          _tap_offsets)
+                                                          _tap_offsets,
+                                                          pixel_order)
 from defensegan_torch.models.generator import from_image_space
 from defensegan_torch.models.layers import conv_transpose_same
 
@@ -124,7 +125,7 @@ def interleave_perm(g: int, c: int) -> np.ndarray:
     [(2g)*(2g), c], fine_flat == blocked_flat[perm]. Blocked offset
     (y*g + x)*4c + (2*py + px)*c + j sits at fine offset
     ((2y + py)*2g + 2x + px)*c + j: the map the CUDA kernel stores and
-    reads through (csrc/wmma_gemm.cuh::interleaved_offset)."""
+    reads through (csrc/conv3x3_sm90.cuh::interleaved_offset)."""
     perm = np.empty(g * g * 4 * c, np.int64)
     j = np.arange(c)
     for y in range(g):
@@ -206,6 +207,32 @@ def x_rows(pack: V4Pack, x_tanh: torch.Tensor) -> torch.Tensor:
     return xb.reshape(xb.shape[0], -1)
 
 
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w summed in w's dtype, the sum rounded to float32."""
+    return (a.to(w.dtype) @ w).float()
+
+
+def grid_conv(h: torch.Tensor, w: torch.Tensor, g: int) -> torch.Tensor:
+    """out[p] = sum_k h[p + off_k] @ W_k on [N, g, g, ci] with w [9, ci, co]:
+    each tap's product summed in w's dtype, the taps added in float32."""
+    hp = F.pad(h, (0, 0, 1, 1, 1, 1))
+    acc = 0.0
+    for k, (dy, dx) in enumerate(_tap_offsets(g)):
+        acc = acc + _mm(hp[:, 1 + dy:1 + dy + g, 1 + dx:1 + dx + g], w[k])
+    return acc
+
+
+def grid_conv_t(d: torch.Tensor, wt: torch.Tensor, g: int) -> torch.Tensor:
+    """out[p] = sum_k bf16(d @ W_k^T)[p - off_k] on [N, g, g, co] with wt
+    [9, co, ci] (the per-tap transposes): each tap's product rounded before
+    the float32 sum."""
+    acc = 0.0
+    for k, (dy, dx) in enumerate(_tap_offsets(g)):
+        t = F.pad(_bf16_round(_mm(d, wt[k])), (0, 0, 1, 1, 1, 1))
+        acc = acc + t[:, 1 - dy:1 - dy + g, 1 - dx:1 - dx + g]
+    return acc
+
+
 def v4_loop_plain(pack: V4Pack, x_flat: torch.Tensor, z0: torch.Tensor, *,
                   rec_iters: int, rec_lr: float, momentum: float,
                   product_dtype: torch.dtype = torch.float32
@@ -226,10 +253,6 @@ def v4_loop_plain(pack: V4Pack, x_flat: torch.Tensor, z0: torch.Tensor, *,
     n = z0.shape[0]
     g0, c0 = pack.base_hw, pack.c0
 
-    def mm(a, w):
-        """a @ w summed in the product dtype, the sum rounded to f32."""
-        return (a.to(pd) @ w).float()
-
     w1, w1t = pack.w1.to(pd), pack.w1t.to(pd)
     weights = [(lv.w.to(pd).reshape(9, lv.ci, lv.co),
                 lv.wt.to(pd).reshape(9, lv.co, lv.ci)) for lv in pack.levels]
@@ -237,31 +260,14 @@ def v4_loop_plain(pack: V4Pack, x_flat: torch.Tensor, z0: torch.Tensor, *,
     x = rnd(x_flat.float()).reshape(n, fg, fg, pack.out_lanes)
     scale = 2.0 / pack.out_dim
 
-    def conv(h, w, g):
-        """out[p] = sum_k h[p + off_k] @ W_k on [N, g, g, ci], f32 sum."""
-        hp = F.pad(h, (0, 0, 1, 1, 1, 1))
-        acc = 0.0
-        for k, (dy, dx) in enumerate(_tap_offsets(g)):
-            acc = acc + mm(hp[:, 1 + dy:1 + dy + g, 1 + dx:1 + dx + g], w[k])
-        return acc
-
-    def conv_t(d, wt, g):
-        """out[p] = sum_k bf16(d @ W_k^T)[p - off_k]: each tap's product
-        rounded before the f32 sum."""
-        acc = 0.0
-        for k, (dy, dx) in enumerate(_tap_offsets(g)):
-            t = F.pad(rnd(mm(d, wt[k])), (0, 0, 1, 1, 1, 1))
-            acc = acc + t[:, 1 - dy:1 - dy + g, 1 - dx:1 - dx + g]
-        return acc
-
     z = z0.float().clone()
     v = torch.zeros_like(z)
     for _ in range(rec_iters):
-        h0 = torch.relu(mm(rnd(z), w1).reshape(n, g0 * g0, c0) + pack.b1)
+        h0 = torch.relu(_mm(rnd(z), w1).reshape(n, g0 * g0, c0) + pack.b1)
         acts = [h0.reshape(n, g0, g0, c0)]
         h = rnd(acts[0])
         for lv, (w, _) in zip(pack.levels, weights):
-            a = conv(h, w, lv.g) + lv.b
+            a = grid_conv(h, w, lv.g) + lv.b
             if lv.relu:
                 a = torch.relu(a)
             acts.append(a)
@@ -276,9 +282,9 @@ def v4_loop_plain(pack: V4Pack, x_flat: torch.Tensor, z0: torch.Tensor, *,
                 d = _s2d(d, 2)
             if lv.relu:
                 d = torch.where(acts[i + 1] > 0.0, d, 0.0)
-            d = rnd(conv_t(d, weights[i][1], lv.g))
+            d = rnd(grid_conv_t(d, weights[i][1], lv.g))
         dh0 = rnd(torch.where(acts[0] > 0.0, d, 0.0))
-        v = momentum * v + mm(dh0.reshape(n, g0 * g0 * c0), w1t)
+        v = momentum * v + _mm(dh0.reshape(n, g0 * g0 * c0), w1t)
         z = z - rec_lr * v
     return z
 
@@ -372,12 +378,15 @@ def fused_projection_v4(pack: V4Pack, x_flat: torch.Tensor,
                              rec_lr=rec_lr, momentum=momentum)
     pp = padded_v4(pack)
     dev = z0_flat.device
-    masks = {lv.g: torch.from_numpy(_tap_masks(lv.g)).to(dev)
+    grids = {lv.g: (torch.from_numpy(_tap_masks(lv.g)).to(dev),
+                    torch.from_numpy(pixel_order(lv.g)).to(dev))
              for lv in pp.levels}
-    tensors = [t for lv in pp.levels for t in (lv.w, lv.wt, lv.b, masks[lv.g])]
+    tensors = [t for lv in pp.levels
+               for t in (lv.w, lv.wt, lv.b) + grids[lv.g]]
     if any(t.device != dev or not t.is_contiguous() for t in tensors):
         raise ValueError(f"pack levels must be contiguous on {dev}")
-    # host tables of the level list: pointers (w, wt, b, masks) and widths
+    # host tables of the level list: pointers (w, wt, b, masks, pixel
+    # order) and widths
     # (g, ci, co, fine lanes of the interleave or 0), read by the library
     # before it returns
     ptr_table = (ctypes.c_void_p * len(tensors))(

@@ -13,7 +13,10 @@ synchronized calls outside it (call_ms). For v3 each kernel is also named
 by the launch of the step it is (fc, conv A, conv B, their backwards). The
 levels of v4 share their kernels, so its line adds `by_launch`: device time
 by the position of a launch in the step (fc, each level forward, each level
-backward, fc backward), from the order of the launches on the stream;
+backward, fc backward), from the order of the launches on the stream. Each
+launch of v3 and v4 also carries the operations it issues (the padded
+widths, skipped border taps left out) and its share of the bf16 peak
+(989 TFLOP/s) on them;
 --config runs v4 on another 64x64 config (celeba_wide, imagenet64) at the
 same rows. --chunks repeats this for each row-chunk size of the wrappers
 (0: their default, one chunk up to the scratch cap). Needs one CUDA device:
@@ -35,9 +38,12 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-# the launches of one v3 step, by a substring of the kernel's name
-V3_LAUNCHES = (("conv3x3_epilogue<false", "conv A forward"),
-               ("conv3x3_epilogue<true", "conv A backward"),
+PEAK_BF16 = 989e12      # dense bf16 peak of one H100 SXM (data sheet)
+
+# the launches of one v3 step, by a substring of the kernel's name (the
+# grid conv's epilogues name its two directions)
+V3_LAUNCHES = (("EpiConvBiasRelu", "conv A forward"),
+               ("EpiConvReluMask", "conv A backward"),
                ("EpiStoreBf16", "conv B forward (packed product)"),
                ("tanh_grad_pack", "conv B tap sum + tanh gradient + pack"),
                ("EpiReluMask", "conv B backward"),
@@ -66,14 +72,53 @@ def launch_of(kernel_name: str):
 
 def v4_step_labels(pack):
     """The launches of one v4 step, in stream order."""
-    lv = [f"level {i} (g {l.g}, {l.ci} -> {l.co})"
-          for i, l in enumerate(pack.levels)]
+    lv = level_names(pack)
     return (["fc forward"] + [f"{name} forward" for name in lv]
             + [f"{name} backward" for name in reversed(lv)]
             + ["fc backward + momentum"])
 
 
-def by_launch(prof, labels, iters: int):
+def taps(g: int) -> int:
+    """Valid taps of a 3x3 SAME conv on a g x g grid, over all pixels."""
+    from defensegan_torch.kernels.fused_projection_v3 import _tap_masks
+    return int(_tap_masks(g).sum())
+
+
+def issued_flop(pack, rows: int, iters: int) -> dict:
+    """Operations each launch of a v3 or v4 step issues over `iters` steps
+    at the kernel's padded widths, by launch label."""
+    from defensegan_torch.kernels.fused_projection_v3 import padded_s2d
+    from defensegan_torch.kernels.fused_projection_v4 import padded_v4
+    n = 2.0 * rows * iters
+    if hasattr(pack, "levels"):
+        pp = padded_v4(pack)
+        fc = n * pp.z_dim * pp.base_hw ** 2 * pp.c0
+        out = {"fc forward": fc, "fc backward + momentum": fc}
+        for name, lv in zip(level_names(pack), pp.levels):
+            conv = n * taps(lv.g) * lv.ci * lv.co
+            out[f"{name} forward"] = out[f"{name} backward"] = conv
+        return out
+    pp = padded_s2d(pack)
+    p2 = pp.grid_hw ** 2
+    fc = n * pp.z_dim * p2 * pp.c0
+    conv_a = n * taps(pp.grid_hw) * pp.c0 * pp.ca
+    return {"fc forward": fc, "fc backward + momentum": fc,
+            "conv A forward": conv_a, "conv A backward": conv_a,
+            "conv B forward (packed product)":
+                n * p2 * pp.ca * pp.kbp.shape[1],
+            "conv B backward": n * p2 * pp.kbpt.shape[0] * pp.ca}
+
+
+def peak_share(flop, ms):
+    return None if not flop or not ms else flop / (ms * 1e-3) / PEAK_BF16
+
+
+def level_names(pack):
+    return [f"level {i} (g {l.g}, {l.ci} -> {l.co})"
+            for i, l in enumerate(pack.levels)]
+
+
+def by_launch(prof, labels, iters: int, flop: dict):
     """Device time by position in the step: the library's kernels (C++
     namespace fpk) in stream order are one cast, then `iters` steps of
     len(labels) launches."""
@@ -88,7 +133,9 @@ def by_launch(prof, labels, iters: int):
     for i, e in enumerate(evs[1:]):
         us[i % len(labels)] += e.time_range.elapsed_us()
     total = sum(us)
-    return [{"launch": name, "ms": t / 1e3, "share": t / total}
+    return [{"launch": name, "ms": t / 1e3, "share": t / total,
+             "issued_tflop": flop.get(name, 0.0) / 1e12,
+             "bf16_peak_share": peak_share(flop.get(name), t / 1e3)}
             for name, t in zip(labels, us)]
 
 
@@ -182,22 +229,29 @@ def main(argv=None) -> int:
                 rows.append((e.key, dev_us, e.count))
         total = sum(r[1] for r in rows)
         extra = {}
+        flop = {} if name.endswith(("v2", "v2i")) else \
+            issued_flop(pack, n, args.iters)
         if name == "fused_projection_v4":
             extra["by_launch"] = by_launch(prof, v4_step_labels(pack),
-                                           args.iters)
-        if name == "fused_projection_v4":
+                                           args.iters, flop)
             extra["config"] = args.config
+        if flop:
+            extra["issued_tflop"] = sum(flop.values()) / 1e12
+            extra["bf16_peak_share"] = peak_share(sum(flop.values()),
+                                                  total / 1e3)
         print(json.dumps({
             "loop": name, "rows": n, "iters": args.iters,
             "chunk": chunk or "default", "p": pack_width(pack),
             "call_ms": statistics.median(calls),
             "wall_ms": wall * 1e3, "device_ms": total / 1e3,
-            "kernels": [{"kernel": k[:120],
-                         "launch": launch_of(k) if name.endswith("v3")
-                         else None,
-                         "ms": us / 1e3, "count": c,
-                         "share": us / total if total else None}
-                        for k, us, c in sorted(rows, key=lambda r: -r[1])],
+            "kernels": [dict(kernel=k[:120], launch=launch,
+                             ms=us / 1e3, count=c,
+                             share=us / total if total else None,
+                             bf16_peak_share=peak_share(flop.get(launch),
+                                                        us / 1e3))
+                        for k, us, c in sorted(rows, key=lambda r: -r[1])
+                        for launch in [launch_of(k) if name.endswith("v3")
+                                       else None]],
             **extra}), flush=True)
     return 0
 

@@ -10,9 +10,10 @@ it runs on a machine that has only the port's dependencies:
 widths here (latent 32; wide F 1568; deep c0 8, ca 16; the 64x64 stacks at
 GEN_DIM 4) exercise the wrappers' padding of k, F and the deep loops'
 channels to the kernels' 64-wide tiles -- for v4 every run of an
-interleaved level is padded to 64 on its own, so that a tile never
-straddles two runs; chip_smoke.py checks the full widths, where only the
-out level is padded.
+interleaved level is padded to 64 on its own, so that no 64 channels of a
+tile straddle two runs; chip_smoke.py checks the full widths, where only
+the out level is padded. The grid conv alone (kernels/conv3x3.py) runs at
+published widths and at the edges of its design (CONV_EDGES).
 Tolerances are chip_smoke.py's elementwise bounds: kernel and plain
 version differ only in float32 summation order, which flips a bf16
 rounding (2^-8 relative) of an intermediate now and then, carried forward
@@ -24,6 +25,8 @@ import pytest
 import torch
 
 from defensegan_torch.kernels import build
+from defensegan_torch.kernels.conv3x3 import (COUNTER, conv3x3, conv3x3_plain,
+                                              rounding_excess, to_fine)
 from defensegan_torch.kernels.fused_projection_v2 import (
     dense_loop_plain, fused_projection_dense, pack_dense, pad_targets)
 from defensegan_torch.kernels.fused_projection_v2i import (
@@ -210,3 +213,60 @@ def test_v4_kernel_rejects_bad_inputs(cuda_device):
         fused_projection_v4(pack, x[:, :64], z0, **kw)
     with pytest.raises(ValueError, match="one device"):
         fused_projection_v4(pack, x.cpu(), z0, **kw)
+
+
+# ---- the Hopper grid conv on its own (csrc/conv3x3_sm90.cuh through
+# kernels/conv3x3.py), at the edges of its design
+CONV_EDGES = {
+    # mode, g, cin, cout, in_fine, out_fine, rows
+    "g4_border_taps_interleaved_out": ("per_tap", 4, 512, 1024, 0, 256, 256),
+    "g4_chain_rows_192": ("chain", 4, 128, 256, 0, 0, 192),
+    "g7_chain": ("chain", 7, 128, 256, 0, 0, 128),
+    "out_level_n64": ("tanh_grad", 16, 256, 64, 0, 0, 128),
+    "run_192_out": ("per_tap", 8, 384, 768, 0, 192, 192),
+    "run_192_in_backward": ("backward", 8, 768, 384, 192, 0, 128),
+    "backward_one_slab_per_tap": ("backward", 16, 64, 256, 0, 0, 64),
+    "backward_n64_cout_192": ("backward", 16, 384, 192, 0, 0, 192),
+    "g7_backward_rows_192": ("backward", 7, 256, 128, 0, 0, 192),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CONV_EDGES))
+def test_conv3x3_kernel_matches_plain(cuda_device, case):
+    """The kernel against its plain version on the same bf16 inputs,
+    element by element, within the rounding band of
+    conv3x3.rounding_excess: one bf16 ulp of the output, plus one ulp of
+    every rounded tap in the backward. Rows past the last 128-row tile are
+    not written; the backward leaves h as it was."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mode, g, cin, cout, in_fine, out_fine, m = CONV_EDGES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(len(case))
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=cuda_device,
+                                    generator=gen)).to(bf)
+    blocked_in = rand(m, g * g * cin)
+    w = rand(9 * cin, cout, scale=cin ** -0.5)
+    kw = dict(bias=torch.randn(cout, device=cuda_device, generator=gen))
+    if mode == "tanh_grad":
+        kw.update(x=torch.tanh(rand(m, g * g * cout).float()).to(bf),
+                  scale=0.25)
+    if mode == "backward":
+        kw = dict(h=rand(m, g * g * cout))
+        h_before = kw["h"].clone()
+    inp = to_fine(blocked_in, g, in_fine).contiguous()
+    before = build.LAUNCHES[COUNTER]
+    got = conv3x3(inp, w, g, mode, in_fine=in_fine, out_fine=out_fine, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[COUNTER] == before + 1
+    ref = conv3x3_plain(inp, w, g, mode, in_fine=in_fine, out_fine=out_fine,
+                        **kw)
+    assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+    assert rounding_excess(got, ref, inp, w, g, mode, in_fine=in_fine,
+                           out_fine=out_fine, scale=kw.get("scale", 1.0)) <= 0
+    assert (got != 0).float().mean() > 0.2        # not an empty output
+    if mode == "backward":
+        assert torch.equal(kw["h"], h_before)       # the wrapper's copy

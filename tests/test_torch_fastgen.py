@@ -46,6 +46,21 @@ def _np(t):
     return t.float().numpy()
 
 
+@pytest.fixture
+def float32_products():
+    """Products in full float32 on both sides for the test's duration: JAX
+    at "highest" instead of its backend's DEFAULT (which a backend may run
+    in fewer-pass algorithms), torch at "highest" whatever an earlier test
+    of the process set."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_dense_pack_equals_jax(dtype):
     jg, params, stats, tg = _pair("wide", dtype)
@@ -171,7 +186,11 @@ def test_probe_grid_conv_raises_on_a_small_window():
                                           ("wide", "phase"),
                                           ("deep", "hybrid"),
                                           ("wide", "hybrid")])
-def test_packed_apply_equals_generator(arch, variant):
+def test_packed_apply_equals_generator(arch, variant, float32_products):
+    """1e-5 is far above float32 summation order (the two sides differ by
+    3.6e-7 on wide-dense, and a sequential or reversed order of its
+    1568-term sums moves an output by under 2e-7), not above products in
+    fewer bits: both sides run theirs in full float32 (`float32_products`)."""
     jg, params, stats, tg = _pair(arch)
     z = np.random.RandomState(1).randn(4, 16).astype(np.float32)
     ref = np.asarray(jg.apply({"params": params, "batch_stats": stats}, z,

@@ -31,7 +31,13 @@ from defensegan_torch.ckpt.bridge import load_flax_tree
 from defensegan_torch.defense.fastgen import _s2d, _s2d_inv
 from defensegan_torch.kernels import build
 from defensegan_torch.kernels import fused_projection_v4 as v4
+from defensegan_torch.kernels.conv3x3 import COUNTER as CONV3X3_COUNTER
+from defensegan_torch.kernels.conv3x3 import (conv3x3, conv3x3_plain,
+                                              rounding_excess, to_blocked,
+                                              to_fine)
 from defensegan_torch.kernels.fused_projection_v2 import run_loop
+from defensegan_torch.kernels.fused_projection_v3 import (_tap_masks,
+                                                          pixel_order)
 from defensegan_torch.kernels.fused_projection_v4 import (
     fused_projection_v4, interleave_perm, make_v4_reconstructor, pack_v4,
     padded_targets, padded_v4, v4_kernel_available, v4_loop_plain, x_rows)
@@ -346,3 +352,142 @@ def test_kernel_path_raises_without_a_card(pairs, monkeypatch):
         run_loop(V4, xr, torch.from_numpy(z0), [pack.w1, None],
                  [(LATENT, torch.bfloat16)], (LATENT,), out_dim=pack.out_dim,
                  rec_iters=1, rec_lr=LR, momentum=MOM)
+
+
+# ---- the grid conv on its own (kernels/conv3x3.py): the kernel's order of
+# pixels, and the plain version the card holds the kernel against, here
+# against an independent float64 convolution
+
+
+@pytest.mark.parametrize("g", [4, 7, 16])
+def test_pixel_order_puts_the_full_taps_first(g):
+    order = pixel_order(g)
+    assert order.dtype == np.int32 and sorted(order) == list(range(g * g))
+    taps = _tap_masks(g).sum(1)[order]
+    assert list(taps) == sorted(taps, reverse=True)
+    assert taps[0] == 9 and taps[-1] == 4
+    # within a count, pixel order (the walk stays near the grid's rows)
+    for n in (9, 6, 4):
+        run = order[taps == n]
+        assert list(run) == sorted(run)
+
+
+def _conv_reference(inp, w, g, mode, bias=None, x=None, h=None, scale=1.0):
+    """float64 F.conv2d on blocked [M, g*g*cin] rows: (result, magnitude),
+    the magnitude being the same conv of |in| and |w| (a bound on the sum
+    of the absolute products)."""
+    m, cin, cout = inp.shape[0], w.shape[0] // 9, w.shape[1]
+    a = inp.double().reshape(m, g, g, cin).permute(0, 3, 1, 2)
+    k = w.double().reshape(3, 3, cin, cout)
+    if mode == "backward":
+        k = k.flip(0, 1)        # the input gradient: taps p - off_k
+    k = k.permute(3, 2, 0, 1)
+    acc = torch.nn.functional.conv2d(a, k, padding=1)
+    mag = torch.nn.functional.conv2d(a.abs(), k.abs(), padding=1)
+
+    def flat(t):
+        return t.permute(0, 2, 3, 1).reshape(m, -1)
+    acc, mag = flat(acc), flat(mag)
+    if mode == "backward":
+        return torch.where(h.double() > 0, acc, 0.0), mag
+    acc = acc + bias.double().repeat(g * g)
+    if mode == "tanh_grad":
+        t = torch.tanh(acc)
+        return (t - x.double()) * (1 - t * t) * scale, mag * scale
+    return torch.relu(acc), mag
+
+
+CONV_CASES = {
+    # mode, g, cin, cout, in_fine, out_fine, rows
+    "chain_g7": ("chain", 7, 16, 8, 0, 0, 3),
+    "per_tap_g4_interleaved_out": ("per_tap", 4, 8, 16, 0, 4, 2),
+    "tanh_grad_g4": ("tanh_grad", 4, 16, 12, 0, 0, 3),
+    "backward_g4_interleaved_in": ("backward", 4, 16, 8, 4, 0, 2),
+    "backward_g2": ("backward", 2, 8, 8, 0, 0, 5),
+}
+
+
+@pytest.mark.parametrize("case", list(CONV_CASES))
+def test_conv3x3_plain_matches_a_float64_conv2d(case):
+    """The plain conv's taps, masks, interleaves and roundings against
+    F.conv2d in float64: within the bf16 rounding of the output (2^-8 of
+    it) plus, for the backward, the rounding of each tap (2^-8 of the
+    summed magnitudes); a misplaced tap or lane is off by the products
+    themselves."""
+    mode, g, cin, cout, in_fine, out_fine, m = CONV_CASES[case]
+    rng = np.random.RandomState(len(case))
+    bf = torch.bfloat16
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(bf)
+    blocked_in = rand(m, g * g * cin)
+    w = rand(9 * cin, cout)
+    kw = dict(bias=torch.from_numpy(rng.randn(cout).astype(np.float32)),
+              scale=0.5)
+    if mode == "tanh_grad":
+        kw["x"] = torch.tanh(rand(m, g * g * cout).float()).to(bf)
+    if mode == "backward":
+        kw = dict(h=rand(m, g * g * cout))
+    got = conv3x3_plain(to_fine(blocked_in, g, in_fine), w, g, mode,
+                        in_fine=in_fine, out_fine=out_fine, **kw)
+    assert got.dtype == bf and tuple(got.shape) == (m, g * g * cout)
+    ref, mag = _conv_reference(blocked_in, w, g, mode, **kw)
+    err = (to_blocked(got, g, out_fine).double() - ref).abs()
+    slack = mag * (2.0 ** -8 if mode == "backward" else 1e-6)
+    assert (err <= 2.0 ** -8 * ref.abs() + slack).all(), err.max().item()
+    assert ref.abs().max() > 0.5
+
+
+def test_conv3x3_runs_the_plain_version_on_the_cpu():
+    """On CPU tensors the wrapper is the plain version (no launch counted);
+    chain and per_tap differ only in the kernel's summation order; bad
+    widths and modes raise."""
+    rng = np.random.RandomState(0)
+    inp = torch.from_numpy(rng.randn(2, 16 * 8).astype(np.float32))
+    inp = inp.to(torch.bfloat16)
+    w = torch.from_numpy(rng.randn(9 * 8, 8).astype(np.float32))
+    w = w.to(torch.bfloat16)
+    b = torch.zeros(8)
+    before = build.LAUNCHES[CONV3X3_COUNTER]
+    got = conv3x3(inp, w, 4, "chain", bias=b)
+    assert build.LAUNCHES[CONV3X3_COUNTER] == before
+    assert torch.equal(got, conv3x3_plain(inp, w, 4, "chain", bias=b))
+    assert torch.equal(got, conv3x3(inp, w, 4, "per_tap", bias=b))
+    h = conv3x3(inp, w, 4, "backward", h=got)
+    assert torch.equal(h, conv3x3_plain(inp, w, 4, "backward", h=got))
+    with pytest.raises(ValueError, match="mode"):
+        conv3x3(inp, w, 4, "sideways", bias=b)
+    with pytest.raises(ValueError, match="no 3x3 conv"):
+        conv3x3(inp, w, 5, "chain", bias=b)
+    with pytest.raises(ValueError, match="bias"):
+        conv3x3(inp, w, 4, "chain")
+    with pytest.raises(ValueError, match="interleave"):
+        conv3x3(inp, w, 4, "chain", bias=b, out_fine=4)
+
+
+@pytest.mark.parametrize("mode", ["per_tap", "backward"])
+def test_rounding_band_tells_a_flipped_rounding_from_a_misplaced_slab(mode):
+    """The band the card holds the conv kernel to (conv3x3.rounding_excess):
+    the plain version against itself and against itself with one bf16 ulp
+    moved in a few outputs lies inside it; the same conv with one 64-deep K
+    slab of one tap dropped (a misplaced slab in the kernel) lies outside,
+    in the forward and in the backward (whose band also holds one ulp of
+    every rounded tap)."""
+    rng = np.random.RandomState(7)
+    g, cin, cout, m = 4, 128, 64, 3
+    bf = torch.bfloat16
+    inp = torch.from_numpy(rng.randn(m, g * g * cin).astype(np.float32))
+    inp = torch.relu(inp).to(bf)
+    w = torch.from_numpy((rng.randn(9 * cin, cout) / np.sqrt(cin))
+                         .astype(np.float32)).to(bf)
+    kw = dict(h=torch.ones(m, g * g * cout, dtype=bf)) \
+        if mode == "backward" else dict(bias=torch.zeros(cout))
+    ref = conv3x3_plain(inp, w, g, mode, **kw)
+    assert rounding_excess(ref, ref, inp, w, g, mode) <= 0
+    flipped = ref.clone()
+    flipped[:, :5] = (ref[:, :5].float() * (1 + 2.0 ** -7)).to(bf)
+    assert rounding_excess(flipped, ref, inp, w, g, mode) <= 0
+    w_bad = w.clone()
+    w_bad[4 * cin:4 * cin + 64] = 0          # tap 4 (the centre), slab 0
+    bad = conv3x3_plain(inp, w_bad, g, mode, **kw)
+    assert rounding_excess(bad, ref, inp, w, g, mode) > 0
