@@ -38,6 +38,12 @@ against its plain PyTorch version:
           levels and v3's conv A, forward and backward) on its own at 256
           rows against its plain version, within one bf16 ulp of the
           output plus one of every rounded tap
+       a'''. every product of v2 and v2i (the Hopper GEMM under all four
+          loops) on its own at the flagship's shapes and 512 rows, with
+          the loop's epilogue, against its plain version: bf16 within
+          gemm.rounding_excess, the int8 products' int32 sums bit for
+          bit; the fc backward (split K) also at 10240 rows and at v4's
+          K 8192 x 1024 rows
        b. L = 200 at the timed shapes (R 10, 1024 images; v4: R 2, 512
           images), half clean and half with +-0.1 noise: [B, R] final
           losses by the tie-aware measure, each kernel against its own
@@ -347,9 +353,11 @@ def bounds_v3(generator, pack, n: int, iters: int) -> dict:
     nine_cb = 9 * pack.cb
     dense = 4 * (k * p2 * c0 + p2 * 9 * pack.c0 * pack.ca
                  + p2 * pack.ca * nine_cb)
+    # conv B as the GEMM issues it: its forward N (9*cb) in whole 128-column
+    # tiles, its backward K (9*cb padded to 32) in whole 64-deep slabs
     computed = (4 * k * p2 * c0 + 4 * taps * pack.c0 * pack.ca
-              + 2 * p2 * pack.ca * (-(-nine_cb // 64) * 64)
-              + 2 * p2 * pack.ca * (-(-nine_cb // 32) * 32))
+              + 2 * p2 * pack.ca * (-(-nine_cb // 128) * 128)
+              + 2 * p2 * pack.ca * (-(-(-(-nine_cb // 32) * 32) // 64) * 64))
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "function_mflop": 4 * macs / 1e6, "s2d_dense_mflop": dense / 1e6,
@@ -486,9 +494,12 @@ def main() -> int:
     from defensegan_torch.gan import DefenseGAN
     from defensegan_torch.kernels import build
     from defensegan_torch.kernels.fused_projection_v2 import (
-        dense_loop_plain, fused_projection_dense, pack_dense)
+        dense_loop_plain, fused_projection_dense, pack_dense, padded_fc)
     from defensegan_torch.kernels.fused_projection_v2i import (
-        dense_int8_loop_plain, fused_projection_dense_int8, pack_dense_int8)
+        _quant_rows, dense_int8_loop_plain, fused_projection_dense_int8,
+        pack_dense_int8)
+    from defensegan_torch.kernels.gemm import gemm, gemm_plain, split_k_for
+    from defensegan_torch.kernels.gemm import rounding_excess as gemm_excess
     from defensegan_torch.kernels.conv3x3 import (conv3x3, conv3x3_plain,
                                                   rounding_excess)
     from defensegan_torch.kernels.fused_projection_v3 import (
@@ -759,6 +770,91 @@ def main() -> int:
     emit("grid_convs_vs_plain", **convs)
     if not all(c["ok"] for c in convs.values()):
         fail(f"a grid conv left its rounding band: {convs}")
+
+    # 3a'''. every product of v2 and v2i on its own: the Hopper GEMM of
+    # csrc/gemm_sm90.cuh at the flagship's shapes (512 rows; the fc backward
+    # also at 10240 rows and at v4's K 8192 x 1024 rows, both split K), each
+    # with its loop's epilogue, on chained seeded activations (a generator
+    # of its own, so the later phases draw what they drew before), against
+    # gemm_plain: bf16 within gemm.rounding_excess, int8 sums bit for bit
+    gm = torch.Generator(device=dev).manual_seed(1357)
+    bf = torch.bfloat16
+    w1, w1t, b1 = padded_fc(p2)
+    scale2 = 2.0 / p2.out_dim
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gm)
+
+    x512 = torch.tanh(randn(512, pdim)).to(bf)
+    zb512 = randn(512, w1.shape[0]).to(bf)
+    h32, _ = gemm_plain(zb512, w1, "bias_relu_amax", bias=b1)
+    hq, sh = _quant_rows(h32)
+    do32, _ = gemm_plain(hq, p8.dq_k, "tanh_grad_int8", row_scale=sh,
+                         col_scale=p8.sd, bias=p2.bd, x=x512, scale=scale2)
+    gq, sg = _quant_rows(do32)
+    hb = h32.to(bf)
+    dob = gemm_plain(hb, p2.d, "tanh_grad", bias=p2.bd, x=x512, scale=scale2)
+    dhb = gemm_plain(dob, p2.dt, "relu_mask", h=hb)
+
+    def momentum_case(a, b):
+        m = a.shape[0]
+        return (a, b, "momentum", dict(z=randn(m, b.shape[1]),
+                                       v=0.1 * randn(m, b.shape[1]),
+                                       lr=lr, momentum=mom))
+
+    big_dh = torch.where(randn(10240, w1t.shape[0]) > 0,
+                         1e-3 * randn(10240, w1t.shape[0]), 0.0).to(bf)
+    v4_dh = torch.where(randn(1024, pp4.w1t.shape[0]) > 0,
+                        1e-3 * randn(1024, pp4.w1t.shape[0]), 0.0).to(bf)
+    products = {
+        "v2_fc_forward": (zb512, w1, "bias_relu", dict(bias=b1)),
+        "v2_h_at_d": (hb, p2.d, "tanh_grad",
+                      dict(bias=p2.bd, x=x512, scale=scale2)),
+        "v2_do_at_dt": (dob, p2.dt, "relu_mask", dict(h=hb)),
+        "v2_fc_backward": momentum_case(dhb, w1t),
+        "v2i_fc_forward": (zb512, w1, "bias_relu_amax", dict(bias=b1)),
+        "v2i_h_at_dq_sums": (hq, p8.dq_k, "store", {}),
+        "v2i_h_at_dq": (hq, p8.dq_k, "tanh_grad_int8",
+                        dict(row_scale=sh, col_scale=p8.sd, bias=p2.bd,
+                             x=x512, scale=scale2)),
+        "v2i_do_at_dtq_sums": (gq, p8.dtq_k, "store", {}),
+        "v2i_do_at_dtq": (gq, p8.dtq_k, "relu_mask_int8",
+                          dict(row_scale=sg, col_scale=p8.sdt, h=h32)),
+        "fc_backward_rows_10240": momentum_case(big_dh, w1t),
+        "v4_fc_backward_rows_1024": momentum_case(v4_dh, pp4.w1t),
+    }
+    gemms = {}
+    for label, (a, b, epi, kw) in products.items():
+        got = gemm(a, b, epi, **kw)
+        torch.cuda.synchronize()
+        ref = gemm_plain(a, b, epi, **kw)
+        first = (got[0] if isinstance(got, tuple) else got).float()
+        rec = dict(epilogue=epi, m=a.shape[0], k=a.shape[1],
+                   n=first.shape[1], dtype=str(a.dtype).split(".")[-1],
+                   splits=1 if a.dtype == torch.int8
+                   else split_k_for(a.shape[1], first.shape[1]),
+                   finite=bool(torch.isfinite(first).all()),
+                   nonzero=float((first != 0).float().mean()))
+        if a.dtype == torch.int8 and epi == "store":
+            rec["bit_equal"] = bool(torch.equal(got, ref))
+            ok = rec["bit_equal"]
+        else:
+            rec["max_abs_err"] = (first - (ref[0] if isinstance(ref, tuple)
+                                           else ref).float()).abs().max().item()
+            rec["rounding_excess"] = gemm_excess(
+                got, ref, a, b, epi, scale=kw.get("scale", 1.0),
+                lr=kw.get("lr", 0.0))
+            ok = rec["rounding_excess"] <= 0
+            if epi in ("bias_relu_amax", "tanh_grad_int8"):
+                rec["amax_exact"] = bool(torch.equal(got[1],
+                                                     got[0].abs().amax(1)))
+                ok = ok and rec["amax_exact"]
+        rec["ok"] = bool(ok and rec["finite"] and rec["nonzero"] > 0.2)
+        gemms[label] = rec
+    emit("gemms_vs_plain", **gemms)
+    if not all(r["ok"] for r in gemms.values()):
+        fail(f"a product left its band: {gemms}")
+    del big_dh, v4_dh, products
 
     # ------- 3b. L = 200 at the timed shapes: half clean, half noisy
     loop_kw = dict(rec_iters=iters, rec_lr=lr, momentum=mom)

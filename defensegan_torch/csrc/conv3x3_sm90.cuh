@@ -76,17 +76,13 @@
 // out_fine multiples of 64, every activation and weight base 16-byte
 // aligned. The tensor maps are encoded on the host through the runtime's
 // driver entry point (no -lcuda). Launches go on the caller's stream and
-// allocate nothing.
+// allocate nothing. The barriers, TMA loads, wgmma and tensor-map encoding
+// are shared with the GEMM (sm90_common.cuh).
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums: types only
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace fpk {
-
-using bf16 = __nv_bfloat16;
 
 enum TapSum { kChain, kPerTap, kPerTapBf16 };
 
@@ -101,13 +97,7 @@ __host__ __device__ __forceinline__ int interleaved_offset(int p, int c,
 
 namespace sm90 {
 
-constexpr int kBM = 128;        // latents per tile: two warpgroups of 64
-constexpr int kBK = 64;         // bf16 per K slab: one 128-byte row
-constexpr int kConsumers = 2;   // consumer warpgroups
-constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kRingBytes = 192 * 1024;
-constexpr int kABytes = kBM * kBK * 2;      // 16 KB, 1024-byte aligned
-constexpr int kBChunk = kBK * 64 * 2;       // 64 K rows x 64 channels
 
 template <int BN>
 struct Ring {
@@ -116,148 +106,6 @@ struct Ring {
   // + barriers, + 1 KB to align the ring to the 128-byte swizzle's atom
   static constexpr int kSmem = kStages * kStage + 16 * kStages + 1024;
   static_assert(kSmem <= 227 * 1024, "dynamic shared memory limit");
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Waits until the barrier's phase of this parity has completed. The loop
-// stays inside the asm (its label is local to the braces), so the compiler
-// sees no divergent path around the wgmma that follow.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra LAB_WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// 2-D TMA load of one box into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a SWIZZLE_128B operand (offsets in
-// bytes): K-major A takes sbo = 1024 (8 rows of 128 bytes), lbo unused;
-// MN-major B takes sbo = 1024 (8 K rows) and lbo = the stride between its
-// 64-channel chunks.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pins the order of register accesses around the asynchronous wgmma: the
-// compiler sees the registers read and written here.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<128> {
-  // D[64 x 128] (+)= A[64 x 16] @ B[16 x 128]: A K-major, B MN-major
-  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39,"
-        "%40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55,"
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  // D[64 x 64] (+)= A[64 x 16] @ B[16 x 64]: A K-major, B MN-major
-  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
 };
 
 // The tile at position t of the walk: (m-tile, pixel rank, n-tile), the
@@ -460,49 +308,6 @@ struct Conv3x3 {
   int M, g, cin, cout, in_fine, out_fine;
 };
 
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A row-major bf16 matrix [rows, cols], read in boxes of box_rows x 64.
-inline cudaError_t encode_bf16_map(CUtensorMap* map, const bf16* ptr,
-                                   int rows, int cols, int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(sm90::kBK),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                  const_cast<bf16*>(ptr), dims, strides, box, unit,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // in: [M, g*g*cin] (fine order where in_fine); w: [9*cin, cout]. Returns
 // cudaErrorInvalidValue on widths the kernel does not take or a map the
 // driver refuses.
@@ -523,19 +328,9 @@ inline cudaError_t make_conv3x3(Conv3x3* c, const bf16* in, const bf16* w,
   c->cout = cout;
   c->in_fine = in_fine;
   c->out_fine = out_fine;
-  cudaError_t e = encode_bf16_map(&c->in, in, M, g * g * cin, sm90::kBM);
+  cudaError_t e = encode_map(&c->in, in, 2, M, g * g * cin, sm90::kBM);
   if (e != cudaSuccess) return e;
-  return encode_bf16_map(&c->w, w, 9 * cin, cout, sm90::kBK);
-}
-
-inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
+  return encode_map(&c->w, w, 2, 9 * cin, cout, sm90::kBK);
 }
 
 template <int BN, TapSum kSum, bool kBackward, typename Epi>
@@ -574,10 +369,6 @@ inline cudaError_t launch_conv3x3(const Conv3x3& c, Epi epi,
 // ---- epilogues: channels c, c + 1 of a row, from the f32 sums. One that
 // reads memory (kReads) names, in prefetch, the 128-byte line (64 channels
 // from c) it will read
-
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
 
 // h = relu(acc + bias[c]) -> bf16 at out[r, pixel, c].
 struct EpiConvBiasRelu {

@@ -19,15 +19,16 @@
 //
 // What bounds it on an H100: at the flagship (784 outputs) 19.67 M int8
 // operations (1,979 TOP/s) plus 3.21 MFLOP bf16 (989 TFLOP/s) per
-// row-step -- compute; the int8 products run over P = 832 columns. Its
-// design: as v2 (see fused_projection_v2.cu), one tensor-core GEMM launch
-// per product with the elementwise work in its epilogue, plus
-// one row-quantization launch before each int8 product: a block per row
-// takes the row's |max| from the f32 values (exact, deterministic: no
-// atomics) and writes the int8 row and its scale. WMMA's int8 path is the
-// pre-Hopper mma.sync rate; wgmma is the later PR's work.
+// row-step -- compute. Its design: as v2 (see fused_projection_v2.cu),
+// one launch of the Hopper GEMM (gemm_sm90.cuh) per product with the
+// elementwise work in its epilogue. The D products run on s8 wgmma, whose
+// B operand must be K-major: the pack carries Dq^T [P, F] and DTq^T
+// [F, P] (the same codes, transposed). The epilogue that produces h, and
+// the one that produces do, also takes each row's |max| (an atomic max on
+// the bits of a non-negative float: exact, and the same in any order), so
+// the quantize step reads each f32 row once.
 
-#include "wmma_gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -35,106 +36,85 @@ using fpk::bf16;
 
 constexpr int kQuantThreads = 256;
 
-// One block per row: s = max(amax, 1e-30) / 127; q = clip(rint(a / s)).
+// One block per row: s = max(amax, 1e-30) / 127; q = clip(rint(a / s)),
+// four values a thread at a time (cols % 4 == 0). The row's amax is then
+// set back to zero for the next step's epilogue.
 __global__ void __launch_bounds__(kQuantThreads)
     quant_rows(const float* __restrict__ a, int cols,
-               int8_t* __restrict__ q, float* __restrict__ s) {
-  __shared__ float red[kQuantThreads / 32];
-  const float* row = a + (size_t)blockIdx.x * cols;
-  float m = 0.0f;
-  for (int c = threadIdx.x; c < cols; c += kQuantThreads)
-    m = fmaxf(m, fabsf(row[c]));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+               unsigned* __restrict__ amax, int8_t* __restrict__ q,
+               float* __restrict__ s) {
+  const size_t r = blockIdx.x;
+  const float sc = fmaxf(__uint_as_float(amax[r]), 1e-30f) / 127.0f;
+  const float4* row = reinterpret_cast<const float4*>(a + r * cols);
+  char4* qrow = reinterpret_cast<char4*>(q + r * cols);
+  for (int c = threadIdx.x; c < cols / 4; c += kQuantThreads) {
+    const float4 v = row[c];
+    auto code = [sc](float x) {
+      return static_cast<signed char>(
+          fminf(fmaxf(rintf(x / sc), -127.0f), 127.0f));
+    };
+    qrow[c] = make_char4(code(v.x), code(v.y), code(v.z), code(v.w));
+  }
   __syncthreads();
-  m = red[0];
-#pragma unroll
-  for (int w = 1; w < kQuantThreads / 32; ++w) m = fmaxf(m, red[w]);
-  const float sc = fmaxf(m, 1e-30f) / 127.0f;
-  if (threadIdx.x == 0) s[blockIdx.x] = sc;
-  int8_t* qrow = q + (size_t)blockIdx.x * cols;
-  for (int c = threadIdx.x; c < cols; c += kQuantThreads) {
-    float r = fminf(fmaxf(rintf(row[c] / sc), -127.0f), 127.0f);
-    qrow[c] = static_cast<int8_t>(r);
+  if (threadIdx.x == 0) {
+    s[r] = sc;
+    amax[r] = 0u;
   }
 }
-
-// o = f32(acc) * (sh[r] * sd[c]) + bd[c]; t = tanh(o);
-// do = (t - x)(1 - t^2) * scale, kept f32 for the row quantization.
-struct EpiTanhGradI8 {
-  const float* sh;
-  const float* sd;
-  const float* bd;
-  const bf16* x;
-  float* dout;
-  int ld;
-  float scale;
-  __device__ __forceinline__ void operator()(int r, int c, int acc) const {
-    size_t i = (size_t)r * ld + c;
-    float t = tanhf(static_cast<float>(acc) * (sh[r] * sd[c]) + bd[c]);
-    float res = t - __bfloat162float(x[i]);
-    dout[i] = res * (1.0f - t * t) * scale;
-  }
-};
-
-// dh = f32(acc) * (sg[r] * sdt[c]), masked by h > 0 (f32 h) -> bf16.
-struct EpiReluMaskI8 {
-  const float* sg;
-  const float* sdt;
-  const float* h;
-  bf16* dh;
-  int ld;
-  __device__ __forceinline__ void operator()(int r, int c, int acc) const {
-    size_t i = (size_t)r * ld + c;
-    float g = static_cast<float>(acc) * (sg[r] * sdt[c]);
-    dh[i] = __float2bfloat16_rn(h[i] > 0.0f ? g : 0.0f);
-  }
-};
 
 }  // namespace
 
 // Runs `iters` int8 projection steps on M rows, updating z and v in place.
-// Arguments as fp_v2_run's, with dq [F, P] / dtq [P, F] int8 and their
-// column scales sd [P] / sdt [F] f32. Scratch: zb [M, K] bf16, h [M, F]
-// f32, hq [M, F] int8, sh [M] f32, dout [M, P] f32, gq [M, P] int8,
-// sg [M] f32, dh [M, F] bf16. Returns the first CUDA error, else 0.
+// Arguments as fp_v2_run's, with the K-major codes dqk = Dq^T [P, F] and
+// dtqk = DTq^T [F, P] int8 and the column scales sd [P] / sdt [F] f32.
+// Scratch: zb [M, K] bf16, h [M, F] f32, hq [M, F] int8, sh [M] f32,
+// dout [M, P] f32, gq [M, P] int8, sg [M] f32, dh [M, F] bf16, amax_h and
+// amax_g [M] u32, ws [M, splits * K] f32. Returns the first CUDA error,
+// else 0.
 extern "C" int fp_v2i_run(float* z, float* v, const bf16* x,
                           const bf16* w1, const bf16* w1t, const float* b1,
-                          const int8_t* dq, const float* sd,
-                          const int8_t* dtq, const float* sdt,
+                          const int8_t* dqk, const float* sd,
+                          const int8_t* dtqk, const float* sdt,
                           const float* bd, bf16* zb, float* h, int8_t* hq,
                           float* sh, float* dout, int8_t* gq, float* sg,
-                          bf16* dh, int M, int K, int F, int P, int iters,
-                          float lr, float momentum, float scale,
+                          bf16* dh, unsigned* amax_h, unsigned* amax_g,
+                          float* ws, int M, int K, int F, int P, int splits,
+                          int iters, float lr, float momentum, float scale,
                           void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t e = fpk::launch_cast_bf16(z, zb, M * K, st);
-  if (e != cudaSuccess) return (int)e;
-  for (int it = 0; it < iters; ++it) {
-    e = fpk::launch_gemm<bf16>(zb, K, w1, F, M, F, K,
-                               fpk::EpiBiasRelu<float>{b1, h, F}, st);
-    if (e != cudaSuccess) return (int)e;
-    quant_rows<<<M, kQuantThreads, 0, st>>>(h, F, hq, sh);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    e = fpk::launch_gemm<int8_t>(hq, F, dq, P, M, P, F,
-                                 EpiTanhGradI8{sh, sd, bd, x, dout, P, scale},
-                                 st);
-    if (e != cudaSuccess) return (int)e;
-    quant_rows<<<M, kQuantThreads, 0, st>>>(dout, P, gq, sg);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    e = fpk::launch_gemm<int8_t>(gq, P, dtq, F, M, F, P,
-                                 EpiReluMaskI8{sg, sdt, h, dh, F}, st);
-    if (e != cudaSuccess) return (int)e;
-    e = fpk::launch_gemm<bf16>(dh, F, w1t, K, M, K, F,
-                               fpk::EpiMomentum{z, v, zb, K, momentum, lr},
-                               st);
-    if (e != cudaSuccess) return (int)e;
+  if (F % 4 || P % 4) return (int)cudaErrorInvalidValue;
+  fpk::Gemm g1, g2, g3, g4;
+  cudaError_t e = fpk::make_gemm<bf16>(&g1, zb, w1, M, F, K);
+  if (e == cudaSuccess) e = fpk::make_gemm<int8_t>(&g2, hq, dqk, M, P, F);
+  if (e == cudaSuccess) e = fpk::make_gemm<int8_t>(&g3, gq, dtqk, M, F, P);
+  if (e == cudaSuccess)
+    e = fpk::make_gemm<bf16>(&g4, dh, w1t, M, K, F, splits);
+  if (e == cudaSuccess) e = cudaMemsetAsync(amax_h, 0, M * 4, st);
+  if (e == cudaSuccess) e = cudaMemsetAsync(amax_g, 0, M * 4, st);
+  if (e == cudaSuccess) e = fpk::launch_cast_bf16(z, zb, M * K, st);
+  for (int it = 0; it < iters && e == cudaSuccess; ++it) {
+    e = fpk::launch_gemm<bf16>(g1, fpk::EpiBiasReluAmax{b1, h, amax_h, F},
+                               nullptr, st);
+    if (e == cudaSuccess) {
+      quant_rows<<<M, kQuantThreads, 0, st>>>(h, F, amax_h, hq, sh);
+      e = cudaGetLastError();
+    }
+    if (e == cudaSuccess)
+      e = fpk::launch_gemm<int8_t>(
+          g2, fpk::EpiTanhGradI8{sh, sd, bd, x, dout, amax_g, P, scale},
+          nullptr, st);
+    if (e == cudaSuccess) {
+      quant_rows<<<M, kQuantThreads, 0, st>>>(dout, P, amax_g, gq, sg);
+      e = cudaGetLastError();
+    }
+    if (e == cudaSuccess)
+      e = fpk::launch_gemm<int8_t>(g3, fpk::EpiReluMaskI8{sg, sdt, h, dh, F},
+                                   nullptr, st);
+    if (e == cudaSuccess)
+      e = fpk::launch_gemm<bf16>(
+          g4, fpk::EpiMomentum{z, v, zb, K, momentum, lr}, ws, st);
   }
-  return 0;
+  return (int)e;
 }
 
 extern "C" const char* fp_error_string(int code) {

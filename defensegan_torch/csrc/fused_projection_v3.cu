@@ -32,8 +32,10 @@
 // What bounds it on an H100: operations, at 989 TFLOP/s bf16. The function
 // itself (fc, the 5x5 stride-2 deconvs, forward and input gradient) needs
 // 37.9 MFLOP per row-step; the dense s2d form counts 68.2 MFLOP (the s2d
-// kernels' zero taps), of which this kernel computes 59.4 (border taps
-// skipped; conv B padded from 144 to 192 / 160). Per step the activations
+// kernels' zero taps), of which this kernel computes 61.8 (border taps
+// skipped; conv B stored 192 / 160 wide for its 144 lanes and issued 256
+// wide / 192 deep, the GEMM's 128-column tile and 64-deep slab, the
+// rest of each zero-filled). Per step the activations
 // also make one round trip through device memory each (about 70 KB
 // written per row), well under the compute time.
 //
@@ -41,41 +43,35 @@
 // VMEM and shifts rows by slice + concat for every tap. Here every
 // activation stays latent-major and flat, [M, P2*C] in (pixel, channel)
 // order -- exactly what the fc product writes -- so no relayout exists:
-//   * fc forward / backward are v2's GEMM1 / GEMM4 unchanged
-//     (wmma_gemm.cuh);
+//   * fc forward / backward are v2's first and last products, on the
+//     Hopper GEMM (gemm_sm90.cuh: wgmma + TMA, persistent); the backward
+//     (N = k = 128) splits its K = P2*c0 into fixed ranges, one reduction
+//     adds them and runs the momentum update;
 //   * conv A forward and backward are the Hopper grid conv
 //     (conv3x3_sm90.cuh): persistent blocks of two wgmma consumer
 //     warpgroups and a TMA producer, a tile of 128 latents x 128 channels
 //     of one pixel, a tap a change of the TMA box's coordinates, 64-deep
 //     slabs through a 6-stage ring; the forward sums its taps in one
 //     chain, the backward rounds each tap's sum to bf16;
-//   * conv B (16 channels per pixel, under the 64-wide tile) is packed as
-//     on the TPU: one product [M*P2, ca] @ [ca, 9*cb -> npk] (the flat
-//     layout IS that matrix), then tanh_grad_pack, one block per latent,
-//     sums the nine shifted slices, takes the tanh gradient into shared
-//     memory and writes do packed tap-major [M*P2, 9*cb -> kpk], which one
-//     product with KBT [kpk, ca] turns into dh1.
-// Seven launches per step; the L loop runs here, so one call from Python
-// runs all L steps of a row chunk. The weights (4.6 MB) stay in L2. The
-// conv B products on wgmma and a fused conv B are later work.
+//   * conv B (16 channels per pixel, under a tile's width) is packed as
+//     on the TPU: one product [M*P2, ca] @ [ca, 9*cb -> npk] on the GEMM
+//     (the flat layout IS that matrix), then tanh_grad_pack, one block per
+//     latent, sums the nine shifted slices, takes the tanh gradient into
+//     shared memory and writes do packed tap-major [M*P2, 9*cb -> kpk],
+//     which one GEMM product with KBT [kpk, ca] turns into dh1.
+// Seven launches per step (eight with the split reduction); the tensor
+// maps are encoded once per call and the L loop runs here, so one call
+// from Python runs all L steps of a row chunk. The weights (4.6 MB) stay
+// in L2. A fused conv B is later work.
 
 #include "conv3x3_sm90.cuh"
-#include "wmma_gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
 using fpk::bf16;
 
 constexpr int kPackThreads = 256;
-
-// out = bf16(acc): the packed conv-B product.
-struct EpiStoreBf16 {
-  bf16* out;
-  int ld;
-  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
-    out[(size_t)r * ld + c] = __float2bfloat16_rn(acc);
-  }
-};
 
 // One block per latent m. Phase 1: o[p, c] = bb[c] + sum over valid taps
 // of obb[m, p+off_k, k*cb + c] (k ascending, f32); t = tanh(o);
@@ -132,17 +128,18 @@ __global__ void __launch_bounds__(kPackThreads)
 // kbpt [kpk, ca] (rows past 9*cb zero) bf16; b1 [P2*c0], ba [ca], bb [cb],
 // masks [P2, 9] f32, order [P2] int32 (the pixels, 9 taps first).
 // Scratch (bf16): zb [M, K], h0 [M, P2*c0], h1 [M, P2*ca], obb
-// [M, P2*npk], dop [M, P2*kpk]. M, K, c0, ca, npk multiples of 64; kpk of
-// 32; M*P2/64 <= 65535. Returns the first CUDA error, else 0.
+// [M, P2*npk], dop [M, P2*kpk]; ws [M, splits * K] f32, the fc backward's
+// split sums (splits: kernels/gemm.py::split_k_for(P2*c0, K)). M, K, c0,
+// ca, npk multiples of 64; kpk of 8. Returns the first CUDA error, else 0.
 extern "C" int fp_v3_run(float* z, float* v, const bf16* x, const bf16* w1,
                          const bf16* w1t, const float* b1, const bf16* ka,
                          const bf16* kat, const float* ba, const bf16* kbp,
                          const bf16* kbpt, const float* bb,
                          const float* masks, const int* order, bf16* zb,
-                         bf16* h0, bf16* h1, bf16* obb, bf16* dop, int M,
-                         int K, int c0, int ca, int cb, int g, int npk,
-                         int kpk, int iters, float lr, float momentum,
-                         float scale, void* stream_ptr) {
+                         bf16* h0, bf16* h1, bf16* obb, bf16* dop, float* ws,
+                         int M, int K, int c0, int ca, int cb, int g, int npk,
+                         int kpk, int splits, int iters, float lr,
+                         float momentum, float scale, void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   const int p2 = g * g;
   const int F = p2 * c0;
@@ -152,42 +149,48 @@ extern "C" int fp_v3_run(float* z, float* v, const bf16* x, const bf16* w1,
                                     ca);
   if (e == cudaSuccess)
     e = fpk::make_conv3x3(&conv_at, h1, kat, masks, order, M, g, ca, c0);
-  if (e != cudaSuccess) return (int)e;
-  e = fpk::launch_cast_bf16(z, zb, M * K, st);
-  if (e != cudaSuccess) return (int)e;
-  for (int it = 0; it < iters; ++it) {
+  // fc forward and backward; conv B packed, forward [M*P2, ca] @ [ca, npk]
+  // and backward [M*P2, kpk] @ [kpk, ca]
+  fpk::Gemm fc, fct, conv_b, conv_bt;
+  if (e == cudaSuccess) e = fpk::make_gemm<bf16>(&fc, zb, w1, M, F, K);
+  if (e == cudaSuccess)
+    e = fpk::make_gemm<bf16>(&fct, h0, w1t, M, K, F, splits);
+  if (e == cudaSuccess)
+    e = fpk::make_gemm<bf16>(&conv_b, h1, kbp, M * p2, npk, ca);
+  if (e == cudaSuccess)
+    e = fpk::make_gemm<bf16>(&conv_bt, dop, kbpt, M * p2, ca, kpk);
+  if (e == cudaSuccess) e = fpk::launch_cast_bf16(z, zb, M * K, st);
+  for (int it = 0; it < iters && e == cudaSuccess; ++it) {
     // fc forward
-    e = fpk::launch_gemm<bf16>(zb, K, w1, F, M, F, K,
-                               fpk::EpiBiasRelu<bf16>{b1, h0, F}, st);
-    if (e != cudaSuccess) return (int)e;
+    e = fpk::launch_gemm<bf16>(fc, fpk::EpiBiasRelu{b1, h0, F}, nullptr, st);
     // conv A forward
-    e = fpk::launch_conv3x3<fpk::kChain, false>(
-        conv_a, fpk::EpiConvBiasRelu{ba, h1, p2 * ca}, st);
-    if (e != cudaSuccess) return (int)e;
-    // conv B forward, packed: [M*P2, ca] @ [ca, npk]
-    e = fpk::launch_gemm<bf16>(h1, ca, kbp, npk, M * p2, npk, ca,
-                               EpiStoreBf16{obb, npk}, st);
-    if (e != cudaSuccess) return (int)e;
+    if (e == cudaSuccess)
+      e = fpk::launch_conv3x3<fpk::kChain, false>(
+          conv_a, fpk::EpiConvBiasRelu{ba, h1, p2 * ca}, st);
+    // conv B forward, packed
+    if (e == cudaSuccess)
+      e = fpk::launch_gemm<bf16>(conv_b, fpk::EpiStoreBf16{obb, npk},
+                                 nullptr, st);
     // tap sum, tanh gradient, tap-major pack of do
-    tanh_grad_pack<<<M, kPackThreads, p2 * cb * sizeof(bf16), st>>>(
-        obb, x, bb, masks, dop, g, cb, npk, kpk, scale);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    // conv B backward: [M*P2, kpk] @ [kpk, ca], masked by h1, over h1
-    e = fpk::launch_gemm<bf16>(dop, kpk, kbpt, ca, M * p2, ca, kpk,
-                               fpk::EpiReluMask{h1, h1, ca}, st);
-    if (e != cudaSuccess) return (int)e;
+    if (e == cudaSuccess) {
+      tanh_grad_pack<<<M, kPackThreads, p2 * cb * sizeof(bf16), st>>>(
+          obb, x, bb, masks, dop, g, cb, npk, kpk, scale);
+      e = cudaGetLastError();
+    }
+    // conv B backward, masked by h1, over h1
+    if (e == cudaSuccess)
+      e = fpk::launch_gemm<bf16>(conv_bt, fpk::EpiReluMask{h1, h1, ca},
+                                 nullptr, st);
     // conv A backward, each tap rounded, masked by h0, over h0
-    e = fpk::launch_conv3x3<fpk::kPerTapBf16, true>(
-        conv_at, fpk::EpiConvReluMask{h0, p2 * c0}, st);
-    if (e != cudaSuccess) return (int)e;
+    if (e == cudaSuccess)
+      e = fpk::launch_conv3x3<fpk::kPerTapBf16, true>(
+          conv_at, fpk::EpiConvReluMask{h0, p2 * c0}, st);
     // fc backward + momentum update
-    e = fpk::launch_gemm<bf16>(h0, F, w1t, K, M, K, F,
-                               fpk::EpiMomentum{z, v, zb, K, momentum, lr},
-                               st);
-    if (e != cudaSuccess) return (int)e;
+    if (e == cudaSuccess)
+      e = fpk::launch_gemm<bf16>(
+          fct, fpk::EpiMomentum{z, v, zb, K, momentum, lr}, ws, st);
   }
-  return 0;
+  return (int)e;
 }
 
 extern "C" const char* fp_error_string(int code) {

@@ -46,8 +46,10 @@
 // on-chip memory, shifts rows by slice + concat for every tap and copies
 // 4*g*g slices for every interleave. Here every activation stays
 // latent-major and flat, [M, g*g*C] in (pixel, channel) order, as in v3:
-//   * fc forward / backward are v2's GEMM1 / GEMM4 unchanged
-//     (wmma_gemm.cuh);
+//   * fc forward / backward are v2's first and last products, on the
+//     Hopper GEMM (gemm_sm90.cuh); the backward (N = k = 128, K = 8192 for
+//     celeba.yml: 8 tiles at 1024 rows) splits its K into fixed ranges,
+//     one reduction adds them and runs the momentum update;
 //   * every level, forward and backward, is the Hopper grid conv
 //     (conv3x3_sm90.cuh): persistent blocks of two wgmma consumer
 //     warpgroups and a TMA producer, a tile of 128 latents x 128 (the out
@@ -62,15 +64,15 @@
 //   * the out level's epilogue takes the tanh gradient of the f32
 //     accumulator against x (padded lanes have zero weights, bias and
 //     targets, so d = 0 there).
-// 2 + 2 per level launches per step (10 for celeba.yml); the L loop runs
+// 3 + 2 per level launches per step (11 for celeba.yml); the L loop runs
 // here, so one call from Python runs all L steps of a row chunk, and the
 // level list comes in as host arrays, so one library serves 2 to 4 levels.
-// The tensor maps of every conv are encoded once per call. celeba.yml's
+// The tensor maps of every product are encoded once per call. celeba.yml's
 // weights (29 MB with the transposes) fit the 50 MB L2, imagenet64.yml's
 // (69 MB) do not.
 
 #include "conv3x3_sm90.cuh"
-#include "wmma_gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -127,14 +129,16 @@ struct Level {
 // interleave (0: none). The last level is the out level (tanh gradient,
 // no relu); every other level has a relu. Scratch (bf16): zb [M, K];
 // acts [M * (g0*g0*c0 + sum of g*g*co)], h0 and every level's output one
-// after the other. M, K, c0, every ci and co multiples of 64; a level's
-// ci equals the lanes its predecessor hands on. Returns the first CUDA
-// error, else 0.
+// after the other; ws [M, splits * K] f32, the fc backward's split sums
+// (splits: kernels/gemm.py::split_k_for(g0*g0*c0, K)). M, K, c0, every ci
+// and co multiples of 64; a level's ci equals the lanes its predecessor
+// hands on. Returns the first CUDA error, else 0.
 extern "C" int fp_v4_run(float* z, float* v, const bf16* x, const bf16* w1,
                          const bf16* w1t, const float* b1,
                          const void* const* level_ptrs,
-                         const int* level_dims, bf16* zb, bf16* acts, int M,
-                         int K, int c0, int g0, int n_levels, int iters,
+                         const int* level_dims, bf16* zb, bf16* acts,
+                         float* ws, int M, int K, int c0, int g0,
+                         int n_levels, int splits, int iters,
                          float lr, float momentum, float scale,
                          void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
@@ -172,12 +176,15 @@ extern "C" int fp_v4_run(float* z, float* v, const bf16* x, const bf16* w1,
                             l.g, l.co, l.ci, l.fine, 0);
     if (e != cudaSuccess) return (int)e;
   }
-  cudaError_t e = fpk::launch_cast_bf16(z, zb, M * K, st);
-  if (e != cudaSuccess) return (int)e;
-  for (int it = 0; it < iters; ++it) {
+  fpk::Gemm fc, fct;
+  cudaError_t e = fpk::make_gemm<bf16>(&fc, zb, w1, M, F, K);
+  if (e == cudaSuccess)
+    e = fpk::make_gemm<bf16>(&fct, act[0], w1t, M, K, F, splits);
+  if (e == cudaSuccess) e = fpk::launch_cast_bf16(z, zb, M * K, st);
+  for (int it = 0; it < iters && e == cudaSuccess; ++it) {
     // fc forward
-    e = fpk::launch_gemm<bf16>(zb, K, w1, F, M, F, K,
-                               fpk::EpiBiasRelu<bf16>{b1, act[0], F}, st);
+    e = fpk::launch_gemm<bf16>(fc, fpk::EpiBiasRelu{b1, act[0], F}, nullptr,
+                               st);
     if (e != cudaSuccess) return (int)e;
     // the levels forward; the out level ends in the tanh gradient
     for (int i = 0; i < n_levels; ++i) {
@@ -201,12 +208,10 @@ extern "C" int fp_v4_run(float* z, float* v, const bf16* x, const bf16* w1,
       if (e != cudaSuccess) return (int)e;
     }
     // fc backward + momentum update
-    e = fpk::launch_gemm<bf16>(act[0], F, w1t, K, M, K, F,
-                               fpk::EpiMomentum{z, v, zb, K, momentum, lr},
-                               st);
-    if (e != cudaSuccess) return (int)e;
+    e = fpk::launch_gemm<bf16>(
+        fct, fpk::EpiMomentum{z, v, zb, K, momentum, lr}, ws, st);
   }
-  return 0;
+  return (int)e;
 }
 
 // One grid conv on its own, for checking the conv against a reference.

@@ -1,0 +1,305 @@
+// Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels of the
+// port: the 3x3 grid conv (conv3x3_sm90.cuh) and the GEMM with a fused
+// epilogue (gemm_sm90.cuh).
+//
+//   * mbarriers (init, expect_tx, arrive, a wait whose loop stays inside
+//     its asm) and 2-D TMA loads that complete on them;
+//   * the wgmma shared-memory descriptor of a 128-byte-swizzled operand,
+//     fence / commit / wait, and the register fence that pins the order of
+//     register accesses around an asynchronous wgmma;
+//   * the products themselves: Wgmma<N> (bf16 x bf16 -> f32, B MN-major
+//     through the transpose flag) and WgmmaS8<N> (s8 x s8 -> s32; 8-bit
+//     wgmma has no transpose flag, so its B is K-major);
+//   * the host side: cuTensorMapEncodeTiled through the CUDA runtime's
+//     entry point (no -lcuda), a tiled map of a row-major matrix
+//     of 1- or 2-byte elements in a chosen box, the SM count.
+//
+// The tile geometry both kernels share: 128-row tiles, two consumer
+// warpgroups of 64 rows each and one producer warpgroup, 128-byte slabs
+// (64 bf16 or 128 int8 of K), each 128 x 128-byte slab of A 16 KB.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums: types only
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace fpk {
+
+using bf16 = __nv_bfloat16;
+
+namespace sm90 {
+
+constexpr int kBM = 128;        // rows per tile: two warpgroups of 64
+constexpr int kBK = 64;         // bf16 per K slab: one 128-byte row
+constexpr int kSlabBytes = 128; // bytes of K per slab, any element type
+constexpr int kConsumers = 2;   // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kABytes = kBM * kSlabBytes;   // 16 KB, 1024-byte aligned
+constexpr int kBChunk = kBK * 64 * 2;       // 64 K rows x 64 bf16 columns
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits until the barrier's phase of this parity has completed. The loop
+// stays inside the asm (its label is local to the braces), so the compiler
+// sees no divergent path around the wgmma that follow.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// 2-D TMA load of one box into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// Barrier over the `threads` threads that name `id` (1..15; 0 is
+// __syncthreads): one warpgroup's own barrier.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory descriptor of a SWIZZLE_128B operand (offsets in
+// bytes): a K-major operand takes sbo = 1024 (8 rows of 128 bytes), lbo
+// unused; an MN-major B takes sbo = 1024 (8 K rows) and lbo = the stride
+// between its 64-column chunks.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins the order of register accesses around the asynchronous wgmma: the
+// compiler sees the registers read and written here.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<128> {
+  // D[64 x 128] (+)= A[64 x 16] @ B[16 x 128]: A K-major, B MN-major
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // D[64 x 64] (+)= A[64 x 16] @ B[16 x 64]: A K-major, B MN-major
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<128> {
+  // D[64 x 128] (+)= A[64 x 32] @ B[32 x 128] in s8 -> s32: A and B both
+  // K-major (8-bit wgmma takes no transpose)
+  __device__ __forceinline__ static void mma(int (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+          "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+          "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+}  // namespace sm90
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// ---- host side
+
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A row-major matrix [rows, cols] of 1-byte (int8) or 2-byte (bf16)
+// elements, read in boxes of box_rows x (128 bytes of columns), 128-byte
+// swizzled. A box that reaches past the matrix reads zeros there (and
+// still counts its whole size in bytes).
+inline cudaError_t encode_map(CUtensorMap* map, const void* ptr,
+                              int elem_bytes, int rows, int cols,
+                              int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if (elem_bytes != 1 && elem_bytes != 2) return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {
+      static_cast<cuuint32_t>(sm90::kSlabBytes / elem_bytes),
+      static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  CUresult r = fn(map,
+                  elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                  : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                  2, const_cast<void*>(ptr), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+}  // namespace fpk

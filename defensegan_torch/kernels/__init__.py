@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the projection hot loop, and their wrappers.
 
   - fused_projection_v2: the wide single-deconv generator's L-step loop as
-    four bf16 tensor-core GEMMs per step with fused epilogues
+    four bf16 GEMM launches per step with fused epilogues
     (csrc/fused_projection_v2.cu).
   - fused_projection_v2i: the same loop with the two D products in int8
     (csrc/fused_projection_v2i.cu); opt-in (`pallas_int8`).
@@ -12,6 +12,9 @@
     stacks), every deconv level a 3x3 grid conv, the interleaves folded
     into the convs' addressing (csrc/fused_projection_v4.cu); opt-in
     (`pallas_v4`).
+  - gemm, conv3x3: one product (csrc/gemm_sm90.cuh, under every product of
+    the four loops) or one grid conv (csrc/conv3x3_sm90.cuh, under v3's and
+    v4's convs) on its own, for holding it against its plain version.
 
 Each wrapper runs its plain PyTorch version on CPU tensors and its kernel
 on CUDA tensors. kernels/build.py compiles the sources with nvcc at first

@@ -4,8 +4,9 @@ Port of the JAX package's kernels/fused_projection_v2.py. The flagship
 wide arch (fc -> relu -> one stride-2 deconv -> tanh; configs/gans/
 mnist_fast.yml) has a LINEAR deconv, materialized once as a dense matrix
 D [F, P] (fastgen dense packing, output padded from 784 to P = 832 with
-zero columns: a multiple of the CUDA kernel's 64-wide tile; the TPU pack
-pads to 896, its 128-lane width). One projection step (reference
+zero columns: a multiple of 64, which the CUDA GEMM's epilogue takes in
+whole 64-column warp passes; the TPU pack pads to 896, its 128-lane
+width). One projection step (reference
 semantics: models/gan.py::reconstruct of kabkabm/defensegan) is then four
 products plus elementwise work:
 
@@ -40,10 +41,13 @@ from defensegan_torch.defense.project import (ReconstructionResult,
                                               select_restarts,
                                               tile_restarts)
 from defensegan_torch.kernels import build
+from defensegan_torch.kernels.gemm import split_k_for
 from defensegan_torch.models.generator import from_image_space
 
-ROW_TILE = 64        # rows of one kernel block (csrc/wmma_gemm.cuh kBM)
-COL_TILE = 64        # the kernel's k, F and P are multiples of this
+ROW_TILE = 64        # rows are padded to, and chunks cut at, multiples of
+                     # this (the kernels themselves take any row count)
+COL_TILE = 64        # the kernel's k, F and P are multiples of this (a GEMM
+                     # epilogue's warp covers 64 columns of a row)
 SCRATCH_CAP = 1 << 30  # bytes of per-row scratch (h, do, dh) in one call
 LIBRARY_ENTRY = {"fused_projection_v2": "fp_v2_run",
                  "fused_projection_v2i": "fp_v2i_run",
@@ -166,7 +170,7 @@ def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
     pointers or widths, as ctypes builds it) is handed on as it is.
     `scratch`: (columns, dtype) of each per-row
     scratch buffer, in argument order. `dims`: the kernel's widths, kp
-    first. Rows are zero-padded up to the kernel's 64-row tile and cropped
+    first. Rows are zero-padded up to a multiple of ROW_TILE and cropped
     after. They run in chunks of `chunk` rows, one library call (all L steps)
     each, counted in build.LAUNCHES[name]; by default one chunk, unless
     its scratch would pass SCRATCH_CAP bytes.
@@ -231,13 +235,15 @@ def fused_projection_dense(pack: DensePack, x_flat_tanh: torch.Tensor,
                                 rec_lr=rec_lr, momentum=momentum)
     w1, w1t, b1 = padded_fc(pack)
     kp, fp = w1.shape
+    splits = split_k_for(fp, kp)          # the fc backward dh @ W1^T
     bf16 = torch.bfloat16
     return run_loop(
         "fused_projection_v2", x_pad, z0_flat,
         [w1, w1t, b1, pad_to(pack.d, 0, COL_TILE),
          pad_to(pack.dt, 1, COL_TILE), pack.bd],
-        [(kp, bf16), (fp, bf16), (pack.d.shape[1], bf16), (fp, bf16)],
-        (kp, fp, pack.d.shape[1]), out_dim=pack.out_dim,
+        [(kp, bf16), (fp, bf16), (pack.d.shape[1], bf16), (fp, bf16),
+         (splits * kp, torch.float32)],
+        (kp, fp, pack.d.shape[1], splits), out_dim=pack.out_dim,
         rec_iters=rec_iters, rec_lr=rec_lr, momentum=momentum, chunk=chunk)
 
 

@@ -12,6 +12,12 @@ int8 x int8 -> int32:
   - the int32 result is dequantized by the rank-1 product of the row and
     column scales.
 
+The CUDA kernel runs both D products on Hopper's s8 wgmma, which reads its
+B operand only K-major: the pack also carries the codes transposed, Dq^T
+[P, F] and DTq^T [F, P] (`dq_k`, `dtq_k`: the same values, nothing
+re-quantized). The row amax of h and of do is taken in the epilogue that
+produces them, so the quantize pass reads each float32 row once.
+
 The z-side products (z @ W1, dh @ W1^T) stay bf16. Restart selection and
 G(z*) run outside the loop exactly as for v2. Whether int8 keeps defense
 quality is gated per checkpoint (output/gans/<run>/checkpoints/
@@ -35,6 +41,7 @@ import torch
 from defensegan_torch.kernels.fused_projection_v2 import (
     COL_TILE, DensePack, make_dense_reconstructor, pack_dense, pad_targets,
     pad_to, padded_fc, rounding, run_loop)
+from defensegan_torch.kernels.gemm import split_k_for
 
 
 class DensePackInt8(NamedTuple):
@@ -43,6 +50,8 @@ class DensePackInt8(NamedTuple):
     sd: torch.Tensor    # [1, P] f32 column scales of D
     dtq: torch.Tensor   # [P, F] int8, D^T quantized per column
     sdt: torch.Tensor   # [1, F] f32 column scales of D^T
+    dq_k: torch.Tensor   # [P, F] int8, dq transposed (K-major for h @ Dq)
+    dtq_k: torch.Tensor  # [F, P] int8, dtq transposed (for do @ DTq)
 
 
 def _quant_cols(w: np.ndarray):
@@ -64,7 +73,8 @@ def pack_dense_int8(generator) -> DensePackInt8:
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
     return DensePackInt8(base=base, dq=t(dq), sd=t(sd[None, :]),
-                         dtq=t(dtq), sdt=t(sdt[None, :]))
+                         dtq=t(dtq), sdt=t(sdt[None, :]), dq_k=t(dq.T),
+                         dtq_k=t(dtq.T))
 
 
 def _quant_rows(a: torch.Tensor, amax_guard: float = 1e-30):
@@ -125,15 +135,17 @@ def fused_projection_dense_int8(pack: DensePackInt8,
     w1, w1t, b1 = padded_fc(base)
     kp, fp = w1.shape
     p = base.d.shape[1]
-    f32, i8 = torch.float32, torch.int8
+    splits = split_k_for(fp, kp)          # the fc backward dh @ W1^T
+    f32, i8, i32 = torch.float32, torch.int8, torch.int32
     return run_loop(
         "fused_projection_v2i", x_pad, z0_flat,
-        [w1, w1t, b1, pad_to(pack.dq, 0, COL_TILE), pack.sd,
-         pad_to(pack.dtq, 1, COL_TILE), pad_to(pack.sdt, 1, COL_TILE, 1.0),
+        [w1, w1t, b1, pad_to(pack.dq_k, 1, COL_TILE), pack.sd,
+         pad_to(pack.dtq_k, 0, COL_TILE), pad_to(pack.sdt, 1, COL_TILE, 1.0),
          base.bd],
         [(kp, torch.bfloat16), (fp, f32), (fp, i8), (1, f32), (p, f32),
-         (p, i8), (1, f32), (fp, torch.bfloat16)],
-        (kp, fp, p), out_dim=base.out_dim, rec_iters=rec_iters,
+         (p, i8), (1, f32), (fp, torch.bfloat16), (1, i32), (1, i32),
+         (splits * kp, f32)],
+        (kp, fp, p, splits), out_dim=base.out_dim, rec_iters=rec_iters,
         rec_lr=rec_lr, momentum=momentum, chunk=chunk)
 
 

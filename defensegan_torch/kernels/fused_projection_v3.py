@@ -58,9 +58,10 @@ from defensegan_torch.defense.project import (ReconstructionResult,
                                               tile_restarts)
 from defensegan_torch.kernels.fused_projection_v2 import (COL_TILE, _round_up,
                                                           run_loop)
+from defensegan_torch.kernels.gemm import split_k_for
 from defensegan_torch.models.generator import from_image_space
 
-SLAB = 32   # bf16 elements of one K slab of the kernel (csrc/wmma_gemm.cuh)
+SLAB = 32   # conv B's packed K (kpk) is padded to a multiple of this
 
 
 class S2DPack(NamedTuple):
@@ -209,7 +210,9 @@ def _pad_blocks(t: torch.Tensor, view, target) -> torch.Tensor:
 def padded_s2d(pack: S2DPack) -> S2DPack:
     """The pack at the kernel's tile widths: k, c0 and ca up to multiples
     of 64, the packed conv-B width 9*cb up to 64 on kbp's columns (the
-    product's output tile) and up to 32 on kbpt's rows (its K slab). Zero
+    GEMM epilogue's 64-column passes) and up to 32 on kbpt's rows (its K:
+    the GEMM would take any multiple of 8, 16 bytes a row; the pad keeps
+    the packed layout of the first version). Zero
     rows and columns keep padded channels at h = 0 and padded latents at
     z = 0. The reference widths (128, 128, 256) need only the 9*cb pads.
     """
@@ -243,7 +246,7 @@ def fused_projection_s2d(pack: S2DPack, x_s2d: torch.Tensor,
     x_s2d: [N, 49*cb] TANH-space images in s2d-flat order (image-flat
     x[:, perm] of the s2d packing). z0_flat: [N, k] float32. A CPU tensor
     runs the plain version; a CUDA tensor launches the kernel or raises.
-    Rows are zero-padded to the kernel's 64-row tile and cropped after.
+    Rows are zero-padded to a multiple of 64 and cropped after.
     """
     p2 = pack.grid_hw ** 2
     n = z0_flat.shape[0]
@@ -257,16 +260,18 @@ def fused_projection_s2d(pack: S2DPack, x_s2d: torch.Tensor,
     npk, kpk = pp.kbp.shape[1], pp.kbpt.shape[0]
     order = torch.from_numpy(pixel_order(pp.grid_hw)).to(z0_flat.device)
     bf = torch.bfloat16
+    splits = split_k_for(p2 * pp.c0, pp.z_dim)    # the fc backward
     # dh1 and dh0 overwrite h1 and h0 in place (the kernel's epilogue
     # reads the relu mask and writes the gradient at the same index), so
-    # the scratch is zb, h0, h1, the packed product and the packed do
+    # the scratch is zb, h0, h1, the packed product, the packed do and the
+    # fc backward's split sums
     return run_loop(
         "fused_projection_v3", x_s2d.to(bf), z0_flat,
         [pp.w1, pp.w1t, pp.b1, pp.ka, pp.kat, pp.ba, pp.kbp, pp.kbpt, pp.bb,
          pp.masks, order],
         [(pp.z_dim, bf), (p2 * pp.c0, bf), (p2 * pp.ca, bf), (p2 * npk, bf),
-         (p2 * kpk, bf)],
-        (pp.z_dim, pp.c0, pp.ca, pp.cb, pp.grid_hw, npk, kpk),
+         (p2 * kpk, bf), (splits * pp.z_dim, torch.float32)],
+        (pp.z_dim, pp.c0, pp.ca, pp.cb, pp.grid_hw, npk, kpk, splits),
         out_dim=p2 * pack.cb, rec_iters=rec_iters, rec_lr=rec_lr,
         momentum=momentum, chunk=chunk)
 

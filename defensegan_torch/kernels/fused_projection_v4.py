@@ -45,7 +45,7 @@ c-wide runs within a row), so the interleave is no pass of its own.
 
 The TPU kernel's tile of latents and its `v4_tile_for` (a budget of on-chip
 memory) have no meaning on the card and are left out: the wrapper pads the
-rows to the kernel's 64-row tile and run_loop chunks them by its scratch
+rows to a multiple of 64 and run_loop chunks them by its scratch
 cap. The restart selection runs outside the loop through the conv-packed
 apply, in image order, as in the JAX package.
 """
@@ -73,6 +73,7 @@ from defensegan_torch.kernels.fused_projection_v3 import (_bf16_round,
                                                           _tap_masks,
                                                           _tap_offsets,
                                                           pixel_order)
+from defensegan_torch.kernels.gemm import split_k_for
 from defensegan_torch.models.generator import from_image_space
 from defensegan_torch.models.layers import conv_transpose_same
 
@@ -364,7 +365,7 @@ def fused_projection_v4(pack: V4Pack, x_flat: torch.Tensor,
     x_flat: [N, out_dim] TANH-space images in double-blocked order
     (`x_rows`). z0_flat: [N, k] float32. A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel or raises. Rows are
-    zero-padded to the kernel's 64-row tile and cropped after.
+    zero-padded to a multiple of 64 and cropped after.
     """
     n = z0_flat.shape[0]
     if tuple(x_flat.shape) != (n, pack.final_g ** 2 * pack.out_lanes):
@@ -400,11 +401,12 @@ def fused_projection_v4(pack: V4Pack, x_flat: torch.Tensor,
     # own relu mask) and the out level's buffer holds d
     act_cols = pp.base_hw ** 2 * pp.c0 + sum(lv.g ** 2 * lv.co
                                              for lv in pp.levels)
+    splits = split_k_for(pp.w1t.shape[0], pp.z_dim)   # the fc backward
     return run_loop(
         "fused_projection_v4", padded_targets(pack, pp, x_flat), z0_flat,
         [pp.w1, pp.w1t, pp.b1, ptr_table, dim_table],
-        [(pp.z_dim, bf), (act_cols, bf)],
-        (pp.z_dim, pp.c0, pp.base_hw, len(pp.levels)),
+        [(pp.z_dim, bf), (act_cols, bf), (splits * pp.z_dim, torch.float32)],
+        (pp.z_dim, pp.c0, pp.base_hw, len(pp.levels), splits),
         out_dim=pack.out_dim, rec_iters=rec_iters, rec_lr=rec_lr,
         momentum=momentum, chunk=chunk)
 

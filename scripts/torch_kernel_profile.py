@@ -6,17 +6,18 @@ the flagship weights; v3 on the deep mnist.yml generator and v4 on the
 64x64 celeba.yml generator, both with the smoke's seeded weights) once at
 the smoke's main shape (1024 images x R 10 = 10240 rows; v4: 512 images x
 R 2 = 1024 rows; L steps, default 20) under torch.profiler, and prints one
-JSON line per loop: the device time of each kernel (GEMM epilogue variants,
-the 3x3 grid convs, row quantization, casts) summed over the call, its
-share, and the call's wall time under the profiler, and the median of 3
-synchronized calls outside it (call_ms). For v3 each kernel is also named
-by the launch of the step it is (fc, conv A, conv B, their backwards). The
-levels of v4 share their kernels, so its line adds `by_launch`: device time
-by the position of a launch in the step (fc, each level forward, each level
-backward, fc backward), from the order of the launches on the stream. Each
-launch of v3 and v4 also carries the operations it issues (the padded
-widths, skipped border taps left out) and its share of the bf16 peak
-(989 TFLOP/s) on them;
+JSON line per loop: the device time of each kernel (the GEMM by epilogue,
+the split-K reduction, the 3x3 grid convs, row quantization, casts)
+summed over the call, its share, and the call's wall time under the
+profiler, and the median of 3 synchronized calls outside it (call_ms).
+`by_launch` names every launch of a step (kernels are shared between
+launches, so it goes by the order of the launches on the stream: for v2
+the four products, the fc backward as its split products and their sum +
+momentum; for v2i also the two quantize passes; for v3 and v4 the fc
+products, the convs and conv B), each with the operations it issues (the
+padded widths: K in whole slabs, N in whole 128-column tiles; skipped
+border taps left out) and its share of the peak of their type (bf16
+989 TFLOP/s, int8 1979 TOP/s);
 --config runs v4 on another 64x64 config (celeba_wide, imagenet64) at the
 same rows. --chunks repeats this for each row-chunk size of the wrappers
 (0: their default, one chunk up to the scratch cap). Needs one CUDA device:
@@ -39,17 +40,27 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 PEAK_BF16 = 989e12      # dense bf16 peak of one H100 SXM (data sheet)
+PEAK_INT8 = 1979e12     # dense int8 peak of one H100 SXM (data sheet)
+TILE_N = 128            # columns of a GEMM tile (csrc/gemm_sm90.cuh)
 
-# the launches of one v3 step, by a substring of the kernel's name (the
-# grid conv's epilogues name its two directions)
-V3_LAUNCHES = (("EpiConvBiasRelu", "conv A forward"),
-               ("EpiConvReluMask", "conv A backward"),
-               ("EpiStoreBf16", "conv B forward (packed product)"),
-               ("tanh_grad_pack", "conv B tap sum + tanh gradient + pack"),
-               ("EpiReluMask", "conv B backward"),
-               ("EpiBiasRelu", "fc forward"),
-               ("EpiMomentum", "fc backward + momentum"),
-               ("cast_bf16", "z -> bf16"))
+# the launches of one step of each loop, in stream order; the fc backward
+# is two launches (the split products, then their sum + the momentum)
+FC_BACKWARD = ("fc backward: split products",
+               "fc backward: split sum + momentum")
+V2_LAUNCHES = ("fc forward z @ W1 (+ bias, relu)",
+               "h @ D (+ tanh gradient)",
+               "do @ D^T (+ relu mask)") + FC_BACKWARD
+V2I_LAUNCHES = ("fc forward z @ W1 (+ bias, relu, row amax)",
+                "quantize h",
+                "hq @ Dq int8 (+ dequant, tanh gradient, row amax)",
+                "quantize do",
+                "gq @ DTq int8 (+ dequant, relu mask)") + FC_BACKWARD
+V3_LAUNCHES = ("fc forward", "conv A forward",
+               "conv B forward (packed product)",
+               "conv B tap sum + tanh gradient + pack", "conv B backward",
+               "conv A backward") + FC_BACKWARD
+# kernels of the libraries (C++ namespace fpk, and the loops' own)
+LIBRARY_KERNELS = ("fpk::", "quant_rows", "tanh_grad_pack")
 
 
 def pack_width(pack) -> int:
@@ -63,19 +74,17 @@ def pack_width(pack) -> int:
     return base.grid_hw ** 2 * base.cb
 
 
-def launch_of(kernel_name: str):
-    for needle, label in V3_LAUNCHES:
-        if needle in kernel_name:
-            return label
-    return None
-
-
-def v4_step_labels(pack):
-    """The launches of one v4 step, in stream order."""
+def step_labels(name: str, pack):
+    """The launches of one step of the loop, in stream order."""
+    if name.endswith("v2"):
+        return V2_LAUNCHES
+    if name.endswith("v2i"):
+        return V2I_LAUNCHES
+    if name.endswith("v3"):
+        return V3_LAUNCHES
     lv = level_names(pack)
-    return (["fc forward"] + [f"{name} forward" for name in lv]
-            + [f"{name} backward" for name in reversed(lv)]
-            + ["fc backward + momentum"])
+    return (("fc forward",) + tuple(f"{n} forward" for n in lv)
+            + tuple(f"{n} backward" for n in reversed(lv)) + FC_BACKWARD)
 
 
 def taps(g: int) -> int:
@@ -84,33 +93,61 @@ def taps(g: int) -> int:
     return int(_tap_masks(g).sum())
 
 
-def issued_flop(pack, rows: int, iters: int) -> dict:
-    """Operations each launch of a v3 or v4 step issues over `iters` steps
-    at the kernel's padded widths, by launch label."""
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def gemm_ops(n: float, k: int, cols: int, int8: bool = False) -> float:
+    """Operations a GEMM launch issues over n row-steps: K up to whole
+    128-byte slabs, N up to whole 128-column tiles (zero-filled by TMA)."""
+    return 2.0 * n * _up(k, 128 if int8 else 64) * _up(cols, TILE_N)
+
+
+def issued(name: str, pack, rows: int, iters: int) -> dict:
+    """{launch label: (operations it issues over `iters` steps at the
+    kernel's padded widths, the peak of their type)}."""
+    from defensegan_torch.kernels.fused_projection_v2 import padded_fc
     from defensegan_torch.kernels.fused_projection_v3 import padded_s2d
     from defensegan_torch.kernels.fused_projection_v4 import padded_v4
-    n = 2.0 * rows * iters
+    n = float(rows * iters)
+    bf, i8 = PEAK_BF16, PEAK_INT8
+    if name.endswith(("v2", "v2i")):
+        base = getattr(pack, "base", pack)
+        kp, fp = padded_fc(base)[0].shape
+        p = base.d.shape[1]
+        fc = (gemm_ops(n, kp, fp), bf)
+        back = (gemm_ops(n, fp, kp), bf)
+        if name.endswith("v2"):
+            return dict(zip(V2_LAUNCHES, (
+                fc, (gemm_ops(n, fp, p), bf), (gemm_ops(n, p, fp), bf),
+                back)))
+        return dict(zip(V2I_LAUNCHES, (
+            fc, (0.0, bf), (gemm_ops(n, fp, p, True), i8), (0.0, bf),
+            (gemm_ops(n, p, fp, True), i8), back)))
     if hasattr(pack, "levels"):
         pp = padded_v4(pack)
-        fc = n * pp.z_dim * pp.base_hw ** 2 * pp.c0
-        out = {"fc forward": fc, "fc backward + momentum": fc}
-        for name, lv in zip(level_names(pack), pp.levels):
-            conv = n * taps(lv.g) * lv.ci * lv.co
-            out[f"{name} forward"] = out[f"{name} backward"] = conv
+        f = pp.base_hw ** 2 * pp.c0
+        out = {"fc forward": (gemm_ops(n, pp.z_dim, f), bf),
+               FC_BACKWARD[0]: (gemm_ops(n, f, pp.z_dim), bf)}
+        for lname, lv in zip(level_names(pack), pp.levels):
+            conv = (2.0 * n * taps(lv.g) * lv.ci * lv.co, bf)
+            out[f"{lname} forward"] = out[f"{lname} backward"] = conv
         return out
     pp = padded_s2d(pack)
     p2 = pp.grid_hw ** 2
-    fc = n * pp.z_dim * p2 * pp.c0
-    conv_a = n * taps(pp.grid_hw) * pp.c0 * pp.ca
-    return {"fc forward": fc, "fc backward + momentum": fc,
+    f = p2 * pp.c0
+    conv_a = (2.0 * n * taps(pp.grid_hw) * pp.c0 * pp.ca, bf)
+    return {"fc forward": (gemm_ops(n, pp.z_dim, f), bf),
+            FC_BACKWARD[0]: (gemm_ops(n, f, pp.z_dim), bf),
             "conv A forward": conv_a, "conv A backward": conv_a,
             "conv B forward (packed product)":
-                n * p2 * pp.ca * pp.kbp.shape[1],
-            "conv B backward": n * p2 * pp.kbpt.shape[0] * pp.ca}
+                (gemm_ops(n * p2, pp.ca, pp.kbp.shape[1]), bf),
+            "conv B backward": (gemm_ops(n * p2, pp.kbpt.shape[0], pp.ca),
+                                bf)}
 
 
-def peak_share(flop, ms):
-    return None if not flop or not ms else flop / (ms * 1e-3) / PEAK_BF16
+def peak_share(ops, peak, ms):
+    return None if not ops or not ms else ops / (ms * 1e-3) / peak
 
 
 def level_names(pack):
@@ -118,25 +155,33 @@ def level_names(pack):
             for i, l in enumerate(pack.levels)]
 
 
-def by_launch(prof, labels, iters: int, flop: dict):
-    """Device time by position in the step: the library's kernels (C++
-    namespace fpk) in stream order are one cast, then `iters` steps of
-    len(labels) launches."""
+def by_launch(prof, labels, iters: int, ops: dict):
+    """Device time by position in the step: the library's kernels in
+    stream order are, for each row chunk, one cast, then `iters` steps of
+    len(labels) launches; each launch with its issued operations and its share of the
+    peak of their type (bf16 989, int8 1979 TOP/s)."""
     from torch.autograd import DeviceType
     evs = sorted((e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and "fpk::" in e.name),
+                  if e.device_type == DeviceType.CUDA
+                  and any(k in e.name for k in LIBRARY_KERNELS)),
                  key=lambda e: e.time_range.start)
-    if len(evs) != 1 + iters * len(labels):
-        return {"error": f"{len(evs)} device kernels, expected "
-                         f"{1 + iters * len(labels)}"}
+    per_call = 1 + iters * len(labels)        # each row chunk's call
+    if not evs or len(evs) % per_call:
+        return {"error": f"{len(evs)} device kernels, not a multiple of "
+                         f"{per_call}"}
     us = [0.0] * len(labels)
-    for i, e in enumerate(evs[1:]):
-        us[i % len(labels)] += e.time_range.elapsed_us()
+    for i, e in enumerate(evs):
+        if i % per_call:
+            us[(i % per_call - 1) % len(labels)] += e.time_range.elapsed_us()
     total = sum(us)
-    return [{"launch": name, "ms": t / 1e3, "share": t / total,
-             "issued_tflop": flop.get(name, 0.0) / 1e12,
-             "bf16_peak_share": peak_share(flop.get(name), t / 1e3)}
-            for name, t in zip(labels, us)]
+    rows = []
+    for name, t in zip(labels, us):
+        op, peak = ops.get(name, (0.0, PEAK_BF16))
+        rows.append({"launch": name, "ms": t / 1e3, "share": t / total,
+                     "issued_tera_ops": op / 1e12,
+                     "peak": "int8" if peak == PEAK_INT8 else "bf16",
+                     "peak_share": peak_share(op, peak, t / 1e3)})
+    return rows
 
 
 def main(argv=None) -> int:
@@ -228,30 +273,22 @@ def main(argv=None) -> int:
             if dev_us > 0 and e.self_cpu_time_total == 0:
                 rows.append((e.key, dev_us, e.count))
         total = sum(r[1] for r in rows)
-        extra = {}
-        flop = {} if name.endswith(("v2", "v2i")) else \
-            issued_flop(pack, n, args.iters)
-        if name == "fused_projection_v4":
-            extra["by_launch"] = by_launch(prof, v4_step_labels(pack),
-                                           args.iters, flop)
-            extra["config"] = args.config
-        if flop:
-            extra["issued_tflop"] = sum(flop.values()) / 1e12
-            extra["bf16_peak_share"] = peak_share(sum(flop.values()),
-                                                  total / 1e3)
+        ops = issued(name, pack, n, args.iters)
+        launches = by_launch(prof, step_labels(name, pack), args.iters, ops)
+        extra = {"config": args.config} if name.endswith("v4") else {}
         print(json.dumps({
             "loop": name, "rows": n, "iters": args.iters,
             "chunk": chunk or "default", "p": pack_width(pack),
             "call_ms": statistics.median(calls),
             "wall_ms": wall * 1e3, "device_ms": total / 1e3,
-            "kernels": [dict(kernel=k[:120], launch=launch,
-                             ms=us / 1e3, count=c,
-                             share=us / total if total else None,
-                             bf16_peak_share=peak_share(flop.get(launch),
-                                                        us / 1e3))
-                        for k, us, c in sorted(rows, key=lambda r: -r[1])
-                        for launch in [launch_of(k) if name.endswith("v3")
-                                       else None]],
+            "issued_tera_ops": {
+                kind: sum(o for o, pk in ops.values() if pk == peak) / 1e12
+                for kind, peak in (("bf16", PEAK_BF16),
+                                   ("int8", PEAK_INT8))},
+            "by_launch": launches,
+            "kernels": [dict(kernel=k[:120], ms=us / 1e3, count=c,
+                             share=us / total if total else None)
+                        for k, us, c in sorted(rows, key=lambda r: -r[1])],
             **extra}), flush=True)
     return 0
 

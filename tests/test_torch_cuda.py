@@ -13,7 +13,8 @@ channels to the kernels' 64-wide tiles -- for v4 every run of an
 interleaved level is padded to 64 on its own, so that no 64 channels of a
 tile straddle two runs; chip_smoke.py checks the full widths, where only
 the out level is padded. The grid conv alone (kernels/conv3x3.py) runs at
-published widths and at the edges of its design (CONV_EDGES).
+published widths and at the edges of its design (CONV_EDGES), and so does
+the GEMM that carries every other product (kernels/gemm.py, GEMM_EDGES).
 Tolerances are chip_smoke.py's elementwise bounds: kernel and plain
 version differ only in float32 summation order, which flips a bf16
 rounding (2^-8 relative) of an intermediate now and then, carried forward
@@ -35,6 +36,9 @@ from defensegan_torch.kernels.fused_projection_v3 import (
     fused_projection_s2d, pack_s2d, s2d_loop_plain)
 from defensegan_torch.kernels.fused_projection_v4 import (
     fused_projection_v4, pack_v4, v4_loop_plain, x_rows)
+from defensegan_torch.kernels.gemm import COUNTER as GEMM_COUNTER
+from defensegan_torch.kernels.gemm import gemm, gemm_plain, split_k_for
+from defensegan_torch.kernels.gemm import rounding_excess as gemm_excess
 from defensegan_torch.models.generator import generator_for
 
 LR, MOM = 10.0, 0.7
@@ -270,3 +274,93 @@ def test_conv3x3_kernel_matches_plain(cuda_device, case):
     assert (got != 0).float().mean() > 0.2        # not an empty output
     if mode == "backward":
         assert torch.equal(kw["h"], h_before)       # the wrapper's copy
+
+
+# ---- the Hopper GEMM on its own (csrc/gemm_sm90.cuh through
+# kernels/gemm.py), at the edges of its design: K 128 (two slabs), 160
+# (conv B's, a half slab), 832 (v2i's 6.5 int8 slabs), 6272; N 128 (split
+# K), 192 (conv B, a half tile), 832 (P, 6.5 tiles); M 192 (a half
+# 128-row tile) and 10240 (the flagship's rows)
+GEMM_EDGES = {
+    # epilogue, M, K, N, operand type
+    "fc_forward_k128": ("bias_relu", 192, 128, 6272, "bf16"),
+    "fc_forward_amax_k128": ("bias_relu_amax", 192, 128, 6272, "bf16"),
+    "h_at_d_n832": ("tanh_grad", 192, 6272, 832, "bf16"),
+    "do_at_dt_k832": ("relu_mask", 192, 832, 6272, "bf16"),
+    "fc_backward_split": ("momentum", 192, 6272, 128, "bf16"),
+    "fc_backward_split_m10240": ("momentum", 10240, 6272, 128, "bf16"),
+    "v4_fc_backward_k8192": ("momentum", 1024, 8192, 128, "bf16"),
+    "conv_b_forward_n192": ("store", 192, 256, 192, "bf16"),
+    "conv_b_backward_k160": ("relu_mask", 192, 160, 256, "bf16"),
+    "store_m10240_n832": ("store", 10240, 6272, 832, "bf16"),
+    "int8_h_at_dq": ("store", 192, 6272, 832, "int8"),
+    "int8_do_at_dtq_k832": ("store", 192, 832, 6272, "int8"),
+    "int8_m10240_k832": ("store", 10240, 832, 6272, "int8"),
+    "int8_tanh_grad": ("tanh_grad_int8", 192, 6272, 832, "int8"),
+    "int8_relu_mask_k832": ("relu_mask_int8", 192, 832, 6272, "int8"),
+}
+
+
+def gemm_case(dev, epilogue, m, k, n, kind, seed):
+    """Seeded operands and epilogue inputs of one GEMM edge case; the
+    int8 scales put the dequantized sums near 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=dev, generator=gen)
+    bf = torch.bfloat16
+    if kind == "int8":
+        a = torch.randint(-127, 128, (m, k), device=dev, generator=gen,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (n, k), device=dev, generator=gen,
+                          dtype=torch.int8)
+    else:
+        a, b = randn(m, k).to(bf), randn(k, n, scale=k ** -0.5).to(bf)
+    kw = {}
+    if epilogue in ("bias_relu", "bias_relu_amax", "tanh_grad",
+                    "tanh_grad_int8"):
+        kw["bias"] = randn(n)
+    if epilogue in ("tanh_grad", "tanh_grad_int8"):
+        kw.update(x=torch.tanh(randn(m, n)).to(bf), scale=2.0 / 784)
+    if epilogue == "relu_mask":
+        kw["h"] = randn(m, n).to(bf)
+    if epilogue == "relu_mask_int8":
+        kw["h"] = randn(m, n)
+    if epilogue.endswith("int8"):
+        kw.update(row_scale=torch.rand(m, device=dev, generator=gen) / 127.0,
+                  col_scale=torch.rand(n, device=dev, generator=gen)
+                  / (127.0 * k ** 0.5))
+    if epilogue == "momentum":
+        kw.update(z=randn(m, n), v=randn(m, n), lr=10.0, momentum=0.7)
+    return a, b, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GEMM_EDGES))
+def test_gemm_kernel_matches_plain(cuda_device, case):
+    """The kernel against its plain version on the same inputs, element by
+    element: int8 sums bit for bit, everything else within the band of
+    gemm.rounding_excess; a row amax taken in the epilogue equals the
+    amax of the kernel's own output exactly (a max has no order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    epilogue, m, k, n, kind = GEMM_EDGES[case]
+    a, b, kw = gemm_case(cuda_device, epilogue, m, k, n, kind, len(case))
+    z_before = kw["z"].clone() if "z" in kw else None
+    before = build.LAUNCHES[GEMM_COUNTER]
+    got = gemm(a, b, epilogue, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[GEMM_COUNTER] == before + 1
+    ref = gemm_plain(a, b, epilogue, **kw)
+    if kind == "int8" and epilogue == "store":
+        assert got.dtype == torch.int32 and torch.equal(got, ref)
+        return
+    outs = got if isinstance(got, tuple) else (got,)
+    assert all(torch.isfinite(t.float()).all() for t in outs)
+    assert gemm_excess(got, ref, a, b, epilogue, scale=kw.get("scale", 1.0),
+                       lr=kw.get("lr", 0.0)) <= 0
+    if epilogue in ("bias_relu_amax", "tanh_grad_int8"):
+        assert torch.equal(got[1], got[0].abs().amax(1))
+    if z_before is not None:
+        assert torch.equal(kw["z"], z_before)           # the wrapper's copy
+        assert split_k_for(k, n) > 1
+    assert (outs[0] != 0).float().mean() > 0.2        # not an empty output
