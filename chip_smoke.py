@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's three served paths and holds every kernel of them
-against its plain PyTorch version:
+against its plain PyTorch version, then the white-box evaluation path
+(phase 6):
 
   - the flagship (configs/gans/mnist_fast.yml: wide generator, k 128,
     F 6272, 784 outputs padded to P 832; trained step-20000 weights from
@@ -69,7 +70,29 @@ against its plain PyTorch version:
      torch.matmul / torch._int_mm / cuDNN convolutions, which the port
      never calls), the fp32 plain path of the flagship and the generic
      path (kernel="xla") of the 64x64 model in fp32 and in its own bf16
-  6. the `kernels` line, then {"ok": true, "device": {...}} last.
+  6. the white-box path on the trained flagship (chip_smoke.whitebox_phase):
+       a. the exact d/dx of the summed defended logits (classifier A,
+          seeded; L 5, 16 images of the replay set, R 10) on the card
+          against the same function on the CPU, both float32, within
+          GRAD_REL_MAX; the BPDA gradient against the classifier's
+          gradient at G(z*); the cosine of the served bf16 model's
+          gradient to the fp32 one (reported)
+       b. one exact-mode gradient at L 50 and L 200 on 64 images (the bf16
+          model): seconds and peak memory above the inputs
+       c. whitebox_torch.main end to end at R 10, L 200, classifier A
+          trained one epoch on the synthetic stand-in data: FGSM (BPDA) on
+          256 images, FGSM (exact) on 64 (one attack batch: each is one
+          exact gradient at L 200), PGD (BPDA, 10 steps) on 256, SPSA (2
+          iterations, --detect) on 256; the defended evaluation, the
+          detector and SPSA's queries must report `last_kernel` pallas (v2)
+       d. the --load_adv replay gate: output/advsets/flagship_conf_l300.npz
+          through v2 and through v2i (PROJECTION_KERNEL pallas_int8) with
+          --detect, held by distribution against the JAX package's
+          output/detstats/flagship_conf_l300.npz (REPLAY_* bounds);
+          flagship_spsa_l300.npz through v2, its AUC printed beside JAX's
+       launch counters set to 0 before c and read after: v2 and v2i must
+       have run
+  7. the `kernels` line, then {"ok": true, "device": {...}} last.
 
 Every phase prints one JSON line; any failed check exits nonzero. There is
 no CPU fallback: without a CUDA device the script exits 2 and prints no
@@ -136,6 +159,37 @@ V3_LOSS_REL_P95_MAX = 1e-1
 # (4) mean best-restart tanh-space MSE on clean G(z) requests: an
 # unrelated digit scores ~0.3 (printed beside it), a recovered one ~1e-3
 CLEAN_LOSS_MAX = 0.02
+# (6) white-box phase. The exact d/dx of the summed defended logits (L 5,
+# 16 images, R 10) on the card against the same function on the CPU, both
+# in float32 with TF32 off: max |difference| within this share of the
+# CPU gradient's largest element. On the CPU the float32 gradient sits
+# 4.3e-7 of it from the float64 one; a relu pre-activation within float32
+# noise of zero that takes the other side on the card moves an element
+# by ~1e-4; a missing step or term of the second-order pass moves it by
+# percent.
+GRAD_REL_MAX = 1e-3
+# BPDA: the gradient of the straight-through target is the classifier's
+# gradient at x + (G(z*) - x), the same function evaluated twice
+BPDA_REL_MAX = 1e-5
+# The --load_adv replay of output/advsets/flagship_conf_l300.npz (the first
+# 128 images of the synthetic stand-in's test split, as the JAX package
+# crafted it, and their detection-aware SPSA attacks) through v2 and v2i
+# at R 10, L 200, held by distribution against the JAX package's
+# statistics of the same set (output/detstats/flagship_conf_l300.npz,
+# R 10, L 200): the two packages draw different z0, so the medians of the
+# clean and the adversarial rec errors within 5% relative, and the
+# clean-vs-adversarial AUC within 0.05. The JAX package's own 8 passes over
+# the set (flagship_conf_l300_k8.npz) spread by 0.9% and 0.3% in these
+# medians and from 0.525 to 0.555 in the AUC (std 0.009; the difference of
+# two independent passes has std 0.013, and 0.05 is 4 of those).
+REPLAY_MEDIAN_REL_MAX = 0.05
+REPLAY_AUC_ABS_MAX = 0.05
+ADVSET = os.path.join(ROOT, "output", "advsets", "flagship_conf_l300.npz")
+ADVSET_SPSA = os.path.join(ROOT, "output", "advsets",
+                           "flagship_spsa_l300.npz")
+DETSTATS = os.path.join(ROOT, "output", "detstats", "flagship_conf_l300.npz")
+DETSTATS_SPSA = os.path.join(ROOT, "output", "detstats",
+                             "flagship_spsa_l300.npz")
 
 RECORD: dict = {}
 
@@ -467,6 +521,177 @@ def row_errors(got, ref, z0) -> dict:
             "rel": (err.max() / step.max()).item(),
             "row_rel_p50": torch.quantile(rel, 0.5).item(),
             "row_rel_max": rel.max().item()}
+
+
+def whitebox_phase(build) -> dict:
+    """Phase 6: the white-box evaluation path on the trained flagship.
+
+    Gradients through the projection on the card, the white-box CLI end to
+    end (FGSM, PGD and SPSA through the defense; the defended evaluation,
+    the detector and SPSA's queries on v2), and the --load_adv replay gate
+    of the committed adversarial sets through v2 and v2i. Launch counters
+    are set to 0 just before and read just after; v2 and v2i must have
+    run."""
+    import numpy as np
+    import torch
+
+    import whitebox_torch
+    from defensegan_torch.attacks import make_attack_target
+    from defensegan_torch.configs import load_config
+    from defensegan_torch.eval.detect import roc_auc
+    from defensegan_torch.gan import DefenseGAN
+    from defensegan_torch.models import build_classifier
+
+    dev = torch.device("cuda")
+    out = {}
+    cfg = load_config(RUN_DIR).replace(output_dir=RUN_DIR)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    with np.load(ADVSET) as d:
+        x_set = d["x_clean"]
+    clf_cpu = build_classifier("A", gen=torch.Generator().manual_seed(5)) \
+        .requires_grad_(False)
+    clf_dev = build_classifier("A", gen=torch.Generator().manual_seed(5)) \
+        .to(dev).requires_grad_(False)
+    z0 = torch.randn(16, cfg.rec_rr, cfg.latent_dim,
+                     generator=torch.Generator().manual_seed(6))
+
+    def exact_grad(gan, clf, x, z0, iters, grad_mode="exact"):
+        tgt = make_attack_target(gan, clf, gan.cfg, rec_iters=iters,
+                                 grad_mode=grad_mode,
+                                 z0_fn=lambda xx, key: z0.to(xx.device))
+        xx = x.detach().clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(tgt(xx, 0).sum(), xx)
+        return g
+
+    # ---- 6a. the exact gradient on the card against the CPU, float32
+    x16 = torch.from_numpy(x_set[:16])
+    g_cpu = exact_grad(DefenseGAN(cfg32, device="cpu").load(), clf_cpu,
+                       x16, z0, 5)
+    gan32 = DefenseGAN(cfg32).load()
+    g_dev = exact_grad(gan32, clf_dev, x16.to(dev), z0, 5).cpu()
+    scale = float(g_cpu.abs().max())
+    err = float((g_dev - g_cpu).abs().max())
+    gan = DefenseGAN(cfg).load()                 # the served bf16 model
+    g_bf = exact_grad(gan, clf_dev, x16.to(dev), z0, 5).cpu()
+    cos = float(torch.nn.functional.cosine_similarity(
+        g_bf.flatten(), g_cpu.flatten(), dim=0))
+    # BPDA: identity through the projection, so d/dx sum logits is the
+    # classifier's gradient at u = x + (G(z*) - x)
+    xd = x16.to(dev)
+    g_bpda = exact_grad(gan32, clf_dev, xd, z0, 5, "bpda")
+    with torch.no_grad():
+        res = gan32.reconstruct(xd, kernel="xla", rec_iters=5,
+                                z0=z0.to(dev))
+    u = (xd + (res.x_hat - xd)).requires_grad_(True)
+    (g_u,) = torch.autograd.grad(clf_dev(u).sum(), u)
+    bpda_err = float((g_bpda - g_u).abs().max())
+    bpda_scale = float(g_u.abs().max())
+    out["grad"] = dict(
+        images=16, rr=cfg.rec_rr, iters=5, max_abs_err=err,
+        cpu_max_abs=scale, rel=err / scale, bound_rel=GRAD_REL_MAX,
+        bf16_card_cos_vs_fp32_cpu=cos, bpda_max_abs_err=bpda_err,
+        bpda_rel=bpda_err / bpda_scale, bpda_bound_rel=BPDA_REL_MAX)
+    if not (err <= GRAD_REL_MAX * scale and scale > 0
+            and bpda_err <= BPDA_REL_MAX * bpda_scale
+            and torch.isfinite(g_bf).all()):
+        fail(f"white-box gradients: {out['grad']}")
+
+    # ---- 6b. one exact-mode gradient at L 200 on 64 images (bf16 model)
+    x64 = torch.from_numpy(x_set[:64]).to(dev)
+    z64 = torch.randn(64, cfg.rec_rr, cfg.latent_dim,
+                      generator=torch.Generator().manual_seed(7))
+    timing = {}
+    for iters in (50, 200):
+        exact_grad(gan, clf_dev, x64, z64, iters)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        g64 = exact_grad(gan, clf_dev, x64, z64, iters)
+        torch.cuda.synchronize()
+        timing[f"L{iters}"] = dict(
+            s=time.perf_counter() - t0,
+            peak_extra_mib=(torch.cuda.max_memory_allocated() - base)
+            / 2 ** 20, finite=bool(torch.isfinite(g64).all()))
+    out["exact_grad_64_images"] = dict(rr=cfg.rec_rr, **timing)
+    if not all(t["finite"] for t in timing.values()):
+        fail(f"exact gradient at L 200: {timing}")
+    emit("whitebox_grad", **out)
+
+    # ---- 6c. the CLI end to end, then the replay gate
+    res_dir = os.path.join(ROOT, "chiprun_out", "whitebox_torch")
+    base_args = ["--cfg", os.path.join(CFG_DIR, "mnist_fast.yml"),
+                 "--output_dir", RUN_DIR, "--model", "A",
+                 "--classifier_epochs", "1", "--rec_rr", "10",
+                 "--rec_iters", "200", "--defense_type", "defense_gan",
+                 "--results_dir", res_dir]
+    build.reset_launches()
+    runs = {}
+
+    def cli(label, extra, num_tests=256, path="pallas"):
+        t0 = time.perf_counter()
+        rec = whitebox_torch.main(base_args + ["--num_tests",
+                                               str(num_tests)] + extra)
+        torch.cuda.synchronize()
+        runs[label] = dict(
+            s=time.perf_counter() - t0, num_tests=rec["num_tests"],
+            attack_batches=rec["attack_batches"],
+            s_per_attack_batch=(rec["attack_time_s"]
+                                / max(rec["attack_batches"], 1)),
+            last_kernel=rec["last_kernel"],
+            clean_acc=rec["clean_acc"],
+            clean_defended_acc=rec["clean_defended_acc"],
+            adv_acc_no_defense=rec["adv_acc_no_defense"],
+            defended_acc=rec["defended_acc"],
+            detection_auc=rec["detection_auc"], phases=rec["phases"])
+        if set(rec["last_kernel"].values()) != {path}:
+            fail(f"{label}: the defended evaluation ran "
+                 f"{rec['last_kernel']}, not {path}")
+        return rec
+
+    cli("fgsm_bpda", ["--attack_type", "fgsm", "--attack_grad", "bpda",
+                      "--retrain_classifier"])
+    cli("fgsm_exact", ["--attack_type", "fgsm"], num_tests=64)
+    cli("pgd_bpda", ["--attack_type", "pgd", "--pgd_iters", "10",
+                     "--attack_grad", "bpda"])
+    cli("spsa", ["--attack_type", "spsa", "--spsa_iters", "2", "--detect"])
+    replay = {}
+    for label, advset, detstats, kernel in (
+            ("conf_v2", ADVSET, DETSTATS, "pallas"),
+            ("conf_v2i", ADVSET, DETSTATS, "pallas_int8"),
+            ("spsa_v2", ADVSET_SPSA, DETSTATS_SPSA, "pallas")):
+        npz = os.path.join(res_dir, f"replay_{label}.npz")
+        cli(f"replay_{label}", ["--attack_type", "none", "--load_adv",
+                                advset, "--detect", "--detect_save", npz,
+                                "--override", f"PROJECTION_KERNEL={kernel}"],
+            num_tests=128, path=kernel)
+        with np.load(npz) as got, np.load(detstats) as ref:
+            med = {k: (float(np.median(got[k])), float(np.median(ref[k])))
+                   for k in ("errs_clean", "errs_adv")}
+            auc = (roc_auc(got["errs_clean"], got["errs_adv"]),
+                   roc_auc(ref["errs_clean"], ref["errs_adv"]))
+        replay[label] = dict(
+            median_errs_clean=med["errs_clean"],
+            median_errs_adv=med["errs_adv"], auc=auc,
+            median_rel_gap={k: abs(a - b) / b for k, (a, b) in med.items()},
+            auc_abs_gap=abs(auc[0] - auc[1]))
+        if label.startswith("conf") and (
+                max(replay[label]["median_rel_gap"].values())
+                > REPLAY_MEDIAN_REL_MAX
+                or replay[label]["auc_abs_gap"] > REPLAY_AUC_ABS_MAX):
+            fail(f"replay gate {label}: {replay[label]}")
+    launches = dict(build.LAUNCHES)
+    emit("whitebox", runs=runs, replay=replay, launches=launches,
+         replay_bounds=dict(median_rel=REPLAY_MEDIAN_REL_MAX,
+                            auc_abs=REPLAY_AUC_ABS_MAX),
+         note="accuracies are path checks: the classifier trains one "
+         "epoch on the synthetic stand-in data (no MNIST files in the "
+         "repository), not on MNIST")
+    if launches["fused_projection_v2"] <= 0 or \
+            launches["fused_projection_v2i"] <= 0:
+        fail(f"the white-box path did not run v2 and v2i: {launches}")
+    out.update(runs=runs, replay=replay, launches=launches)
+    return out
 
 
 def main() -> int:
@@ -1159,7 +1384,10 @@ def main() -> int:
     emit("timing", iters=iters, **timing, fp32_plain_ms=fp32_ms,
          fp32_plain_recon_per_s=big["b"] / (fp32_ms / 1e3))
 
-    # ------------------------------------------------- 6. kernels line
+    # ------------------------------------------------ 6. white-box path
+    whitebox_phase(build)
+
+    # ------------------------------------------------- 7. kernels line
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": kk["source"],
          "replaces": kk["replaces"], "launches": launches[name],

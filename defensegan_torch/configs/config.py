@@ -8,8 +8,9 @@ trained run's output directory and re-loads the cfg stored there, mirroring
 the reference's `--cfg <output-dir>` convention.
 
 PROJECTION_KERNEL takes the JAX package's values; in the port `pallas`
-names the hand-written CUDA kernel for the same loop (fused_projection_v2)
-and `pallas_int8` its int8 variant (fused_projection_v2i); `pallas_v4`
+names the hand-written CUDA kernel for the same loop (fused_projection_v2,
+or fused_projection_v3 on a two-deconv deep generator) and `pallas_int8`
+v2's int8 variant (fused_projection_v2i); `pallas_v4`
 names the multi-deconv loop of the 64x64 configs (fused_projection_v4). See
 gan/defense_gan.py::resolve_projection_kernel.
 """
@@ -76,11 +77,15 @@ class Config:
     # --- compute ---
     compute_dtype: str = "bfloat16"  # COMPUTE_DTYPE: float32 | bfloat16
     projection_kernel: str = "auto"  # PROJECTION_KERNEL:
-    #   auto   = on CUDA the bf16 fused kernel (v2) for wide archs; the
-    #            plain per-topology path otherwise and for back_prop
+    #   auto   = on CUDA the bf16 fused kernel: v2 for wide single-deconv
+    #            archs, v3 for two-deconv deep ones; the plain
+    #            per-topology path otherwise (packed for single-deconv,
+    #            xla for deeper stacks: the 64x64 ones) and under back_prop
     #   xla    = generator module in the autograd loop (defense/project.py)
     #   packed = BN-folded flat-space generator (defense/fastgen.py)
-    #   pallas = bf16 fused RxL loop (kernels/fused_projection_v2.py)
+    #   pallas = bf16 fused RxL loop: v2 (kernels/fused_projection_v2.py)
+    #            on a wide generator, v3 (fused_projection_v3.py) on a
+    #            two-deconv deep one
     #   pallas_int8 = OPT-IN int8 fused loop for wide archs
     #            (kernels/fused_projection_v2i.py); opt-in because
     #            quantized defense quality is gated per checkpoint
@@ -90,7 +95,8 @@ class Config:
     #            never resolves to it, as in the JAX package
     #   see gan/defense_gan.py::resolve_projection_kernel
     packed_variant: str = "auto"     # PACKED_VARIANT (kernel=packed):
-    #   auto = conv (the port packs conv | dense so far)
+    #   conv | phase | dense | hybrid | s2d (defense/fastgen.py); auto =
+    #   s2d on a two-deconv deep generator, conv otherwise
     seed: int = 0                    # SEED
     mesh_data_axis: int = -1         # MESH_DATA_AXIS: -1 = all local devices
 

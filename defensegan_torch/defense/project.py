@@ -13,8 +13,14 @@ DefenseGANBase.reconstruct of kabkabm/defensegan):
     first index, as jnp.argmin and torch.argmin both do.
 
 Images at this API are in [0, 1] (or uint8); the tanh-space conversion
-happens inside. back_prop=True (differentiating through the loop, for the
-white-box attacks) belongs to the attacks slice and raises here.
+happens inside. back_prop=True makes the result differentiable with
+respect to x (and z0) through all L unrolled steps, as the white-box
+attacks need: each step's gradient is taken with create_graph=True, a
+second-order pass through the generator, and each step runs under
+torch.utils.checkpoint (non-reentrant), the counterpart of the JAX
+package's jax.checkpoint on the scan body: the graph keeps each step's
+inputs (z, v) and recomputes the step's generator activations in the
+backward pass, so memory grows as O(L * |z|), not O(L * activations).
 """
 
 from __future__ import annotations
@@ -22,14 +28,12 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from defensegan_torch.models.generator import from_image_space, \
     to_image_space
 
 GenApply = Callable[[torch.Tensor], torch.Tensor]
-
-BACK_PROP_TODO = ("back_prop=True (gradients through the projection) is "
-                  "not ported yet: it is the attacks slice in ROADMAP.md")
 
 
 class ReconstructionResult(NamedTuple):
@@ -82,6 +86,24 @@ def select_restarts(losses: torch.Tensor, z_final: torch.Tensor,
                                 loss=losses[idx, best], all_losses=losses)
 
 
+def _step(gen_apply: GenApply, z: torch.Tensor, v: torch.Tensor,
+          x_flat: torch.Tensor, momentum: float, rec_lr: float,
+          create_graph: bool):
+    """One momentum step: g = d/dz sum_i mse_i; v <- m v + g; z <- z - lr v.
+
+    create_graph=False detaches z (no graph through the loop);
+    create_graph=True keeps the new z and v differentiable in z, v and
+    x_flat."""
+    if not (create_graph and z.requires_grad):
+        z = z.detach()
+    zr = z if z.requires_grad else z.requires_grad_(True)
+    with torch.enable_grad():
+        loss = torch.sum(rec_losses(gen_apply, zr, x_flat))
+        (g,) = torch.autograd.grad(loss, zr, create_graph=create_graph)
+    v = momentum * v + g
+    return (zr if create_graph else z.detach()) - rec_lr * v, v
+
+
 def reconstruct(gen_apply: GenApply, x: torch.Tensor, z0: torch.Tensor, *,
                 rec_iters: int = 200, rec_lr: float = 10.0,
                 momentum: float = 0.7,
@@ -90,22 +112,27 @@ def reconstruct(gen_apply: GenApply, x: torch.Tensor, z0: torch.Tensor, *,
 
     gen_apply: frozen generator, z [N, k] -> tanh-space images (NHWC or
     flat, matching x's layout). x: [B, ...] images in [0, 1] or uint8.
-    z0: [B, R, k] initial latents.
+    z0: [B, R, k] initial latents. back_prop=True: the result carries
+    gradients to x and z0 through the whole loop (module docstring);
+    otherwise it is detached, as the JAX package stops its gradients.
     """
-    if back_prop:
-        raise NotImplementedError(BACK_PROP_TODO)
     batch, rr, z_dim = z0.shape
     x_flat = tile_restarts(from_image_space(x), rr)
     z = z0.reshape(batch * rr, z_dim).to(torch.float32)
     v = torch.zeros_like(z)
+    if not back_prop:
+        for _ in range(rec_iters):
+            z, v = _step(gen_apply, z, v, x_flat, momentum, rec_lr, False)
+        with torch.no_grad():
+            losses = rec_losses(gen_apply, z, x_flat).reshape(batch, rr)
+            return select_restarts(losses, z, gen_apply)
+
+    def step(z, v, x_flat):
+        return _step(gen_apply, z, v, x_flat, momentum, rec_lr, True)
+
     with torch.enable_grad():
         for _ in range(rec_iters):
-            zr = z.detach().requires_grad_(True)
-            loss = torch.sum(rec_losses(gen_apply, zr, x_flat))
-            (g,) = torch.autograd.grad(loss, zr)
-            v = momentum * v + g
-            z = z.detach() - rec_lr * v
-    with torch.no_grad():
+            z, v = checkpoint(step, z, v, x_flat, use_reentrant=False)
         losses = rec_losses(gen_apply, z, x_flat).reshape(batch, rr)
         return select_restarts(losses, z, gen_apply)
 
@@ -118,14 +145,13 @@ def make_reconstructor(gen_apply: GenApply, *, rec_rr: int = 10,
 
     z0 ([B, R, k]) overrides sampling from the torch.Generator `gen`.
     """
-    if back_prop:
-        raise NotImplementedError(BACK_PROP_TODO)
 
     def run(x, gen: Optional[torch.Generator] = None, z0=None):
         if z0 is None:
             z0 = sample_z0(gen, x.shape[0], rec_rr, z_dim,
                            device=device or x.device)
         return reconstruct(gen_apply, x, z0, rec_iters=rec_iters,
-                           rec_lr=rec_lr, momentum=momentum)
+                           rec_lr=rec_lr, momentum=momentum,
+                           back_prop=back_prop)
 
     return run

@@ -1,1 +1,3 @@
-"""Evaluation helpers: batched reconstruction, detection, kernel quality."""
+"""Evaluation: batched reconstruction and (defended) accuracy, classifier
+training and its cache, detection by reconstruction error, kernel
+quality gates."""

@@ -1,6 +1,10 @@
-"""Batched reconstruction for every defended consumer (port of
-eval/accuracy.py::batched_reconstruct; the accuracy evaluations come with
-the attacks slice)."""
+"""(Defended) accuracy evaluation and the batched reconstruction every
+defended consumer shares (port of the JAX package's eval/accuracy.py).
+
+Reference parity: cleverhans model_eval and
+utils/gan_defense.py::model_eval_gan of kabkabm/defensegan, which pushes
+each test batch through the reconstruction before the classifier.
+"""
 
 from __future__ import annotations
 
@@ -51,3 +55,50 @@ def batched_reconstruct(gan, x, gen: Optional[torch.Generator] = None,
 
 def to_numpy(t: torch.Tensor, dtype=np.float64) -> np.ndarray:
     return t.detach().to("cpu").numpy().astype(dtype)
+
+
+LogitsFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+@torch.no_grad()
+def model_eval(logits_fn: LogitsFn, x, y, batch_size: int = 256) -> float:
+    """Plain accuracy (reference: cleverhans model_eval)."""
+    correct = 0
+    for lo, hi in _batches(x.shape[0], batch_size):
+        pred = torch.argmax(logits_fn(torch.as_tensor(x[lo:hi])), dim=-1)
+        correct += int((pred.cpu() == torch.as_tensor(y[lo:hi])).sum())
+    return correct / x.shape[0]
+
+
+@torch.no_grad()
+def model_eval_gan(gan, logits_fn: LogitsFn, x, y,
+                   gen: Optional[torch.Generator] = None,
+                   batch_size: Optional[int] = None,
+                   rec_rr: Optional[int] = None,
+                   rec_iters: Optional[int] = None,
+                   rec_lr: Optional[float] = None,
+                   rec_kernel: Optional[str] = None,
+                   rec_init: Optional[str] = None,
+                   z0_fn: Optional[Callable[[int], torch.Tensor]] = None,
+                   return_correct: bool = False):
+    """Defended accuracy: purify each batch with gan.reconstruct (the
+    resolver's path: a fused kernel on CUDA), then classify.
+
+    Batching, padding, draws and overrides are batched_reconstruct's; the
+    padding is excluded from the count. return_correct=True also returns
+    the per-example bool array [N] (joined with detection flags by the
+    white-box CLI's --detect).
+    """
+    correct = []
+    for res, lo, hi in batched_reconstruct(gan, x, gen=gen,
+                                           batch_size=batch_size,
+                                           rec_rr=rec_rr,
+                                           rec_iters=rec_iters,
+                                           rec_lr=rec_lr,
+                                           rec_kernel=rec_kernel,
+                                           rec_init=rec_init, z0_fn=z0_fn):
+        pred = torch.argmax(logits_fn(res.x_hat[:hi - lo]), dim=-1)
+        correct.append(pred.cpu().numpy() == np.asarray(y[lo:hi]))
+    correct = np.concatenate(correct)
+    acc = float(correct.mean())
+    return (acc, correct) if return_correct else acc

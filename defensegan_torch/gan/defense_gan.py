@@ -1,5 +1,6 @@
-"""DefenseGAN: the user-facing model, inference half (port of
-the JAX package's gan/defense_gan.py; training is a later slice).
+"""DefenseGAN: the user-facing model, inference and the differentiable
+projection of the white-box attacks (port of the JAX package's
+gan/defense_gan.py; training is a later slice).
 
     gan = DefenseGAN(load_config("output/gans/mnist_fast")).load()
     res = gan.reconstruct(x)          # x [B, 28, 28, 1] in [0, 1] or uint8
@@ -20,8 +21,7 @@ import torch
 from defensegan_torch.ckpt.bridge import export_path, load_flax_tree, \
     read_export
 from defensegan_torch.configs import Config
-from defensegan_torch.defense.project import (BACK_PROP_TODO,
-                                              ReconstructionResult,
+from defensegan_torch.defense.project import (ReconstructionResult,
                                               reconstruct, sample_z0)
 from defensegan_torch.kernels.fused_projection_v2 import \
     dense_kernel_available
@@ -65,9 +65,12 @@ def resolve_projection_kernel(gan, *, back_prop: bool = False,
     JAX package: 'auto' never resolves to it, so on a 64x64 stack 'auto'
     is 'xla'. Elsewhere 'auto', and any request on the CPU, resolves to
     the plain per-topology path: 'packed' for single-deconv generators,
-    'xla' for deeper ones. An explicit kernel request that cannot run on
-    CUDA raises: under back_prop, and on a generator the requested kernel
-    does not cover ('pallas' / 'pallas_int8' on a 64x64 stack, which
+    'xla' for deeper ones; under back_prop that is the differentiable
+    path. An explicit kernel request that cannot run on CUDA raises:
+    under back_prop (the kernels have no backward pass; the JAX resolver
+    degrades such a request to the plain path instead, which the port
+    does not do quietly), and on a generator the requested kernel does
+    not cover ('pallas' / 'pallas_int8' on a 64x64 stack, which
     'pallas_v4' serves; 'pallas_v4' on a single-deconv generator).
     """
     if requested is None:
@@ -90,8 +93,8 @@ def resolve_projection_kernel(gan, *, back_prop: bool = False,
         return xla_best
     if back_prop:
         raise NotImplementedError(
-            f"{requested!r} has no backward pass; back_prop=True is the "
-            "attacks slice's work (ROADMAP.md)")
+            f"{requested!r} has no backward pass: under back_prop=True "
+            "request 'auto', 'packed' or 'xla' (the differentiable paths)")
     if requested == "pallas_v4":
         if v4_ok:
             return requested
@@ -172,8 +175,15 @@ class DefenseGAN:
             raise RuntimeError("no encoder loaded: the run's export has none")
         return self.encoder(from_image_space(x)).to(torch.float32)
 
+    def can_load(self) -> bool:
+        """Whether the run has a weight export to load (a trained GAN)."""
+        try:
+            export_path(self.cfg.output_dir)
+        except FileNotFoundError:
+            return False
+        return True
+
     # -------------------------------------------------------------- defense
-    @torch.no_grad()
     def reconstruct(self, x, gen: Optional[torch.Generator] = None, *,
                     rec_rr: Optional[int] = None,
                     rec_iters: Optional[int] = None,
@@ -190,10 +200,12 @@ class DefenseGAN:
         cfg.seed + 1 on the model's device). z0 ([B, R, k]) replaces the
         draws and the encoder init alike. kernel overrides
         cfg.projection_kernel and init cfg.rec_init for this call; the
-        path that ran is left in `self.last_kernel`.
+        path that ran is left in `self.last_kernel`. back_prop=True
+        returns a result differentiable with respect to x through the
+        unrolled loop (defense/project.py) on the path the resolver picks
+        for it ('auto' -> 'packed' or 'xla'); otherwise nothing in the
+        result carries gradients.
         """
-        if back_prop:
-            raise NotImplementedError(BACK_PROP_TODO)
         cfg = self.cfg
         rr = rec_rr if rec_rr is not None else cfg.rec_rr
         iters = rec_iters if rec_iters is not None else cfg.rec_iters
@@ -205,15 +217,18 @@ class DefenseGAN:
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(
                 cfg.seed + 1)
-        path = resolve_projection_kernel(self, requested=kernel)
-        fn = self._reconstructor_for(path, rr, iters, lr)
-        if z0 is None:
-            if init == "random":
-                z0 = sample_z0(gen, x.shape[0], rr, cfg.latent_dim)
-            else:
-                z0 = self._encoder_z0(x, gen, rr, init)
+        path = resolve_projection_kernel(self, requested=kernel,
+                                         back_prop=back_prop)
+        fn = self._reconstructor_for(path, rr, iters, lr, back_prop)
+        with torch.no_grad():
+            if z0 is None:
+                if init == "random":
+                    z0 = sample_z0(gen, x.shape[0], rr, cfg.latent_dim)
+                else:
+                    z0 = self._encoder_z0(x, gen, rr, init)
         self.last_kernel = path
-        return fn(x, z0=z0.to(self.device, torch.float32))
+        with torch.set_grad_enabled(back_prop):
+            return fn(x, z0=z0.to(self.device, torch.float32))
 
     def _encoder_z0(self, x, gen, rr: int, mode: str) -> torch.Tensor:
         from defensegan_torch.defense.encoder_init import encoder_z0
@@ -225,11 +240,12 @@ class DefenseGAN:
                           sigma=self.cfg.encoder_sigma)
 
     def _reconstructor_for(self, kernel: str, rr: int, iters: int,
-                           lr: float):
+                           lr: float, back_prop: bool = False):
         """Build (or fetch from the cache) f(x, z0=...) for a RESOLVED
         kernel. Builders pack the current weights; load() clears the
-        cache."""
-        sig = (kernel, rr, iters, lr)
+        cache. back_prop reaches the plain paths only: the resolver never
+        hands a kernel path over under back_prop."""
+        sig = (kernel, rr, iters, lr, back_prop)
         if sig in self._reconstructors:
             return self._reconstructors[sig]
         cfg = self.cfg
@@ -269,12 +285,14 @@ class DefenseGAN:
                 if perm:
                     x_flat = x_flat[:, perm[0]]
                 res = reconstruct(apply_flat, x_flat, z0, rec_iters=iters,
-                                  rec_lr=lr, momentum=cfg.rec_momentum)
+                                  rec_lr=lr, momentum=cfg.rec_momentum,
+                                  back_prop=back_prop)
                 x_hat = res.x_hat[:, perm[1]] if perm else res.x_hat
                 return res._replace(x_hat=x_hat.reshape(x.shape))
         else:
             def fn(x, z0):
                 return reconstruct(self.generator, x, z0, rec_iters=iters,
-                                   rec_lr=lr, momentum=cfg.rec_momentum)
+                                   rec_lr=lr, momentum=cfg.rec_momentum,
+                                   back_prop=back_prop)
         self._reconstructors[sig] = fn
         return fn

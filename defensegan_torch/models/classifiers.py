@@ -4,7 +4,14 @@ The Defense-GAN paper's appendix Table 5 models. They take [0, 1] images
 NHWC and return float32 LOGITS. Submodules carry flax's automatic names
 (Conv_0, Dense_0, ...) so ckpt/bridge.py maps weights by name; features are
 flattened in NHWC order before the first Dense, as flax flattens them.
-Dropout is the identity at inference, the only mode this slice serves.
+
+Dropout sits where the JAX zoo has it, at its rates (A and C: 0.25 after
+the conv stack and 0.5 after FC(128); B: 0.2 on the input and 0.5 before
+the last FC; D: 0.5 after each FC(300); E and F have none). It is active
+only in training mode, which is a call with a `dropout` torch.Generator:
+the masks come from it (flax semantics: keep with probability 1 - rate,
+kept values scaled by 1 / (1 - rate)). Without one, the forward is the
+inference forward (flax train=False).
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ class _Zoo(nn.Module):
     """Sequential conv/pool/dense stack described by a layer list.
 
     layers: ("conv", c_out, k, stride, padding) | ("pool",) | ("dense", d)
-    with relu after every layer but the last Dense.
+    | ("drop", rate), with relu after every conv and dense but the last
+    Dense.
     """
 
     def __init__(self, layers, num_classes: int = 10, in_hw: int = 28,
@@ -46,6 +54,9 @@ class _Zoo(nn.Module):
             elif spec[0] == "pool":
                 name = "pool"
                 hw //= 2
+            elif spec[0] == "drop":
+                self.plan.append(spec)
+                continue
             else:
                 name = f"Dense_{n_dense}"
                 n_dense += 1
@@ -54,11 +65,21 @@ class _Zoo(nn.Module):
                 flat = spec[1]
             self.plan.append(name)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                dropout: torch.Generator | None = None) -> torch.Tensor:
+        """Logits of [0, 1] NHWC images; `dropout` (a generator on x's
+        device) turns on training-mode dropout."""
         h = x.to(self.dtype).permute(0, 3, 1, 2)
         flat = False
         last = len(self.plan) - 1
         for i, name in enumerate(self.plan):
+            if isinstance(name, tuple):                    # ("drop", rate)
+                if dropout is not None:
+                    keep = 1.0 - name[1]
+                    mask = torch.rand(h.shape, generator=dropout,
+                                      device=h.device) < keep
+                    h = torch.where(mask, h / keep, torch.zeros_like(h))
+                continue
             if name == "pool":
                 h = F.max_pool2d(h, 2, 2)
                 continue
@@ -71,17 +92,18 @@ class _Zoo(nn.Module):
 
 
 _LAYERS = {
-    # Conv(64,5,1)-Conv(64,5,2)-Drop-FC(128)-Drop-FC(10)
+    # Conv(64,5,1)-Conv(64,5,2)-Drop(.25)-FC(128)-Drop(.5)-FC(10)
     "A": [("conv", 64, 5, 1, "SAME"), ("conv", 64, 5, 2, "SAME"),
-          ("dense", 128)],
-    # Drop-Conv(64,8,2)-Conv(128,6,2)-Conv(128,5,1)-Drop-FC(10)
-    "B": [("conv", 64, 8, 2, "SAME"), ("conv", 128, 6, 2, "VALID"),
-          ("conv", 128, 5, 1, "VALID")],
-    # Conv(128,3,1)-Conv(64,5,2)-Drop-FC(128)-Drop-FC(10)
+          ("drop", 0.25), ("dense", 128), ("drop", 0.5)],
+    # Drop(.2)-Conv(64,8,2)-Conv(128,6,2)-Conv(128,5,1)-Drop(.5)-FC(10)
+    "B": [("drop", 0.2), ("conv", 64, 8, 2, "SAME"),
+          ("conv", 128, 6, 2, "VALID"), ("conv", 128, 5, 1, "VALID"),
+          ("drop", 0.5)],
+    # Conv(128,3,1)-Conv(64,5,2)-Drop(.25)-FC(128)-Drop(.5)-FC(10)
     "C": [("conv", 128, 3, 1, "SAME"), ("conv", 64, 5, 2, "SAME"),
-          ("dense", 128)],
-    # [FC(300)-ReLU-Drop] x3 - FC(10)
-    "D": [("dense", 300)] * 3,
+          ("drop", 0.25), ("dense", 128), ("drop", 0.5)],
+    # [FC(300)-ReLU-Drop(.5)] x3 - FC(10)
+    "D": [("dense", 300), ("drop", 0.5)] * 3,
     # FC(200)-ReLU-FC(200)-ReLU-FC(10)
     "E": [("dense", 200)] * 2,
     # Conv(32,5,1)-MaxPool-Conv(64,5,1)-MaxPool-FC(1024)-FC(10)

@@ -56,7 +56,7 @@ def test_committed_export_equals_orbax_checkpoint():
 
 def _port_sources():
     files = sorted((ROOT / "defensegan_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "whitebox_torch.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),

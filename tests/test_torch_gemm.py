@@ -57,6 +57,28 @@ def pair(tmp_path_factory):
     return jgan, tg.requires_grad_(False)
 
 
+@pytest.fixture
+def one_thread():
+    """Run the test on one intra-op thread, restoring the setting after.
+
+    Both sides of a bit-for-bit comparison must take the same float
+    operations. With several threads a float32 product (MKL's sgemm may
+    split a 16-row product along K) and a vectorized elementwise op are
+    cut into per-thread pieces, whose boundaries follow the team the pool
+    hands each call. A full parallel run of the suite (workers importing
+    every test file, JAX's threads beside torch's, a loaded machine) once
+    saw the two sides round apart at L 1, which the test alone never
+    reproduced. On one thread every product and op runs its serial order
+    on both sides.
+    """
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 def _inputs(n=16, seed=3):
     rng = np.random.RandomState(seed)
     x = torch.from_numpy(np.tanh(rng.randn(n, 784)).astype(np.float32))
@@ -76,9 +98,11 @@ def test_int8_kmajor_copies_are_jax_codes_transposed(pair, field, source):
 
 
 @pytest.mark.parametrize("steps", [1, 2, 3])
-def test_chained_bf16_products_are_dense_loop_plain(pair, steps):
+def test_chained_bf16_products_are_dense_loop_plain(pair, steps,
+                                                    one_thread):
     """h = bias_relu(z @ W1), do = tanh_grad(h @ D), dh = relu_mask(do @
     D^T), (z, v, zb) = momentum(dh @ W1^T): bit for bit the plain loop."""
+    assert torch.get_num_threads() == 1
     _, tg = pair
     pack = pack_dense(tg)
     x, z0 = _inputs()
@@ -98,11 +122,13 @@ def test_chained_bf16_products_are_dense_loop_plain(pair, steps):
 
 
 @pytest.mark.parametrize("steps", [1, 2, 3])
-def test_chained_int8_products_are_dense_int8_loop_plain(pair, steps):
+def test_chained_int8_products_are_dense_int8_loop_plain(pair, steps,
+                                                         one_thread):
     """The int8 loop as the kernel runs it: h and its row amax from the fc
     epilogue, codes from _quant_rows, both D products on the K-major
     codes with their dequant epilogues: bit for bit the plain loop; the
     epilogues' row amax is the amax _quant_rows takes."""
+    assert torch.get_num_threads() == 1
     _, tg = pair
     pack = pack_dense_int8(tg)
     base = pack.base

@@ -133,12 +133,23 @@ def test_argmin_tie_takes_first_restart():
     torch.testing.assert_close(res.loss, torch.tensor([0.2, 0.1]))
 
 
-def test_back_prop_raises():
+def test_back_prop_raises(tmp_path):
+    """back_prop=True runs on the differentiable paths (gradients: see
+    tests/test_torch_backprop.py); what raises under it is an explicit
+    kernel request on CUDA, which has no backward pass."""
     _, _, _, tg = _pair("wide")
     x, z0 = _inputs(b=1, rr=1)
-    with pytest.raises(NotImplementedError, match="attacks slice"):
-        reconstruct(tg, torch.from_numpy(x), torch.from_numpy(z0),
-                    back_prop=True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    res = reconstruct(tg, xt, torch.from_numpy(z0), rec_iters=2,
+                      back_prop=True)
+    (g,) = torch.autograd.grad(res.loss.sum(), xt)
+    assert torch.isfinite(g).all() and g.abs().sum() > 0
+    gan = DefenseGAN(Config(type="mnist", gen_arch="wide", gen_dim=4,
+                            latent_dim=LATENT, output_dir=str(tmp_path)),
+                     device="cpu")
+    with pytest.raises(NotImplementedError, match="no backward pass"):
+        resolve_projection_kernel(gan, requested="pallas", back_prop=True,
+                                  on_cuda=True)
 
 
 def test_resolve_projection_kernel(tmp_path):
