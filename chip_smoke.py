@@ -5,7 +5,7 @@
 
 Drives the port's three served paths and holds every kernel of them
 against its plain PyTorch version, then the white-box evaluation path
-(phase 6):
+(phase 6), training (phase 7) and the black-box path (phase 8):
 
   - the flagship (configs/gans/mnist_fast.yml: wide generator, k 128,
     F 6272, 784 outputs padded to P 832; trained step-20000 weights from
@@ -92,7 +92,35 @@ against its plain PyTorch version, then the white-box evaluation path
           flagship_spsa_l300.npz through v2, its AUC printed beside JAX's
        launch counters set to 0 before c and read after: v2 and v2i must
        have run
-  7. the `kernels` line, then {"ok": true, "device": {...}} last.
+  7. training (chip_smoke.training_phase; files under a temporary
+     directory, never under output/gans/):
+       a. one full train step (DISC_ITERS 5 critic updates + the generator
+          update, BATCH_SIZE 64) of mnist_fast.yml, mnist.yml (deep) and
+          celeba.yml (4-level critic, 64x64x3) at full width, seeded, on
+          the card and on the CPU in float32 with TF32 off: losses,
+          gradients and BatchNorm running statistics within the TRAIN_*
+          bounds; and each family's generator steps/s in its own bf16
+       b. train_torch.py --is_train on mnist_fast.yml (bf16, the synthetic
+          stand-in) for TRAIN_STEPS (1500) from the seeded init: the
+          medians of wasserstein and gp over its logged steps within the
+          committed JAX curve's interquartile range over the same steps;
+          then test
+          mode on its export (v2 at R 10, L 200) beside the committed
+          step-20000 generator's mean best-restart loss (a path check)
+       c. train_torch.py --train_encoder for 300 steps against a temporary
+          copy of the committed flagship: img_mse and z_cycle at the first
+          and the last log (the objective must fall), s a step, and the
+          export read back
+       launch counters set to 0 before b and read after its test mode:
+       v2 must have run
+  8. the black-box path (chip_smoke.blackbox_phase): jacobian_augmentation
+     on the card against the CPU (JACOBIAN_* bounds), then
+     blackbox_torch.py on the committed flagship (--bb_model A --sub_model
+     B --data_aug 6 --num_tests 256 --classifier_epochs 1 --detect, R 10,
+     L 200): every key of the JAX row, the defended phases and the
+     detector on v2 (counters set to 0 just before, v2 must have run);
+     phase times and accuracies (path checks)
+  9. the `kernels` line, then {"ok": true, "device": {...}} last.
 
 Every phase prints one JSON line; any failed check exits nonzero. There is
 no CPU fallback: without a CUDA device the script exits 2 and prints no
@@ -106,6 +134,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -190,6 +219,85 @@ ADVSET_SPSA = os.path.join(ROOT, "output", "advsets",
 DETSTATS = os.path.join(ROOT, "output", "detstats", "flagship_conf_l300.npz")
 DETSTATS_SPSA = os.path.join(ROOT, "output", "detstats",
                              "flagship_spsa_l300.npz")
+
+# (7) training. 7a: one full step (DISC_ITERS 5 critic updates + the
+# generator update, BATCH_SIZE 64) of each model family at full width, on
+# the card and on the CPU, same seeded weights, batch and draws, float32
+# with TF32 off. Both run the port's code; they differ in summation order
+# and in the convolution algorithms (cuDNN against the CPU's): 1e-6
+# relative per operation, which this gate holds, so TF32 or a wrong
+# algorithm (1e-3 and more on every tensor) shows. But the critic's leaky
+# ReLU and the generator's ReLU are not differentiable at 0: a
+# pre-activation within float32 noise of 0 can take the other side on the
+# card, which changes its derivative (1 against 0.2, or 0) and moves a few
+# elements of a gradient tensor by up to percent of the tensor's largest
+# one (the input gradient of the critic sums few terms per pixel). The
+# line counts
+# those pre-activations (`sign_flips`).
+#   - At the same weights (the step's first critic update and a generator
+#     update, both from the initial weights): the losses within 1e-4 of
+#     their value (of 1e-2 where smaller: the penalty holds the critic's
+#     input gradient too). Each parameter tensor's max |card - CPU| within
+#     1e-4 of that tensor's largest gradient element when no pre-activation
+#     took the other side; else within 5e-2 (one or two flips moved
+#     mnist.yml's worst tensor by 2.9e-3 to 4.0e-3, fifteen moved
+#     celeba.yml's by 7.2e-4 at the median and 4.9e-3 at worst). A tensor
+#     whose exact gradient is 0 (the deconv biases before a BatchNorm, the
+#     critic's output bias) below 1e-4 of the module's largest gradient
+#     on both sides.
+#   - After the full step: the losses of its last critic update and of its
+#     generator update within 1e-3, and the BatchNorm running statistics
+#     within 1e-4 of each vector's largest element (one update, by the
+#     generator step's batch: a second update by a critic forward would
+#     move the mean by 1%). Adam's steps are lr g / (|g| + eps) per
+#     element, so a flipped gradient element steps differently on the
+#     card: the step's later gradients are reported, not gated.
+# This PR's first chip runs gated every tensor without counting flips:
+# after the step within 1e-2 (celeba.yml's generator fc_in measured
+# 1.2e-2 to 1.3e-2), then at the same weights within 1e-3 (mnist.yml's
+# critic conv_1 measured 2.9e-3, its median tensor 6.9e-7, one flip). On
+# mnist_fast.yml no pre-activation flipped and every tensor agreed within
+# 4.2e-6.
+TRAIN_SAME_LOSS_REL_MAX = 1e-4
+TRAIN_GRAD_REL_MAX = 1e-4
+TRAIN_GRAD_FLIP_REL_MAX = 5e-2
+TRAIN_ZERO_GRAD_REL_MAX = 1e-4
+TRAIN_LOSS_REL_MAX = 1e-3
+TRAIN_STATS_REL_MAX = 1e-4
+# 7b: train_torch.py --is_train on mnist_fast.yml (bf16, as configured;
+# the synthetic stand-in data, as the committed run) for TRAIN_STEPS
+# generator steps from the seeded init, logged every 100 steps: about a
+# minute at the 23.71 generator steps/s this PR's first 5000-step run on
+# the card measured. The medians of `wasserstein` and `gp` over its logged
+# steps are held against the medians of the committed JAX curve
+# (output/gans/mnist_fast/metrics.jsonl, its last run: one line every 100
+# steps to 20000) over the same steps, within that window's own
+# interquartile range on the JAX curve (at 1500 steps: wasserstein
+# 5.2488 +- 0.4053, gp 0.0529 +- 0.0166). The port draws other random
+# numbers, so the curves agree by distribution, not step by step; the
+# JAX package's own four other runs in that file put their window
+# medians at 5.32, 6.09, 5.35, 5.25 (wasserstein) and 0.057, 0.083,
+# 0.054, 0.053 (gp).
+TRAIN_STEPS = 1500
+JAX_CURVE = os.path.join(RUN_DIR, "metrics.jsonl")
+# 8: jacobian_augmentation on the card against the CPU, the same seeded
+# substitute (model B) and images: equal wherever the CPU's input gradient
+# is farther than 1e-4 of its largest element from 0 (the two sides' float32
+# gradients differ by ~1e-6 of it); nearer to 0 the sign is the
+# rounding's, and at most 1e-3 of the elements may differ there
+JACOBIAN_NOISE_REL = 1e-4
+JACOBIAN_FLIP_SHARE_MAX = 1e-3
+# the JAX black-box CLI's results row (defensegan_tpu/cli/blackbox.py)
+BLACKBOX_KEYS = (
+    "script", "dataset", "bb_model", "sub_model", "defense", "fgsm_eps",
+    "data_aug", "lmbda", "train_on_recs", "sub_from_scratch", "num_tests",
+    "clean_acc", "sub_agreement", "clean_defended_acc",
+    "adv_acc_no_defense", "defended_acc", "detection_auc",
+    "detection_tpr_at_fpr05", "detection_auc_two_sided",
+    "detection_tpr_at_fpr05_two_sided", "detection_auc_combined",
+    "detection_tpr_at_fpr05_combined", "undetected_success_rate",
+    "undetected_success_rate_two_sided", "undetected_success_rate_combined",
+    "rec_err_clean_mean", "rec_err_adv_mean", "phases")
 
 RECORD: dict = {}
 
@@ -691,6 +799,390 @@ def whitebox_phase(build) -> dict:
             launches["fused_projection_v2i"] <= 0:
         fail(f"the white-box path did not run v2 and v2i: {launches}")
     out.update(runs=runs, replay=replay, launches=launches)
+    return out
+
+
+def jax_curve(max_step: int) -> list:
+    """The committed JAX training curve's last run (the file holds every
+    run appended), up to max_step."""
+    runs, prev = [[]], -1
+    with open(JAX_CURVE) as f:
+        for line in f:
+            r = json.loads(line)
+            if r["step"] <= prev:
+                runs.append([])
+            runs[-1].append(r)
+            prev = r["step"]
+    return [r for r in runs[-1] if r["step"] <= max_step]
+
+
+def _grad_errors(cpu: dict, dev: dict) -> dict:
+    """Per tensor max |card - CPU| over the CPU gradient's largest element
+    (its median and worst over the tensors), and the exact-zero tensors
+    against their module's largest gradient."""
+    import statistics
+    scale = {mod: max(float(t.abs().max()) for n, t in cpu.items()
+                      if n.startswith(mod)) for mod in ("generator", "critic")}
+    rel, zero = {}, {}
+    for n, gc in cpu.items():
+        gd = dev[n]
+        if (n.startswith("generator.deconv_") and n.endswith(".bias")
+                and not n.startswith("generator.deconv_out")) \
+                or float(gc.abs().max()) == 0.0:
+            zero[n] = max(float(gc.abs().max()), float(gd.abs().max())) \
+                / scale[n.split(".")[0]]
+        else:
+            rel[n] = float((gd - gc).abs().max() / gc.abs().max())
+    worst = max(rel, key=rel.get)
+    return dict(median_rel=statistics.median(rel.values()),
+                worst_rel=rel[worst], worst=worst,
+                exact_zero_rel_max=max(zero.values(), default=0.0))
+
+
+def _loss_error(cpu: dict, dev: dict) -> float:
+    # wasserstein = d_real - d_fake cancels: its terms are held instead
+    return max(abs(dev[n] - v) / max(abs(v), 1e-2)
+               for n, v in cpu.items() if n != "wasserstein")
+
+
+def train_step_pair(cfg_path: str, seed: int) -> dict:
+    """7a: the config's model at full width on the card and on the CPU
+    (float32, same seeded weights, batch and draws): the losses and
+    gradients of a critic and a generator update at the same weights, then
+    one full train step's losses and running statistics."""
+    import torch
+    from defensegan_torch.configs import load_config
+    from defensegan_torch.data.synthetic import make_synthetic
+    from defensegan_torch.gan.losses import critic_loss_fn, \
+        generator_loss_fn
+    from defensegan_torch.gan.train import (Draws, init_gan_state,
+                                            make_train_step)
+    from defensegan_torch.models import (critic_for, from_image_space,
+                                         generator_for)
+    from defensegan_torch.models.layers import BatchNorm, Conv
+
+    cfg = load_config(cfg_path)
+    di, b, k = cfg.disc_iters, cfg.batch_size, cfg.latent_dim
+    x, _ = make_synthetic(di * b, cfg.image_size, cfg.channels,
+                          cfg.num_classes, seed=seed)
+    real = torch.from_numpy(x).reshape((di, b) + cfg.image_shape)
+    g = torch.Generator().manual_seed(seed)
+    draws = Draws(torch.randn(di, b, k, generator=g),
+                  torch.rand(di, b, generator=g), torch.randn(b, k,
+                                                              generator=g))
+    side = {}
+    for dev in ("cpu", "cuda"):
+        gen = generator_for(cfg.type, cfg.gen_dim, torch.float32,
+                            cfg.gen_arch, k,
+                            gen=torch.Generator().manual_seed(seed)).to(dev)
+        crit = critic_for(cfg.type, cfg.disc_dim, torch.float32,
+                          gen=torch.Generator().manual_seed(seed + 1)).to(dev)
+        state = init_gan_state(gen, crit, gen_lr=cfg.gen_learning_rate,
+                               disc_lr=cfg.disc_learning_rate,
+                               beta1=cfg.beta1, beta2=cfg.beta2)
+        r, d = real.to(dev), Draws(*(t.to(dev) for t in draws[:3]))
+        # the same weights: a critic and a generator update's losses and
+        # gradients, with every (leaky) ReLU's pre-activation kept
+        pre = []
+        hooks = [m.register_forward_hook(
+            lambda mod, args, out: pre.append(out.detach().cpu()))
+            for m in list(crit.children()) + list(gen.children())
+            if isinstance(m, (Conv, BatchNorm))]
+        with torch.no_grad():
+            fake = gen(d.z_critic[0], train=True)
+        d_loss, aux = critic_loss_fn(crit, from_image_space(r[0]), fake,
+                                     d.eps[0], gp_lambda=cfg.gp_lambda)
+        cgrads = torch.autograd.grad(d_loss, list(crit.parameters()))
+        g_loss = generator_loss_fn(crit, gen(d.z_gen, train=True))
+        ggrads = torch.autograd.grad(g_loss, list(gen.parameters()))
+        for h in hooks:
+            h.remove()
+        same = dict(losses=dict({n: float(v.detach())
+                                 for n, v in aux.items()},
+                                d_loss=float(d_loss.detach()),
+                                g_loss=float(g_loss.detach())),
+                    grads={}, pre=pre)
+        for mod, module, grads in (("critic", crit, cgrads),
+                                   ("generator", gen, ggrads)):
+            for (n, _), gr in zip(module.named_parameters(), grads):
+                same["grads"][f"{mod}.{n}"] = gr.detach().cpu()
+        # the full step
+        m = make_train_step(state, latent_dim=k, disc_iters=di,
+                            gp_lambda=cfg.gp_lambda)(r, None, d)
+        side[dev] = dict(
+            same=same, metrics={n: float(v) for n, v in m.items()},
+            grads={f"{mod}.{n}": p.grad.detach().cpu()
+                   for mod, module in (("generator", gen), ("critic", crit))
+                   for n, p in module.named_parameters()},
+            stats={n: t.detach().cpu() for n, t in gen.named_buffers()})
+    cpu, dev = side["cpu"], side["cuda"]
+    same_grads = _grad_errors(cpu["same"]["grads"], dev["same"]["grads"])
+    flips = sum(int(((a > 0) != (b > 0)).sum())
+                for a, b in zip(cpu["same"]["pre"], dev["same"]["pre"]))
+    out = dict(config=os.path.basename(cfg_path), batch=b, disc_iters=di,
+               same_weights=dict(
+                   losses_cpu=cpu["same"]["losses"],
+                   losses_card=dev["same"]["losses"],
+                   loss_rel_max=_loss_error(cpu["same"]["losses"],
+                                            dev["same"]["losses"]),
+                   sign_flips=flips,
+                   pre_activations=sum(a.numel()
+                                       for a in cpu["same"]["pre"]),
+                   grads=same_grads),
+               step=dict(
+                   metrics_cpu=cpu["metrics"], metrics_card=dev["metrics"],
+                   loss_rel_max=_loss_error(cpu["metrics"], dev["metrics"]),
+                   stats_rel_max=max(
+                       float((dev["stats"][n] - t).abs().max()
+                             / t.abs().max())
+                       for n, t in cpu["stats"].items()),
+                   grads_after_adam=_grad_errors(cpu["grads"],
+                                                 dev["grads"])))
+    sw, st = out["same_weights"], out["step"]
+    sw["grad_bound"] = TRAIN_GRAD_FLIP_REL_MAX if flips else \
+        TRAIN_GRAD_REL_MAX
+    if not (sw["loss_rel_max"] <= TRAIN_SAME_LOSS_REL_MAX
+            and same_grads["worst_rel"] <= sw["grad_bound"]
+            and same_grads["exact_zero_rel_max"] <= TRAIN_ZERO_GRAD_REL_MAX
+            and st["loss_rel_max"] <= TRAIN_LOSS_REL_MAX
+            and st["stats_rel_max"] <= TRAIN_STATS_REL_MAX):
+        fail(f"train step on the card against the CPU: {out}")
+    return out
+
+
+def steps_per_s(cfg_path: str, steps: int = 20) -> float:
+    """Generator steps/s of the config's model at full width in its own
+    compute dtype on the card (seeded weights, the synthetic stand-in's
+    images resident on the card), after 3 warm-up steps."""
+    import torch
+    from defensegan_torch.configs import load_config
+    from defensegan_torch.data.synthetic import make_synthetic
+    from defensegan_torch.gan.defense_gan import _dtype_of
+    from defensegan_torch.gan.train import init_gan_state, \
+        make_data_train_step
+    from defensegan_torch.models import critic_for, generator_for
+
+    cfg = load_config(cfg_path)
+    dt = _dtype_of(cfg.compute_dtype)
+    init = torch.Generator().manual_seed(cfg.seed)
+    state = init_gan_state(
+        generator_for(cfg.type, cfg.gen_dim, dt, cfg.gen_arch,
+                      cfg.latent_dim, gen=init).cuda(),
+        critic_for(cfg.type, cfg.disc_dim, dt, gen=init).cuda())
+    x, _ = make_synthetic(1024, cfg.image_size, cfg.channels,
+                          cfg.num_classes)
+    data = torch.from_numpy(x).cuda()
+    step = make_data_train_step(state, latent_dim=cfg.latent_dim,
+                                batch_size=cfg.batch_size,
+                                disc_iters=cfg.disc_iters,
+                                gp_lambda=cfg.gp_lambda)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for _ in range(3):
+        step(data, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        m = step(data, gen)
+    float(m["g_loss"])
+    return steps / (time.perf_counter() - t0)
+
+
+def training_phase(build, tmp: str) -> dict:
+    """Phase 7: WGAN-GP and encoder training on the card (train_torch.py).
+
+    7a one full step per model family against the CPU; 7b training from
+    the seeded init against the committed JAX curve, then test mode on
+    the export (v2 at R 10, L 200); 7c the encoder against a temporary
+    copy of the committed flagship. Launch counters are set to 0 before
+    7b and read after its test mode: v2 must have run."""
+    import shutil
+    import statistics as stats
+
+    import numpy as np
+    import torch
+
+    import train_torch
+    from defensegan_torch.configs import load_config
+    from defensegan_torch.data import get_dataset
+    from defensegan_torch.gan import DefenseGAN
+    from defensegan_torch.utils.misc import fold_seed, generator_for
+
+    t_phase = time.perf_counter()
+    out = {"step_card_vs_cpu": {}, "steps_per_s_full_width": {}}
+    for name, seed in (("mnist_fast", 21), ("mnist", 22), ("celeba", 23)):
+        path = os.path.join(CFG_DIR, name + ".yml")
+        out["step_card_vs_cpu"][name] = train_step_pair(path, seed)
+        print(json.dumps({"train_step_pair": out["step_card_vs_cpu"][name]}),
+              flush=True)
+        out["steps_per_s_full_width"][name] = steps_per_s(path)
+    out["bounds_7a"] = dict(same_loss_rel=TRAIN_SAME_LOSS_REL_MAX,
+                            grad_rel=TRAIN_GRAD_REL_MAX,
+                            grad_rel_with_flips=TRAIN_GRAD_FLIP_REL_MAX,
+                            exact_zero_grad_rel=TRAIN_ZERO_GRAD_REL_MAX,
+                            step_loss_rel=TRAIN_LOSS_REL_MAX,
+                            stats_rel=TRAIN_STATS_REL_MAX)
+    emit("train_step", **out)
+
+    # ---- 7b. train from the seeded init, then test mode on the export
+    build.reset_launches()
+    run = os.path.join(tmp, "mnist_fast")
+    fast_yml = os.path.join(CFG_DIR, "mnist_fast.yml")
+    t0 = time.perf_counter()
+    res = train_torch.main(["--cfg", fast_yml, "--is_train", "--output_dir",
+                            run, "--train_iters", str(TRAIN_STEPS),
+                            "--override", f"SAVE_EVERY={TRAIN_STEPS}",
+                            "--override", f"SAMPLE_EVERY={TRAIN_STEPS}"])
+    train_s = time.perf_counter() - t0
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        ours = [json.loads(line) for line in f]
+    ref = jax_curve(TRAIN_STEPS)
+    curve = {}
+    for key in ("wasserstein", "gp"):
+        vals = [r[key] for r in ref]
+        q1, _, q3 = stats.quantiles(vals, n=4, method="inclusive")
+        curve[key] = dict(port_median=stats.median(r[key] for r in ours),
+                          jax_median=stats.median(vals), band=q3 - q1)
+        curve[key]["gap"] = abs(curve[key]["port_median"]
+                                - curve[key]["jax_median"])
+    print(json.dumps({"train_curve": dict(
+        steps=TRAIN_STEPS, s=train_s,
+        train_steps_per_s=res["train_steps_per_s"], curve=curve)}),
+        flush=True)
+    if [r["step"] for r in ours] != [r["step"] for r in ref] or any(
+            c["gap"] > c["band"] for c in curve.values()):
+        fail(f"training curve against the JAX curve: {curve}")
+    t0 = time.perf_counter()
+    test = train_torch.main(["--cfg", run, "--output_dir", run,
+                             "--num_recs", "64"])
+    test_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)      # the training path's, test mode's
+    x_test, _ = get_dataset("mnist").load("test")
+    committed = DefenseGAN(load_config(RUN_DIR).replace(
+        output_dir=RUN_DIR)).load()
+    ref_res = committed.reconstruct(
+        x_test[:64], generator_for(fold_seed(committed.cfg.seed, 100),
+                                   "cuda"))
+    out_b = dict(steps=TRAIN_STEPS, s=train_s,
+                 train_steps_per_s=res["train_steps_per_s"],
+                 last_metrics={k: v for k, v in res.items()
+                               if k != "train_steps_per_s"},
+                 curve=curve, logged_steps=len(ours), test_mode_s=test_s,
+                 test_mode_kernel=test["last_kernel"],
+                 test_rec_loss_mean=float(np.mean(test["rec_loss"])),
+                 committed_step20000_rec_loss_mean=float(
+                     ref_res.loss.float().mean()),
+                 committed_kernel=committed.last_kernel)
+    if test["last_kernel"] != "pallas" or test["step"] != TRAIN_STEPS or \
+            not np.isfinite(test["rec_loss"]).all():
+        fail(f"test mode on the trained export: {out_b}")
+
+    # ---- 7c. the encoder against a copy of the committed flagship
+    copy = os.path.join(tmp, "flagship_copy")
+    os.makedirs(os.path.join(copy, "export"))
+    shutil.copy(os.path.join(RUN_DIR, "cfg.yml"), copy)
+    for ext in ("npz", "json"):
+        shutil.copy(os.path.join(RUN_DIR, "export", f"20000.{ext}"),
+                    os.path.join(copy, "export"))
+    iters = 300
+    enc = train_torch.main(["--cfg", copy, "--output_dir", copy,
+                            "--train_encoder", "--override",
+                            f"ENCODER_TRAIN_ITERS={iters}"])["encoder"]
+    hist = enc["history"]
+    back = DefenseGAN(load_config(copy).replace(output_dir=copy)).load()
+    keys = ("step", "img_mse", "z_cycle", "loss")
+    out_c = dict(iters=iters, batch=back.cfg.encoder_batch,
+                 first={k: hist[0][k] for k in keys},
+                 last={k: hist[-1][k] for k in keys},
+                 s_per_step=enc["wall_s"] / iters,
+                 reloaded_step=back.step)
+    # the objective (img_mse + beta_z z_cycle) falls; img_mse alone
+    # wanders at this batch (0.0465 -> 0.0470 in this PR's first run)
+    if not (back.has_encoder() and back.step == 20000
+            and hist[-1]["loss"] < hist[0]["loss"]
+            and np.isfinite(hist[-1]["loss"])):
+        fail(f"encoder training: {out_c}")
+    torch.cuda.synchronize()
+    emit("train", train=out_b, encoder=out_c, launches=launches,
+         phase_s=time.perf_counter() - t_phase,
+         note="the synthetic stand-in data (no MNIST files in the "
+         "repository), as the committed JAX run; the two rec losses are a "
+         "path check, not a gate")
+    if launches["fused_projection_v2"] <= 0:
+        fail(f"test mode did not run v2: {launches}")
+    out.update(train=out_b, encoder=out_c, launches=launches)
+    return out
+
+
+def blackbox_phase(build, tmp: str) -> dict:
+    """Phase 8: the black-box path (blackbox_torch.py) on the committed
+    flagship: jacobian_augmentation on the card against the CPU, then the
+    CLI end to end with the defended evaluation and --detect on v2 at
+    R 10, L 200. Launch counters are set to 0 just before the CLI and read
+    just after: v2 must have run."""
+    import numpy as np
+    import torch
+
+    import blackbox_torch
+    from defensegan_torch.attacks import jacobian_augmentation
+    from defensegan_torch.data import get_dataset
+    from defensegan_torch.eval.classifier import make_logits_fn
+    from defensegan_torch.models import build_classifier
+
+    t_phase = time.perf_counter()
+    x_test, _ = get_dataset("mnist").load("test")
+    x = torch.from_numpy(x_test[:150])
+    labels = torch.from_numpy(
+        np.random.RandomState(8).randint(0, 10, 150))
+    sides = {}
+    for dev in ("cpu", "cuda"):
+        sub = build_classifier("B", gen=torch.Generator().manual_seed(9)) \
+            .to(dev).requires_grad_(False)
+        xg = x.to(dev).requires_grad_(True)
+        (g,) = torch.autograd.grad(torch.gather(
+            sub(xg), 1, labels.to(dev)[:, None]).sum(), xg)
+        sides[dev] = (jacobian_augmentation(make_logits_fn(sub), x.to(dev),
+                                            labels.to(dev), 0.1).cpu(),
+                      g.cpu())
+    (a_cpu, g_cpu), (a_dev, _) = sides["cpu"], sides["cuda"]
+    firm = g_cpu.abs() > JACOBIAN_NOISE_REL * g_cpu.abs().max()
+    differ = (a_dev - a_cpu).abs() > 1e-6
+    jac = dict(images=150, elements=int(differ.numel()),
+               differ=int(differ.sum()),
+               differ_share=float(differ.float().mean()),
+               differ_where_firm=int((differ & firm).sum()),
+               bounds=dict(noise_rel=JACOBIAN_NOISE_REL,
+                           share=JACOBIAN_FLIP_SHARE_MAX))
+    if jac["differ_where_firm"] or jac["differ_share"] > \
+            JACOBIAN_FLIP_SHARE_MAX:
+        fail(f"jacobian_augmentation on the card against the CPU: {jac}")
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    rec = blackbox_torch.main([
+        "--cfg", os.path.join(CFG_DIR, "mnist_fast.yml"), "--output_dir",
+        RUN_DIR, "--bb_model", "A", "--sub_model", "B", "--data_aug", "6",
+        "--num_tests", "256", "--classifier_epochs", "1", "--detect",
+        "--rec_rr", "10", "--rec_iters", "200", "--results_dir",
+        os.path.join(tmp, "results")])
+    cli_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    missing = [k for k in BLACKBOX_KEYS if k not in rec]
+    out = dict(jacobian=jac, cli_s=cli_s, phases=rec["phases"],
+               last_kernel=rec["last_kernel"], missing_keys=missing,
+               num_tests=rec["num_tests"],
+               accuracies={k: rec[k] for k in (
+                   "clean_acc", "sub_agreement", "clean_defended_acc",
+                   "adv_acc_no_defense", "defended_acc", "detection_auc")},
+               launches=launches, phase_s=time.perf_counter() - t_phase,
+               note="path checks, not the paper's numbers: the synthetic "
+               "stand-in data, classifiers of one epoch")
+    emit("blackbox", **out)
+    if missing or set(rec["last_kernel"].values()) != {"pallas"} or \
+            set(rec["last_kernel"]) != {"purify_classify_clean",
+                                        "purify_classify_adv", "detect"}:
+        fail(f"black-box CLI: {out}")
+    if launches["fused_projection_v2"] <= 0:
+        fail(f"the black-box path did not run v2: {launches}")
     return out
 
 
@@ -1386,6 +1878,15 @@ def main() -> int:
 
     # ------------------------------------------------ 6. white-box path
     whitebox_phase(build)
+
+    # ---------------------------------- 7. training, 8. the black-box path
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        training_phase(build, tmp)
+        blackbox_phase(build, tmp)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "phases_7_8", "s": time.perf_counter() - t0}),
+          flush=True)
 
     # ------------------------------------------------- 7. kernels line
     line = {"kernels": [

@@ -1,12 +1,13 @@
-"""White-box adversarial attacks in PyTorch (port of the JAX package's
-attacks/, the black-box substitute pipeline excepted).
+"""Adversarial attacks in PyTorch (port of the JAX package's attacks/).
 
 FGSM, RAND+FGSM and CW-L2 (the reference's cleverhans suite), PGD with
 BPDA / EOT (Madry et al.; Athalye et al. 2018) and the gradient-free SPSA
 (Uesato et al. 2018). Every attack takes a `logits_fn(x) -> logits`
 closure; composing it with the defense's differentiable reconstruction
 (attacks/compose.py, back_prop=True) gives the paper's white-box attack
-through the defense. They are plain PyTorch, as the JAX package leaves
+through the defense. The black-box pipeline (blackbox.py) trains a
+substitute by Jacobian augmentation against the target's labels and
+transfers FGSM from it. They are plain PyTorch, as the JAX package leaves
 them to XLA: no kernel of their own.
 """
 
@@ -15,6 +16,8 @@ from defensegan_torch.attacks.compose import (attack_batch_key,
                                               fold_seed, make_attack_loss,
                                               make_attack_target,
                                               split_rand_fgsm_key)
+from defensegan_torch.attacks.blackbox import (jacobian_augmentation,
+                                               train_substitute)
 from defensegan_torch.attacks.cw import (CWConfig, carlini_wagner_l2,
                                          carlini_wagner_l2_chunked,
                                          effective_cw_chunk,
@@ -30,5 +33,5 @@ __all__ = [
     "CWConfig", "carlini_wagner_l2", "carlini_wagner_l2_chunked",
     "effective_cw_chunk", "make_chunked_cw", "fgsm", "rand_fgsm",
     "make_chunked_pgd", "pgd", "confident_margin_loss", "make_spsa",
-    "margin_loss",
+    "margin_loss", "jacobian_augmentation", "train_substitute",
 ]

@@ -7,43 +7,26 @@ gan.reconstruct(back_prop=True)) and derives the per-attack-batch seeds,
 so that the --eval_z0 both replay leg reproduces the attack graph's
 restart draws exactly.
 
-Keys. The JAX package threads PRNG keys (fold_in, split); the port
-threads integer seeds with the same structure: `fold_seed(seed, i)` gives
-a distinct stream per (seed, i) path, as fold_in does, and every draw is
-made from a torch.Generator seeded with such a seed on the tensors'
-device. The two frameworks' streams differ, so every function that draws
-also takes the draw (or a function making it) as an argument: tests pass
-JAX's draws in.
+Keys follow utils/misc.py's seed rules (`fold_seed`, `generator_for`):
+integer seeds with the structure of JAX's keys, every draw also
+injectable.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
-import numpy as np
 import torch
 
 from defensegan_torch.attacks.fgsm import xent_per_example
 from defensegan_torch.defense.encoder_init import encoder_z0
 from defensegan_torch.defense.project import reconstruct, sample_z0
 from defensegan_torch.models.generator import from_image_space
+from defensegan_torch.utils.misc import fold_seed, generator_for
 
 LogitsFn = Callable[[torch.Tensor], torch.Tensor]
 # z0_fn(x, key) -> z0 [B, R, k]: replaces the seeded restart draw
 Z0Fn = Callable[[torch.Tensor, int], torch.Tensor]
-
-
-def fold_seed(seed: int, *data: int) -> int:
-    """A 63-bit seed for the stream (seed, *data) (jax.random.fold_in's
-    role): distinct paths give unrelated seeds."""
-    words = np.random.SeedSequence([int(seed), *map(int, data)]) \
-        .generate_state(2, np.uint32)
-    return (int(words[0]) << 31 | int(words[1]) >> 1) & (2 ** 63 - 1)
-
-
-def generator_for(seed: int, device) -> torch.Generator:
-    """A torch.Generator on `device` seeded with `seed`."""
-    return torch.Generator(device=device).manual_seed(int(seed))
 
 
 def make_attack_target(gan, logits_fn: LogitsFn, cfg,

@@ -1,10 +1,12 @@
-"""Weight bridge: flax parameter trees (as numpy) -> the port's modules.
+"""Weight bridge: flax parameter trees (as numpy) <-> the port's modules.
 
 The JAX package checkpoints with orbax; scripts/export_torch_weights.py
 restores a run there and writes the trees to `<run>/export/<step>.npz`,
 each array under its flax path ("generator/params/fc_in/kernel", ...).
 This module reads such a file and loads the trees into the port's modules,
-matching submodules by their flax names. Layout maps:
+matching submodules by their flax names; `write_export` is the way back,
+so a run the port trains is read exactly as a JAX run is (the generator
+with its batch stats, the critic, the encoder). Layout maps:
 
   Dense          kernel [in, out]     -> weight [out, in]
   Conv           kernel HWIO          -> weight OIHW
@@ -20,7 +22,7 @@ from __future__ import annotations
 import glob
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +47,19 @@ def conv_transpose_weight(kernel: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(k.transpose(2, 3, 0, 1))
 
 
+def dense_kernel(weight: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(weight).T)
+
+
+def conv_kernel(weight: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(weight).transpose(2, 3, 1, 0))
+
+
+def conv_transpose_kernel(weight: np.ndarray) -> np.ndarray:
+    k = np.asarray(weight).transpose(2, 3, 0, 1)[::-1, ::-1]
+    return np.ascontiguousarray(k)
+
+
 def _set(t: torch.Tensor, value: np.ndarray) -> None:
     v = torch.as_tensor(np.array(value, np.float32))
     if tuple(v.shape) != tuple(t.shape):
@@ -63,8 +78,7 @@ def load_flax_tree(module: nn.Module, params: Dict,
     raises instead of leaving a layer at its random init.
     """
     batch_stats = batch_stats or {}
-    layers = {name: child for name, child in module.named_children()
-              if isinstance(child, (Dense, Conv, ConvTranspose, BatchNorm))}
+    layers = _layers(module)
     if set(layers) != set(params):
         raise KeyError(f"flax tree {sorted(params)} does not match port "
                        f"layers {sorted(layers)}")
@@ -81,6 +95,71 @@ def load_flax_tree(module: nn.Module, params: Dict,
         _set(layer.weight, conv(p["kernel"]))
         _set(layer.bias, p["bias"])
     return module
+
+
+def _layers(module: nn.Module) -> Dict[str, nn.Module]:
+    return {name: child for name, child in module.named_children()
+            if isinstance(child, (Dense, Conv, ConvTranspose, BatchNorm))}
+
+
+def flax_tree(module: nn.Module) -> Tuple[Dict, Dict]:
+    """The inverse of load_flax_tree: (params, batch_stats) of `module` as
+    flax trees of float32 numpy arrays (batch_stats empty when the module
+    has no BatchNorm)."""
+    def np32(t):          # a copy: never a view of the module's memory
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+    params: Dict = {}
+    stats: Dict = {}
+    for name, layer in _layers(module).items():
+        if isinstance(layer, BatchNorm):
+            params[name] = {"scale": np32(layer.scale),
+                            "bias": np32(layer.bias)}
+            stats[name] = {"mean": np32(layer.mean), "var": np32(layer.var)}
+            continue
+        kernel = {Dense: dense_kernel, Conv: conv_kernel,
+                  ConvTranspose: conv_transpose_kernel}[type(layer)]
+        params[name] = {"kernel": kernel(np32(layer.weight)),
+                        "bias": np32(layer.bias)}
+    return params, stats
+
+
+def flatten(tree: Dict, prefix: str) -> Dict[str, np.ndarray]:
+    """{'a': {'b': x}} -> {'prefix/a/b': x} (unflatten's inverse)."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}"
+        if isinstance(v, dict):
+            out.update(flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def write_export(output_dir: str, step: int, modules: Dict[str, nn.Module],
+                 manifest: Optional[Dict] = None) -> str:
+    """Write `<output_dir>/export/<step>.npz` from the port's modules
+    ({'generator': g, 'critic': c, 'encoder': e}, any subset) under flax
+    paths, and its side-car manifest `<step>.json` (the step, the array
+    shapes and whatever `manifest` adds). Both are written to temporary
+    names first, so a reader never sees half a file."""
+    arrays: Dict[str, np.ndarray] = {}
+    for name, module in modules.items():
+        params, stats = flax_tree(module)
+        arrays.update(flatten(params, f"{name}/params"))
+        arrays.update(flatten(stats, f"{name}/batch_stats"))
+    root = os.path.join(output_dir, EXPORT_SUBDIR)
+    os.makedirs(root, exist_ok=True)
+    base = os.path.join(root, str(int(step)))
+    with open(base + ".npz.tmp", "wb") as f:
+        np.savez(f, **arrays)
+    meta = dict(manifest or {}, step=int(step),
+                arrays={k: list(v.shape) for k, v in sorted(arrays.items())})
+    with open(base + ".json.tmp", "w") as f:
+        json.dump(meta, f, indent=1, sort_keys=True)
+        f.write("\n")
+    os.replace(base + ".npz.tmp", base + ".npz")
+    os.replace(base + ".json.tmp", base + ".json")
+    return base + ".npz"
 
 
 def unflatten(arrays: Dict[str, np.ndarray]) -> Dict:
@@ -112,8 +191,9 @@ def export_path(output_dir: str, step: Optional[int] = None) -> str:
 
 def read_export(path: str) -> Dict:
     """The export's tree: {'generator': {'params', 'batch_stats'},
-    'encoder': {'params'}} (encoder only when the run had one), plus
-    'manifest' when the side-car JSON exists."""
+    'critic': {'params'}, 'encoder': {'params'}} (critic and encoder only
+    when the run had them), plus 'manifest' when the side-car JSON
+    exists."""
     with np.load(path) as z:
         tree = unflatten({k: z[k] for k in z.files})
     manifest = path[:-4] + ".json"

@@ -19,7 +19,8 @@ record).
 Runs on the card unless --device names another device. The results row
 has the JAX CLI's keys plus `device` (name and power limit) and
 `package`, and goes to output/results_torch/whitebox.jsonl; classifiers
-are cached under output/classifiers_torch/<tag>/.
+are cached under output/classifiers_torch/<tag>/. --save_images and
+--save_adv_pngs write PNGs as the JAX CLI does (utils/visualize.py).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from defensegan_torch.eval.detect import (combined_scores,
 from defensegan_torch.models import build_classifier
 from defensegan_torch.utils.misc import append_jsonl, ensure_dir
 from defensegan_torch.utils.profiling import PhaseTimer
+from defensegan_torch.utils.visualize import save_images, save_images_files
 
 
 def get_classifier(cfg, args, gan, x_train, y_train, seed, device):
@@ -228,6 +230,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--results_dir", default="output/results_torch")
     ap.add_argument("--save_adv", default=None, metavar="PATH.npz",
                     help="save the crafted set (x_adv, y, x_clean, meta)")
+    ap.add_argument("--save_adv_pngs", action="store_true",
+                    help="with --save_adv: also write every original and "
+                    "adversarial image as its own PNG beside the npz "
+                    "(<PATH>_pngs/)")
+    ap.add_argument("--save_images", action="store_true",
+                    help="write an original | adversarial | purified grid "
+                    "of the first 16 images, and each of them as its own "
+                    "PNG, into results_dir (with --defense_type "
+                    "defense_gan)")
     ap.add_argument("--load_adv", default=None, metavar="PATH.npz",
                     help="replay a saved adversarial set (--save_adv "
                     "output, of either package) instead of crafting; "
@@ -326,6 +337,9 @@ def check_args(ap: argparse.ArgumentParser, args) -> None:
     elif args.spsa_margin_kappa is not None:
         ap.error("--spsa_margin_kappa only shapes --spsa_objective "
                  "confident")
+    if args.save_adv_pngs and not args.save_adv:
+        ap.error("--save_adv_pngs writes beside the --save_adv npz; set "
+                 "--save_adv PATH.npz")
     if args.load_adv:
         if args.attack_type != "none":
             ap.error("--load_adv replays the npz's adversarial set; use "
@@ -621,10 +635,20 @@ def main(argv=None):
         np.savez(args.save_adv, x_adv=x_adv, y=y_test, x_clean=x_test,
                  meta=json.dumps(meta))
         print(f"saved adversarial set to {args.save_adv}")
+        if args.save_adv_pngs:
+            png_dir = os.path.splitext(args.save_adv)[0] + "_pngs"
+            labels = np.asarray(y_test).tolist()
+            save_images_files(x_test, png_dir, prefix="orig", labels=labels)
+            save_images_files(x_adv, png_dir, prefix="adv", labels=labels)
+            print(f"wrote {2 * len(x_adv)} per-image PNGs under {png_dir}/")
 
     with timer.phase("adv_eval"):
         adv_acc = model_eval(logits_fn, x_adv, y_test)
     print(f"adversarial accuracy, NO defense: {adv_acc:.4f}")
+
+    if args.save_images and args.defense_type == "defense_gan":
+        save_trio(args, cfg, gan, x_test, x_adv, y_test,
+                  generator_for(fold_seed(k_eval, 99), device))
 
     defended_acc = None
     defended_acc_attack_z0 = None
@@ -676,6 +700,29 @@ def main(argv=None):
     append_jsonl(os.path.join(args.results_dir, "whitebox.jsonl"), record)
     print(json.dumps(record))
     return record
+
+
+def save_trio(args, cfg, gan, x_test, x_adv, y_test, gen) -> None:
+    """--save_images: the first 16 originals, their adversarial images and
+    the purified adversarial images, as one grid (rows: original |
+    adversarial | purified) and as per-image PNGs."""
+    n_show = min(16, x_test.shape[0])
+    res = gan.reconstruct(x_adv[:n_show], gen)
+    purified = res.x_hat.float().cpu().numpy()
+    trio = np.stack([x_test[:n_show], x_adv[:n_show], purified], 1)
+    stem = os.path.join(args.results_dir,
+                        f"whitebox_{cfg.type}_{args.attack_type}")
+    path = save_images(trio.reshape((-1,) + x_test.shape[1:]),
+                       stem + ".png", grid=(n_show, 3))
+    print(f"wrote {path} (rows: original | adversarial | purified)")
+    labels = np.asarray(y_test[:n_show]).tolist()
+    save_images_files(x_test[:n_show], stem + "_pngs", prefix="orig",
+                      labels=labels)
+    save_images_files(x_adv[:n_show], stem + "_pngs", prefix="adv",
+                      labels=labels)
+    save_images_files(purified, stem + "_pngs", prefix="purified",
+                      labels=labels)
+    print(f"wrote {3 * n_show} per-image PNGs under {stem}_pngs/")
 
 
 def spsa_meta(args) -> dict:

@@ -110,8 +110,13 @@ def train_classifier(model: nn.Module, x: np.ndarray, y: np.ndarray, *,
                      quiet: bool = True) -> ClassifierState:
     """Train `model` (on its device) on x [N, H, W, C] in [0, 1], y [N].
 
-    seed seeds the permutation generator (CPU) and the dropout generator
-    (the model's device). Returns the trained model, frozen.
+    Training starts from the module's current weights with a fresh Adam
+    state, so passing the module a previous call returned (`state.model`)
+    trains it on: the JAX package's `params=` warm start, which the
+    persistent black-box substitute uses every round. A fresh init is a
+    freshly built module (build_classifier with a seeded generator). seed
+    seeds the permutation generator (CPU) and the dropout generator (the
+    model's device). Returns the trained model, frozen.
     """
     device = next(model.parameters()).device
     with torch.no_grad():

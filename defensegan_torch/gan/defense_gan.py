@@ -1,26 +1,40 @@
-"""DefenseGAN: the user-facing model, inference and the differentiable
-projection of the white-box attacks (port of the JAX package's
-gan/defense_gan.py; training is a later slice).
+"""DefenseGAN: the user-facing model: WGAN-GP and encoder training,
+inference, and the differentiable projection of the white-box attacks
+(port of the JAX package's gan/defense_gan.py).
 
     gan = DefenseGAN(load_config("output/gans/mnist_fast")).load()
     res = gan.reconstruct(x)          # x [B, 28, 28, 1] in [0, 1] or uint8
 
+    gan = DefenseGAN(cfg)             # a new run
+    gan.train(x_train)                # checkpoints, export, samples, metrics
+
 Entry points run on CUDA unless the caller passes another `device`;
 without a CUDA device and without `device`, the constructor raises rather
 than falling back to the CPU. Weights come from the run's numpy export
-(`<output_dir>/export/<step>.npz`, written by
-scripts/export_torch_weights.py).
+(`<output_dir>/export/<step>.npz`: written by
+scripts/export_torch_weights.py for a JAX run, by `save` for a run the
+port trained). The full training state (both modules, both Adam states,
+the step and the draw generator) is the torch checkpoint
+`<output_dir>/checkpoints/<step>.pt`, which `restore` resumes from.
+Serving keeps the generator frozen; training unfreezes it and the critic
+for its duration.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from defensegan_torch.ckpt.bridge import export_path, load_flax_tree, \
-    read_export
-from defensegan_torch.configs import Config
+from defensegan_torch.ckpt.bridge import (export_path, load_flax_tree,
+                                          read_export, write_export)
+from defensegan_torch.ckpt.checkpoint import (latest_step,
+                                              restore_checkpoint,
+                                              save_checkpoint)
+from defensegan_torch.configs import Config, save_config
 from defensegan_torch.defense.project import (ReconstructionResult,
                                               reconstruct, sample_z0)
 from defensegan_torch.kernels.fused_projection_v2 import \
@@ -28,8 +42,12 @@ from defensegan_torch.kernels.fused_projection_v2 import \
 from defensegan_torch.kernels.fused_projection_v3 import \
     s2d_kernel_available
 from defensegan_torch.kernels.fused_projection_v4 import v4_kernel_available
-from defensegan_torch.models import encoder_for, from_image_space, \
-    generator_for, to_image_space
+from defensegan_torch.gan.train import (GANState, init_gan_state,
+                                        make_data_train_step)
+from defensegan_torch.models import critic_for, encoder_for, \
+    from_image_space, generator_for, to_image_space
+from defensegan_torch.utils.misc import append_jsonl, ensure_dir, fold_seed
+from defensegan_torch.utils.visualize import save_images
 
 PROJECTION_KERNELS = ("auto", "xla", "packed", "pallas", "pallas_int8",
                       "pallas_v4")
@@ -115,21 +133,26 @@ def resolve_projection_kernel(gan, *, back_prop: bool = False,
 
 
 class DefenseGAN:
-    """Frozen WGAN generator + Defense-GAN projection for one config."""
+    """WGAN generator (+ critic for training) + Defense-GAN projection for
+    one config."""
 
     def __init__(self, cfg: Config, device=None, seed: Optional[int] = None):
         self.cfg = cfg
         self.device = torch.device(device) if device is not None \
             else default_device()
         self.dtype = _dtype_of(cfg.compute_dtype)
-        init = torch.Generator().manual_seed(cfg.seed if seed is None
-                                             else seed)
+        self.seed = cfg.seed if seed is None else seed
+        init = torch.Generator().manual_seed(self.seed)
         self.generator = generator_for(
             cfg.type, cfg.gen_dim, self.dtype, cfg.gen_arch,
             cfg.latent_dim, gen=init).to(self.device).requires_grad_(False)
+        self.critic = None            # built by training or an export
         self.encoder = None
+        self.state: Optional[GANState] = None     # training state
         self.step: Optional[int] = None
         self.last_kernel: Optional[str] = None   # path of the last call
+        self._train_step = None       # late-bound: tests substitute it
+        self._train_gen: Optional[torch.Generator] = None
         self._reconstructors: Dict[Tuple, callable] = {}
 
     # ------------------------------------------------------------------ gen
@@ -148,15 +171,26 @@ class DefenseGAN:
     # ------------------------------------------------------------ weights
     def load(self, step: Optional[int] = None) -> "DefenseGAN":
         """Load the run's weight export (latest step when None): the
-        generator and, when the export has one, the encoder."""
+        generator and, when the export has them, the critic and the
+        encoder."""
         tree = read_export(export_path(self.cfg.output_dir, step))
         g = tree["generator"]
         load_flax_tree(self.generator, g["params"], g.get("batch_stats"))
+        if "critic" in tree:
+            load_flax_tree(self._build_critic(), tree["critic"]["params"])
         if "encoder" in tree:
             load_flax_tree(self._build_encoder(), tree["encoder"]["params"])
         self.step = tree.get("manifest", {}).get("step", step)
         self._reconstructors.clear()  # packs capture the old weights
         return self
+
+    def _build_critic(self):
+        if self.critic is None:
+            init = torch.Generator().manual_seed(self.seed + 1)
+            self.critic = critic_for(
+                self.cfg.type, self.cfg.disc_dim, self.dtype,
+                gen=init).to(self.device).requires_grad_(False)
+        return self.critic
 
     def _build_encoder(self):
         if self.encoder is None:
@@ -182,6 +216,207 @@ class DefenseGAN:
         except FileNotFoundError:
             return False
         return True
+
+    def can_restore(self) -> bool:
+        """Whether the run has a training checkpoint to resume from."""
+        return latest_step(self.cfg.output_dir) is not None
+
+    # ------------------------------------------------------------ training
+    def _train_state(self) -> GANState:
+        if self.state is None:
+            cfg = self.cfg
+            self.state = init_gan_state(
+                self.generator, self._build_critic(),
+                gen_lr=cfg.gen_learning_rate,
+                disc_lr=cfg.disc_learning_rate, beta1=cfg.beta1,
+                beta2=cfg.beta2)
+            self.state.step = self.step or 0
+            self._train_gen = torch.Generator(device=self.device) \
+                .manual_seed(self.seed)
+        return self.state
+
+    def _set_trainable(self, on: bool) -> None:
+        self.generator.requires_grad_(on)
+        self.critic.requires_grad_(on)
+
+    def train(self, images: np.ndarray, *,
+              train_iters: Optional[int] = None, log_every: int = 100,
+              quiet: bool = False,
+              on_divergence: str = "restore") -> Dict[str, float]:
+        """Train the WGAN-GP (reference: gan.train()) up to step
+        `train_iters` (default cfg.train_iters) from the current step: a
+        run restored from its checkpoint continues where it stopped, with
+        the same draws an unbroken run would make.
+
+        images: [N, H, W, C] float32 in [0, 1], or uint8, moved to the
+        device once; every step draws its minibatches there. The host
+        reads the metrics only at the next log / sample / save boundary
+        (reading them waits for the device) and checks them for
+        divergence at every boundary. on_divergence="restore" reloads the
+        latest checkpoint, reseeds the draws (JAX's fold_in(key, it)) and
+        carries on counting; "raise" raises RuntimeError. At each log
+        boundary a line goes to <output_dir>/metrics.jsonl, at each
+        sample boundary a grid to samples/, at each save boundary `save`
+        runs. Returns the last finite metrics and train_steps_per_s.
+        """
+        if on_divergence not in ("restore", "raise"):
+            raise ValueError(f"on_divergence {on_divergence!r}: 'restore' "
+                             "or 'raise'")
+        cfg = self.cfg
+        iters = train_iters if train_iters is not None else cfg.train_iters
+        state = self._train_state()
+        if self._train_step is None:
+            self._train_step = make_data_train_step(
+                state, latent_dim=cfg.latent_dim, batch_size=cfg.batch_size,
+                disc_iters=cfg.disc_iters, gp_lambda=cfg.gp_lambda)
+        ensure_dir(cfg.output_dir)
+        save_config(cfg)
+        data = torch.as_tensor(images if images.dtype == np.uint8
+                               else np.asarray(images, np.float32),
+                               device=self.device)
+
+        def at(it, every):
+            return (every > 0 and it % every == 0) or it == iters
+
+        def next_boundary(it):
+            nxt = iters
+            for every in (log_every, cfg.sample_every, cfg.save_every):
+                if every > 0:
+                    nxt = min(nxt, (it // every + 1) * every)
+            return max(nxt - it, 1)
+
+        metrics: Dict = {}
+        last_good: Dict[str, float] = {}
+        it = start = state.step
+        self._set_trainable(True)
+        t0 = time.perf_counter()
+        try:
+            while it < iters:
+                for _ in range(next_boundary(it)):
+                    metrics = self._train_step(data, self._train_gen)
+                    it += 1
+                m = {k: float(v) for k, v in metrics.items()}
+                if not all(np.isfinite(v) for v in m.values()):
+                    if on_divergence == "raise" or not self.can_restore():
+                        raise RuntimeError(
+                            f"training diverged at step {it}: {m}")
+                    print(f"[{cfg.type}] step {it}: non-finite metrics "
+                          f"{m}; restoring the latest checkpoint")
+                    self.restore()
+                    self._train_gen.manual_seed(
+                        fold_seed(self._train_gen.initial_seed(), it))
+                    # the sample and save below run on the restored state
+                    metrics = dict(last_good)
+                elif at(it, log_every):
+                    last_good = m
+                    append_jsonl(os.path.join(cfg.output_dir,
+                                              "metrics.jsonl"),
+                                 dict(m, step=it,
+                                      wall_s=time.perf_counter() - t0))
+                    if not quiet:
+                        print(f"[{cfg.type}] step {it}/{iters} "
+                              f"w={m.get('wasserstein', 0):+.4f} "
+                              f"g={m.get('g_loss', 0):+.4f} "
+                              f"gp={m.get('gp', 0):.4f}")
+                self.step = state.step
+                if at(it, cfg.sample_every):
+                    self.save_samples(os.path.join(
+                        cfg.output_dir, "samples", f"sample_{it:07d}.png"))
+                if at(it, cfg.save_every):
+                    self.save()
+        finally:
+            self._set_trainable(False)
+            # the kernels' reconstructors pack the weights they were built
+            # on: the generator changed
+            self._reconstructors.clear()
+        out = {k: float(v) for k, v in metrics.items()}
+        wall = time.perf_counter() - t0
+        if wall > 0 and it > start:
+            out["train_steps_per_s"] = (it - start) / wall
+            if not quiet:
+                print(f"[{cfg.type}] {it - start} steps in {wall:.1f}s "
+                      f"({out['train_steps_per_s']:.2f} generator steps/s)")
+        return out
+
+    def save_samples(self, path: str) -> str:
+        """A grid of 64 samples of the current generator (inference mode),
+        the same latents at every call (seeded from the run's seed)."""
+        gen = torch.Generator(device=self.device).manual_seed(
+            fold_seed(self.seed, 1))
+        return save_images(self.generate(gen, 64).cpu().numpy(), path)
+
+    def save(self) -> str:
+        """Checkpoint the training state as <output_dir>/checkpoints/
+        <step>.pt and write the weight export <output_dir>/export/
+        <step>.npz that `load` reads (reference: base_model.save)."""
+        state = self._train_state()
+        save_config(self.cfg)
+        self.step = state.step
+        path = save_checkpoint(self.cfg.output_dir, state.step,
+                               dict(state.state_dict(),
+                                    rng=self._train_gen.get_state()))
+        self.write_export({"checkpoint": path})
+        return path
+
+    def restore(self, step: Optional[int] = None) -> "DefenseGAN":
+        """Resume the training state from <output_dir>/checkpoints/
+        <step>.pt (the latest when None), the draw generator included."""
+        state = self._train_state()
+        # read to the host: the modules and Adam copy their tensors to the
+        # parameters' device, and Adam's step counts and the generator
+        # state must stay CPU tensors
+        ckpt = restore_checkpoint(self.cfg.output_dir, step,
+                                  map_location="cpu")
+        state.load_state_dict(ckpt)
+        self._train_gen.set_state(ckpt["rng"])
+        self.step = state.step
+        self._reconstructors.clear()
+        return self
+
+    def write_export(self, sources: Optional[Dict] = None) -> str:
+        """Write the weight export of the current step: the generator with
+        its BatchNorm statistics, and the critic and the encoder when the
+        model has them."""
+        modules = {"generator": self.generator}
+        if self.critic is not None:
+            modules["critic"] = self.critic
+        if self.encoder is not None:
+            modules["encoder"] = self.encoder
+        return write_export(self.cfg.output_dir, self.step, modules, {
+            "config": self.cfg.to_yaml_dict(), "package": "defensegan_torch",
+            "sources": sources or {}})
+
+    def train_encoder(self, images: np.ndarray, *,
+                      iters: Optional[int] = None,
+                      gen: Optional[torch.Generator] = None,
+                      quiet: bool = False, **kw) -> Dict[str, float]:
+        """Train a fresh amortized-inversion encoder E(x) -> z against the
+        FROZEN current generator (defense/encoder_init.py), and write it
+        into the run's weight export at the generator's step, which
+        `load` reads back (rec_init encoder / encoder_jitter). Retraining
+        the GAN stales the encoder: train it again after `train`."""
+        from defensegan_torch.defense.encoder_init import train_encoder
+        cfg = self.cfg
+        if self.step is None:
+            raise RuntimeError("train_encoder inverts a trained generator: "
+                               "load() or train() first")
+        enc = encoder_for(cfg.type, cfg.disc_dim, z_dim=cfg.latent_dim,
+                          dtype=self.dtype,
+                          gen=torch.Generator().manual_seed(self.seed + 2)
+                          ).to(self.device)
+        if gen is None:
+            gen = torch.Generator(device=self.device).manual_seed(
+                fold_seed(self.seed, 2))
+        self.encoder, metrics = train_encoder(
+            enc, self.gen_apply_tanh, images, gen,
+            iters=iters if iters is not None else cfg.encoder_train_iters,
+            batch_size=kw.pop("batch_size", cfg.encoder_batch),
+            lr=kw.pop("lr", cfg.encoder_lr),
+            beta_z=kw.pop("beta_z", cfg.encoder_beta_z),
+            noise_aug=kw.pop("noise_aug", cfg.encoder_noise_aug),
+            quiet=quiet, **kw)
+        self.write_export()
+        return metrics
 
     # -------------------------------------------------------------- defense
     def reconstruct(self, x, gen: Optional[torch.Generator] = None, *,

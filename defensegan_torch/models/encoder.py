@@ -22,6 +22,7 @@ class Encoder(nn.Module):
                  dtype=torch.float32, gen: torch.Generator | None = None):
         super().__init__()
         self.channels = tuple(channels)
+        self.z_dim = z_dim
         self.dtype = dtype
         c_prev, hw = in_channels, image_size
         for i, c in enumerate(self.channels):

@@ -4,8 +4,8 @@ models/generator.py).
 z in R^latent_dim -> fc -> BatchNorm -> relu -> [stride-2 deconv -> BN ->
 relu]* -> stride-2 deconv -> tanh image. The fc output is laid out in
 (y, x, c) order, as flax reshapes it; images leave the module NHWC in the
-generator's tanh space [-1, 1], float32. BatchNorm uses running averages:
-this slice is inference only.
+generator's tanh space [-1, 1], float32. BatchNorm uses the running
+averages, or in training mode the batch statistics (models/layers.py).
 """
 
 from __future__ import annotations
@@ -68,14 +68,20 @@ class Generator(nn.Module):
     def output_hw(self) -> int:
         return self.base_hw * (2 ** len(self.channels))
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, train: bool = False,
+                update_stats: bool = False) -> torch.Tensor:
+        """train: BatchNorm on the batch statistics (flax train=True);
+        update_stats: also fold them into the running averages, as the
+        generator step of WGAN-GP training does (flax mutable
+        batch_stats)."""
         hw, c0 = self.base_hw, self.channels[0]
+        bn = dict(train=train, update_stats=update_stats)
         h = self.fc_in(z)
         h = h.reshape(h.shape[0], hw, hw, c0).permute(0, 3, 1, 2)
-        h = torch.relu(self.bn_in(h))
+        h = torch.relu(self.bn_in(h, **bn))
         for i in range(len(self.channels) - 1):
             h = getattr(self, f"deconv_{i}")(h)
-            h = torch.relu(getattr(self, f"bn_{i}")(h))
+            h = torch.relu(getattr(self, f"bn_{i}")(h, **bn))
         h = self.deconv_out(h)
         return torch.tanh(h).to(torch.float32).permute(0, 2, 3, 1)
 

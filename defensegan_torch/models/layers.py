@@ -8,8 +8,9 @@ parameters in PyTorch's layouts (ckpt/bridge.py converts):
                                        lax does (low = total // 2)
   ConvTranspose  flax nn.ConvTranspose weight [in, out, kh, kw], spatially
                                        FLIPPED (see below)
-  BatchNorm      flax nn.BatchNorm     running statistics (inference only),
-                                       eps 1e-5, computed in float32 and
+  BatchNorm      flax nn.BatchNorm     running statistics (inference) or
+                                       batch statistics (training), eps
+                                       1e-5, computed in float32 and
                                        rounded to the compute dtype
 
 Activations are NCHW inside the modules; the models keep the JAX package's
@@ -125,7 +126,19 @@ class ConvTranspose(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the channel axis of NCHW activations."""
+    """BatchNorm over the channel axis of NCHW activations, with flax's
+    semantics.
+
+    Inference (train=False) normalizes with the running statistics.
+    Training normalizes with the batch mean and the BIASED batch variance,
+    both computed in float32 as E[x^2] - E[x]^2 clipped at 0 (flax's fast
+    variance), and differentiable. update_stats=True also folds them into
+    the running statistics as ra = 0.99 ra + 0.01 batch, the variance kept
+    biased. F.batch_norm's running update differs on both counts (momentum
+    0.1, unbiased variance), so it is not used.
+    """
+
+    momentum = 0.99
 
     def __init__(self, c: int, eps: float = 1e-5, dtype=torch.float32):
         super().__init__()
@@ -135,9 +148,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, update_stats: bool = False):
         def c(v):
             return v[None, :, None, None]
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        y = (x.float() - c(self.mean)) * c(mul) + c(self.bias)
+        xf = x.float()
+        if train:
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean,
+                                  0.0)
+            if update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.mul_(m).add_((1.0 - m) * mean)
+                    self.var.mul_(m).add_((1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (xf - c(mean)) * c(mul) + c(self.bias)
         return y.to(self.dtype)

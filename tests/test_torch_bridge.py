@@ -56,7 +56,8 @@ def test_committed_export_equals_orbax_checkpoint():
 
 def _port_sources():
     files = sorted((ROOT / "defensegan_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "whitebox_torch.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "whitebox_torch.py",
+                    ROOT / "train_torch.py", ROOT / "blackbox_torch.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -169,7 +170,8 @@ def test_bridge_rejects_mismatched_trees():
 
 
 @pytest.mark.parametrize("name", ["mnist_fast", "mnist", "celeba",
-                                  "celeba_wide", "imagenet64"])
+                                  "celeba_wide", "imagenet64", "digits",
+                                  "fmnist", "fmnist_fast"])
 def test_config_copy_reads_yaml_like_jax(name, tmp_path):
     path = ROOT / "defensegan_torch" / "configs" / "gans" / f"{name}.yml"
     jax_path = ROOT / "defensegan_tpu" / "configs" / "gans" / f"{name}.yml"

@@ -364,3 +364,31 @@ def test_gemm_kernel_matches_plain(cuda_device, case):
         assert torch.equal(kw["z"], z_before)           # the wrapper's copy
         assert split_k_for(k, n) > 1
     assert (outs[0] != 0).float().mean() > 0.2        # not an empty output
+
+
+@pytest.mark.cuda
+def test_training_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """A run trained on the card restores on the card: the modules, both
+    Adam states (their step counts stay on the host, as a fresh Adam keeps
+    them) and the draw generator come back, and training goes on."""
+    from defensegan_torch.configs import Config
+    from defensegan_torch.gan import DefenseGAN
+
+    cfg = Config(type="mnist", gen_arch="wide", gen_dim=4, disc_dim=4,
+                 latent_dim=16, batch_size=8, disc_iters=2,
+                 compute_dtype="float32", output_dir=str(tmp_path),
+                 save_every=2, sample_every=0)
+    data = np.random.RandomState(0).rand(32, 28, 28, 1).astype(np.float32)
+    gan = DefenseGAN(cfg, device=cuda_device)
+    gan.train(data, train_iters=2, quiet=True)
+    back = DefenseGAN(cfg, device=cuda_device).restore()
+    assert back.step == 2
+    for a, b in ((gan.generator, back.generator), (gan.critic, back.critic)):
+        for (k, x), (_, y) in zip(a.state_dict().items(),
+                                  b.state_dict().items()):
+            assert torch.equal(x, y), k
+    assert torch.equal(gan._train_gen.get_state(), back._train_gen.get_state())
+    steps = [s["step"] for s in back.state.disc_opt.state.values()]
+    assert all(t.device.type == "cpu" for t in steps)
+    out = back.train(data, train_iters=3, quiet=True)
+    assert back.step == 3 and np.isfinite(out["g_loss"])

@@ -216,3 +216,39 @@ def test_cuda_device_without_a_card_raises(run):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _whitebox().main(["--cfg", run, "--attack_type", "none",
                           "--defense_type", "none", "--num_tests", "2"])
+
+
+def test_save_images_and_adv_pngs_match_jax_grid(run, in_tmp):
+    """--save_images writes the original | adversarial | purified grid the
+    JAX CLI writes: recomputed here (the purified images from the CLI's own
+    seed, fold_seed(k_eval, 99)) and saved with the JAX package's
+    save_images, the two PNGs decode equal pixel for pixel.
+    --save_adv_pngs writes each original and adversarial image beside the
+    npz."""
+    from PIL import Image
+
+    from defensegan_torch.configs import load_config
+    from defensegan_torch.gan import DefenseGAN
+    from defensegan_torch.utils.misc import fold_seed, generator_for
+    from defensegan_tpu.utils.visualize import save_images as jax_save
+
+    adv = in_tmp / "adv.npz"
+    _whitebox().main(["--cfg", run, "--attack_type", "fgsm", "--save_adv",
+                      str(adv), "--save_adv_pngs", "--save_images",
+                      "--results_dir", str(in_tmp / "res")] + BASE)
+    pngs = sorted(p.name for p in (in_tmp / "adv_pngs").iterdir())
+    assert len(pngs) == 16 and pngs[0].startswith("adv_00000_")
+    with np.load(adv) as d:
+        x_clean, x_adv = d["x_clean"], d["x_adv"]
+    gan = DefenseGAN(load_config(run), device="cpu").load()
+    k_eval = fold_seed(fold_seed(gan.cfg.seed + 7, 2), 99)
+    purified = gan.reconstruct(x_adv, generator_for(k_eval, "cpu")) \
+        .x_hat.numpy()
+    trio = np.stack([x_clean, x_adv, purified], 1).reshape(
+        (-1,) + x_clean.shape[1:])
+    ref = jax_save(trio, str(in_tmp / "jax.png"), grid=(8, 3))
+    got = in_tmp / "res" / "whitebox_mnist_fgsm.png"
+    np.testing.assert_array_equal(np.asarray(Image.open(got)),
+                                  np.asarray(Image.open(ref)))
+    assert len(list((in_tmp / "res" / "whitebox_mnist_fgsm_pngs")
+                    .iterdir())) == 24
