@@ -5,7 +5,8 @@
 
 Drives the port's three served paths and holds every kernel of them
 against its plain PyTorch version, then the white-box evaluation path
-(phase 6), training (phase 7) and the black-box path (phase 8):
+(phase 6), training (phase 7), the black-box path (phase 8) and several
+devices (phase 9):
 
   - the flagship (configs/gans/mnist_fast.yml: wide generator, k 128,
     F 6272, 784 outputs padded to P 832; trained step-20000 weights from
@@ -120,7 +121,30 @@ against its plain PyTorch version, then the white-box evaluation path
      L 200): every key of the JAX row, the defended phases and the
      detector on v2 (counters set to 0 just before, v2 must have run);
      phase times and accuracies (path checks)
-  9. the `kernels` line, then {"ok": true, "device": {...}} last.
+  9. several devices (chip_smoke.parallel_phase), from the repository's
+     root:
+       a. the flagship at full width (1024 images x R 10 x L 200, v2)
+          through ShardedDefenseGAN over [cuda:0] and over [cuda:0,
+          cuda:0] (two shards on the card), each equal bit for bit to the
+          single-device calls on its shards with the folded seeds; a
+          DefendedPipeline over the two-shard GAN; the sharded call at one
+          shard against the bare call, in turns (the wrapper's overhead);
+          counters set to 0 before the sharded calls and read after: v2
+          must have run, once a shard
+       b. a process group of one NCCL rank (file:// rendezvous in a
+          temporary directory): the explicit DP step and the global-batch
+          step on mnist_fast.yml at full width, B 64, given the plain
+          step's draws, equal to it bit for bit (cuDNN's deterministic
+          algorithms, a second plain step as the control); steps/s of each
+       c. multichip_torch.dryrun_multichip(1) on the card and
+          dryrun_multichip(4, device="cpu")
+       d. scripts/int8_validate_torch.py on the committed flagship (the
+          stamp into a temporary directory; it must pass) and
+          scripts/serving_bench_torch.py --batches 1 16 256 1024 4096
+          --repeats 3 (classifier A from phase 6's cache, else a seeded one
+          in a temporary cache); counters set to 0 before and read after:
+          v2 and v2i must have run
+ 10. the `kernels` line, then {"ok": true, "device": {...}} last.
 
 Every phase prints one JSON line; any failed check exits nonzero. There is
 no CPU fallback: without a CUDA device the script exits 2 and prints no
@@ -1186,6 +1210,297 @@ def blackbox_phase(build, tmp: str) -> dict:
     return out
 
 
+# (9) several devices. 9a holds ShardedDefenseGAN bit for bit against the
+# single-device calls on each shard with the folded seeds: one replica of
+# the weights packs what the bare model packs, and v2 computes each row on
+# its own (phase 3a holds 192-row chunks bit for bit against one chunk),
+# so a shard equals the same rows served alone. 9b holds the data-parallel
+# steps at world 1 bit for bit against the plain step given the same
+# draws: an average over one rank is the identity (a sum of one term,
+# divided by 1), flattening and unflattening copy, and BatchNorm's
+# all-reduced moments are its own. cuDNN is held to its deterministic
+# algorithms there, and a second plain step (the control) must equal the
+# first: otherwise the comparison would measure cuDNN, not the step.
+PARALLEL_IMAGES = 1024
+DP_BATCH = 64
+DP_TIMED_STEPS = 10
+SERVING_BATCHES = ["1", "16", "256", "1024", "4096"]
+
+
+def sharded_serving_phase(build, gan, n_images: int = PARALLEL_IMAGES
+                          ) -> dict:
+    """9a: the flagship at full width (n_images x R 10 x L 200 on v2)
+    through ShardedDefenseGAN over [cuda:0] and over [cuda:0, cuda:0],
+    each against the per-shard single-device calls bit for bit; the
+    DefendedPipeline over the sharded GAN; recon/s of the sharded call at
+    one shard against the bare call, in turns. Launch counters are set to
+    0 just before the sharded calls and read just after them."""
+    import torch
+    from defensegan_torch.defense.pipeline import DefendedPipeline
+    from defensegan_torch.models import build_classifier
+    from defensegan_torch.parallel import ShardedDefenseGAN, make_mesh
+    from defensegan_torch.parallel.serving import base_seed
+    from defensegan_torch.utils.misc import fold_seed, generator_for
+
+    dev, cfg, v2 = gan.device, gan.cfg, "fused_projection_v2"
+    x = gan.generate(generator_for(9001, dev), n_images)
+    meshes = {"one_shard": make_mesh(1),
+              "two_shards_one_card": make_mesh(devices=["cuda:0"] * 2)}
+    sharded = {k: ShardedDefenseGAN(gan, m) for k, m in meshes.items()}
+    out = {"images": n_images, "rr": cfg.rec_rr, "iters": cfg.rec_iters}
+    build.reset_launches()
+    results = {k: s.reconstruct(x, generator_for(77, dev), kernel="pallas")
+               for k, s in sharded.items()}
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    seed = base_seed(generator_for(77, dev), cfg)
+    for k, mesh in meshes.items():
+        b = n_images // len(mesh)
+        res, same = results[k], []
+        for i, d in enumerate(mesh):
+            ref = gan.reconstruct(x[i * b:(i + 1) * b],
+                                  generator_for(fold_seed(seed, i), d),
+                                  kernel="pallas")
+            same.append(all(torch.equal(res[f][i * b:(i + 1) * b], ref[f])
+                            for f in range(4)))
+        out[k] = dict(shards=len(mesh), bit_equal=all(same),
+                      path=sharded[k].last_kernel,
+                      replicas=len(sharded[k]._replicas),
+                      finite=bool(torch.isfinite(res.x_hat).all()))
+    out["launches"] = launches
+    # the pipeline over the sharded GAN (two shards on the card)
+    clf = build_classifier("E", gen=torch.Generator().manual_seed(0)) \
+        .to(dev).requires_grad_(False)
+    before = build.LAUNCHES[v2]
+    q = n_images // 4
+    pipe = DefendedPipeline(sharded["two_shards_one_card"], clf, fpr=0.05)
+    p = pipe.calibrate(x[:q]).predict(x[q:2 * q])
+    out["pipeline"] = dict(v2_launches=build.LAUNCHES[v2] - before,
+                           flag_rate=float(p.flagged.mean()),
+                           mean_rec_err=float(p.rec_err.mean()),
+                           finite=bool(torch.isfinite(
+                               torch.as_tensor(p.rec_err)).all()))
+
+    # recon/s at one shard against the bare call, in turns
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def bare():
+        gan.reconstruct(x, generator_for(5, dev), kernel="pallas")
+
+    def one():
+        sharded["one_shard"].reconstruct(x, generator_for(5, dev),
+                                         kernel="pallas")
+    ms = {"bare": [], "sharded": []}
+    bare(), one()
+    for _ in range(3):
+        for name, fn in (("bare", bare), ("sharded", one),
+                         ("sharded", one), ("bare", bare)):
+            ms[name].append(timed(fn))
+    for name, t in ms.items():
+        out[f"{name}_ms"] = statistics.median(t)
+        out[f"{name}_recon_per_s"] = n_images / (statistics.median(t) / 1e3)
+        out[f"{name}_ms_all"] = t
+    out["sharded_over_bare"] = out["sharded_ms"] / out["bare_ms"]
+    emit("parallel_sharded_serving", **out)
+    if not (out["one_shard"]["bit_equal"]
+            and out["two_shards_one_card"]["bit_equal"]
+            and out["one_shard"]["path"] == "pallas"
+            and out["two_shards_one_card"]["path"] == "pallas"
+            and out["one_shard"]["finite"] and out["pipeline"]["finite"]
+            and out["pipeline"]["v2_launches"] > 0
+            and launches[v2] >= 3):
+        fail(f"sharded serving: {out}")
+    return out
+
+
+def _state_tensors(state) -> list:
+    """Every tensor of a training state: both modules' parameters and
+    statistics, both Adam states."""
+    import torch
+    out = list(state.generator.state_dict().values()) + \
+        list(state.critic.state_dict().values())
+    for opt in (state.gen_opt, state.disc_opt):
+        for s in opt.state_dict()["state"].values():
+            out.extend(v for v in s.values() if isinstance(v, torch.Tensor))
+    return out
+
+
+def dp_world1_phase(tmp: str, dev, backend: str = "nccl",
+                    batch: int = DP_BATCH) -> dict:
+    """9b: a process group of one rank (file:// rendezvous in `tmp`): the
+    explicit DP step (make_dp_train_step) and the global-batch step
+    (make_data_train_step under the group) on mnist_fast.yml at full width
+    in its bf16, B `batch`, each given the same draws as the plain step,
+    against it bit for bit (the state after the step: weights, statistics,
+    Adam moments; and the metrics); then steps/s of each, synchronized."""
+    import torch
+    import torch.distributed as dist
+    from defensegan_torch.configs import load_config
+    from defensegan_torch.gan.train import (draw_step, init_gan_state,
+                                            make_data_train_step)
+    from defensegan_torch.models import critic_for, generator_for as gfor
+    from defensegan_torch.parallel import (initialize_distributed,
+                                           make_dp_train_step)
+    from defensegan_torch.utils.misc import generator_for
+
+    cfg = load_config(os.path.join(CFG_DIR, "mnist_fast.yml"))
+    dtype = {"float32": torch.float32,
+             "bfloat16": torch.bfloat16}[cfg.compute_dtype]
+    k, di = cfg.latent_dim, cfg.disc_iters
+
+    def fresh():
+        g = gfor(cfg.type, cfg.gen_dim, dtype, cfg.gen_arch, k,
+                 gen=torch.Generator().manual_seed(cfg.seed))
+        c = critic_for(cfg.type, cfg.disc_dim, dtype,
+                       gen=torch.Generator().manual_seed(cfg.seed + 1))
+        return init_gan_state(g.to(dev), c.to(dev),
+                              gen_lr=cfg.gen_learning_rate,
+                              disc_lr=cfg.disc_learning_rate,
+                              beta1=cfg.beta1, beta2=cfg.beta2)
+
+    data = torch.rand((2048,) + tuple(cfg.image_shape), device=dev,
+                      generator=generator_for(3, dev))
+    draws = draw_step(generator_for(4, dev), n_data=2048, batch=batch,
+                      disc_iters=di, latent_dim=k, device=dev)
+    kw = dict(latent_dim=k, disc_iters=di, gp_lambda=cfg.gp_lambda)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _, world = initialize_distributed(
+        backend, "file://" + os.path.join(tmp, "rendezvous_dp"), 1, 0)
+    try:
+        group = dist.group.WORLD
+        states = {n: fresh() for n in ("plain", "control", "global", "dp")}
+        steps = {n: make_data_train_step(states[n], batch_size=batch, **kw)
+                 for n in ("plain", "control")}
+        steps["global"] = make_data_train_step(
+            states["global"], batch_size=batch, group=group, **kw)
+        dp = make_dp_train_step(states["dp"], group=group, **kw)
+        steps["dp"] = lambda d, gen, dr: dp(d[dr.idx], 0, dr)
+        metrics = {n: s(data, None, draws) for n, s in steps.items()}
+        ref = _state_tensors(states["plain"])
+        out = {"world": world, "backend": backend, "batch": batch,
+               "disc_iters": di, "dtype": cfg.compute_dtype}
+        for n in ("control", "global", "dp"):
+            got = _state_tensors(states[n])
+            out[f"{n}_bit_equal"] = len(got) == len(ref) and all(
+                torch.equal(a, b) for a, b in zip(got, ref)) and all(
+                torch.equal(metrics[n][m], metrics["plain"][m])
+                for m in metrics["plain"])
+            out[f"{n}_max_abs_err"] = max(
+                float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, ref))
+        out["tensors"] = len(ref)
+        # steps/s, each step drawing its own batch from its generator
+        own = {"plain": lambda g: steps["plain"](data, g),
+               "global": lambda g: steps["global"](data, g),
+               "dp": lambda g: dp(data[torch.randint(
+                   0, 2048, (di, batch), generator=g, device=dev)], 1)}
+        for n, fn in own.items():
+            g = generator_for(5, dev)
+            fn(g)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(DP_TIMED_STEPS):
+                fn(g)
+            torch.cuda.synchronize(dev)
+            out[f"{n}_steps_per_s"] = DP_TIMED_STEPS / (
+                time.perf_counter() - t0)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+    emit("parallel_dp_world1", **out)
+    if not out["control_bit_equal"]:
+        fail(f"the plain step is not deterministic on this card: {out}")
+    if not (out["global_bit_equal"] and out["dp_bit_equal"]):
+        fail(f"the DP steps at world 1 differ from the plain step: {out}")
+    return out
+
+
+def tools_phase(build, tmp: str) -> dict:
+    """9c the multi-device dry runs: dryrun_multichip(1) on the card (one
+    NCCL rank) and dryrun_multichip(4, device="cpu") (four gloo ranks);
+    9d scripts/int8_validate_torch.py on the committed flagship (the stamp
+    into `tmp`; it must pass) and scripts/serving_bench_torch.py on it
+    (classifier A: the one phase 6 trained and cached, else a seeded one
+    in a temporary cache). Launch counters are set to 0 before 9d and read
+    after: v2 and v2i must have run."""
+    import torch
+
+    import multichip_torch
+    from defensegan_torch.cli import int8_validate, serving_bench
+    from defensegan_torch.eval import classifier as clf_cache
+    from defensegan_torch.models import build_classifier
+
+    out = {}
+    t0 = time.perf_counter()
+    out["dryrun_cuda_1"] = multichip_torch.dryrun_multichip(1)
+    out["dryrun_cuda_1_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dryrun_cpu_4"] = multichip_torch.dryrun_multichip(4, device="cpu")
+    out["dryrun_cpu_4_s"] = time.perf_counter() - t0
+    emit("parallel_dryrun", **out)
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    gate = int8_validate.main(
+        ["--cfg", os.path.join(CFG_DIR, "mnist_fast.yml"), "--output_dir",
+         RUN_DIR, "--out", os.path.join(tmp, "int8_gate_cuda.json")])
+    emit("int8_validate", s=time.perf_counter() - t0, stamp=gate["stamp"],
+         metrics=gate["metrics"], bench=gate["bench"])
+    stamp = gate["stamp"]
+    if not stamp["pass"] or stamp["paths"] != {
+            "int8": "pallas_int8", "bf16": "pallas",
+            "reference": "xla float32"}:
+        fail(f"int8_validate: {stamp}")
+    cached = clf_cache.load_cached_classifier(
+        "mnist_modelA", build_classifier("A"))
+    root = clf_cache.CACHE_ROOT
+    if cached is None:
+        clf_cache.CACHE_ROOT = os.path.join(tmp, "classifiers_torch")
+        clf_cache.save_classifier("mnist_modelA", clf_cache.ClassifierState(
+            build_classifier("A", gen=torch.Generator().manual_seed(5))))
+    try:
+        t0 = time.perf_counter()
+        rows = serving_bench.main(
+            ["--cfg", RUN_DIR, "--model", "A", "--batches",
+             *SERVING_BATCHES, "--repeats", "3", "--results_dir",
+             os.path.join(tmp, "results")])
+    finally:
+        clf_cache.CACHE_ROOT = root
+    launches = dict(build.LAUNCHES)
+    emit("serving_bench", s=time.perf_counter() - t0,
+         classifier="cached (phase 6)" if cached is not None
+         else "seeded, temporary cache",
+         rows=[{k: r[k] for k in ("batch", "kernel", "latency_ms_min",
+                                  "latency_ms_median", "images_per_s",
+                                  "clean_flag_rate")} for r in rows],
+         device=rows[0]["device"], launches=launches)
+    if any(r["kernel"] != "pallas" or not r["images_per_s"] > 0
+           for r in rows) or launches["fused_projection_v2"] <= 0 \
+            or launches["fused_projection_v2i"] <= 0:
+        fail(f"serving_bench: {rows}, launches {launches}")
+    return out
+
+
+def parallel_phase(build, gan, tmp: str) -> None:
+    """Phase 9: several devices (9a-9d), from the repository's root (the
+    tools resolve the committed run's relative paths there)."""
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        sharded_serving_phase(build, gan)
+        dp_world1_phase(tmp, gan.device)
+        tools_phase(build, tmp)
+    finally:
+        os.chdir(cwd)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1888,7 +2203,14 @@ def main() -> int:
     print(json.dumps({"phase": "phases_7_8", "s": time.perf_counter() - t0}),
           flush=True)
 
-    # ------------------------------------------------- 7. kernels line
+    # ------------------------------------------- 9. several devices
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        parallel_phase(build, gan, tmp)
+    print(json.dumps({"phase": "phase_9", "s": time.perf_counter() - t0}),
+          flush=True)
+
+    # ------------------------------------------------- 10. kernels line
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": kk["source"],
          "replaces": kk["replaces"], "launches": launches[name],

@@ -7,6 +7,12 @@ writes a sample grid and an original | reconstruction grid of test images
 (the reference's test mode). --train_encoder trains the amortized-inversion
 encoder after training, or on its own against the run's trained generator.
 
+Data-parallel training: under torchrun (one process per GPU)
+  torchrun --nproc_per_node N train_torch.py --is_train --cfg ...
+each rank joins the NCCL group (gloo with --device cpu), trains on its
+share of every global batch and rank 0 writes (DefenseGAN.train); a plain
+`python train_torch.py` is one process, as before.
+
 Runs on the card unless --device names another device. Training resumes
 from the run's latest torch checkpoint (<output_dir>/checkpoints/<step>.pt)
 up to TRAIN_ITERS; every save also writes the weight export that test mode,
@@ -19,11 +25,13 @@ import argparse
 import os
 
 import numpy as np
+import torch
 
 from defensegan_torch.cli.common import (add_cfg_args, cfg_from_args,
                                          device_from_args, load_data,
                                          load_gan)
 from defensegan_torch.gan import DefenseGAN
+from defensegan_torch.parallel.distributed import initialize_distributed
 from defensegan_torch.utils.misc import fold_seed, generator_for
 from defensegan_torch.utils.visualize import save_images, save_images_files
 
@@ -62,6 +70,10 @@ def main(argv=None) -> dict:
     ds = load_data(cfg)
 
     if args.is_train:
+        _, world = initialize_distributed(
+            "gloo" if device.type == "cpu" else "nccl")
+        if world > 1 and device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
         gan = DefenseGAN(cfg, device=device)
         if gan.can_restore():
             gan.restore()
@@ -74,7 +86,8 @@ def main(argv=None) -> dict:
         # uint8 stays uint8 on the device, normalized per minibatch
         x_train, _ = ds.load_u8("train")
         print(f"training {cfg.type} WGAN-GP on {x_train.shape[0]} images "
-              f"up to step {cfg.train_iters} on {device}")
+              f"up to step {cfg.train_iters} on {device}"
+              + (f" (one of {world} ranks)" if world > 1 else ""))
         out = gan.train(x_train)
         print(f"done; checkpoints, export and samples under "
               f"{cfg.output_dir}")

@@ -292,14 +292,21 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* ptr,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// SM count of the CURRENT device (the caller's wrapper makes the tensors'
+// device current), looked up once per device
 inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  constexpr int kMaxDevices = 64;
+  static int n[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxDevices) {
+    int c = 0;
+    cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev);
+    return c;
   }
-  return n;
+  if (n[dev] == 0)
+    cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev);
+  return n[dev];
 }
 
 }  // namespace fpk

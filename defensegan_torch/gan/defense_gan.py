@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from defensegan_torch.ckpt.bridge import (export_path, load_flax_tree,
                                           read_export, write_export)
@@ -63,6 +64,20 @@ def default_device() -> torch.device:
         raise RuntimeError("no CUDA device: the port runs on the GPU; pass "
                            "device='cpu' explicitly to run on the CPU")
     return torch.device("cuda")
+
+
+def process_group():
+    """The default process group when this process is one rank of a
+    torch.distributed group (initialize_distributed), else None."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.group.WORLD
+    return None
+
+
+def writes_files() -> bool:
+    """Whether this process writes run files: always in one process, only
+    rank 0 in a process group."""
+    return process_group() is None or dist.get_rank() == 0
 
 
 def resolve_projection_kernel(gan, *, back_prop: bool = False,
@@ -154,6 +169,17 @@ class DefenseGAN:
         self._train_step = None       # late-bound: tests substitute it
         self._train_gen: Optional[torch.Generator] = None
         self._reconstructors: Dict[Tuple, callable] = {}
+        # counts the rebinds of the weights (load, restore, train, a new
+        # encoder): wrappers that copy them (parallel/serving.py) re-copy
+        # when it moves
+        self.weights_version = 0
+
+    def weights_changed(self) -> None:
+        """Call after changing the weights in place: the kernels'
+        reconstructors pack the weights they were built on (dropped here),
+        and copies of the weights (parallel/serving.py) refresh."""
+        self._reconstructors.clear()
+        self.weights_version += 1
 
     # ------------------------------------------------------------------ gen
     def gen_apply_tanh(self, z: torch.Tensor) -> torch.Tensor:
@@ -181,7 +207,7 @@ class DefenseGAN:
         if "encoder" in tree:
             load_flax_tree(self._build_encoder(), tree["encoder"]["params"])
         self.step = tree.get("manifest", {}).get("step", step)
-        self._reconstructors.clear()  # packs capture the old weights
+        self.weights_changed()
         return self
 
     def _build_critic(self):
@@ -258,19 +284,31 @@ class DefenseGAN:
         boundary a line goes to <output_dir>/metrics.jsonl, at each
         sample boundary a grid to samples/, at each save boundary `save`
         runs. Returns the last finite metrics and train_steps_per_s.
+
+        In a process group (initialize_distributed; one rank per device)
+        the step is data parallel on the global batch, as the JAX
+        package's train(mesh=...): every rank holds the dataset and the
+        same draw generator, trains on its 1/world of cfg.batch_size with
+        the global batch's BatchNorm statistics and averaged gradients,
+        so each step equals the single-process one. Only rank 0 writes
+        (metrics, samples, checkpoints, the export).
         """
         if on_divergence not in ("restore", "raise"):
             raise ValueError(f"on_divergence {on_divergence!r}: 'restore' "
                              "or 'raise'")
         cfg = self.cfg
         iters = train_iters if train_iters is not None else cfg.train_iters
+        group = process_group()
+        writer = writes_files()
         state = self._train_state()
         if self._train_step is None:
             self._train_step = make_data_train_step(
                 state, latent_dim=cfg.latent_dim, batch_size=cfg.batch_size,
-                disc_iters=cfg.disc_iters, gp_lambda=cfg.gp_lambda)
-        ensure_dir(cfg.output_dir)
-        save_config(cfg)
+                disc_iters=cfg.disc_iters, gp_lambda=cfg.gp_lambda,
+                group=group)
+        if writer:
+            ensure_dir(cfg.output_dir)
+            save_config(cfg)
         data = torch.as_tensor(images if images.dtype == np.uint8
                                else np.asarray(images, np.float32),
                                device=self.device)
@@ -309,31 +347,30 @@ class DefenseGAN:
                     metrics = dict(last_good)
                 elif at(it, log_every):
                     last_good = m
-                    append_jsonl(os.path.join(cfg.output_dir,
-                                              "metrics.jsonl"),
-                                 dict(m, step=it,
-                                      wall_s=time.perf_counter() - t0))
-                    if not quiet:
+                    if writer:
+                        append_jsonl(os.path.join(cfg.output_dir,
+                                                  "metrics.jsonl"),
+                                     dict(m, step=it,
+                                          wall_s=time.perf_counter() - t0))
+                    if writer and not quiet:
                         print(f"[{cfg.type}] step {it}/{iters} "
                               f"w={m.get('wasserstein', 0):+.4f} "
                               f"g={m.get('g_loss', 0):+.4f} "
                               f"gp={m.get('gp', 0):.4f}")
                 self.step = state.step
-                if at(it, cfg.sample_every):
+                if writer and at(it, cfg.sample_every):
                     self.save_samples(os.path.join(
                         cfg.output_dir, "samples", f"sample_{it:07d}.png"))
                 if at(it, cfg.save_every):
                     self.save()
         finally:
             self._set_trainable(False)
-            # the kernels' reconstructors pack the weights they were built
-            # on: the generator changed
-            self._reconstructors.clear()
+            self.weights_changed()
         out = {k: float(v) for k, v in metrics.items()}
         wall = time.perf_counter() - t0
         if wall > 0 and it > start:
             out["train_steps_per_s"] = (it - start) / wall
-            if not quiet:
+            if writer and not quiet:
                 print(f"[{cfg.type}] {it - start} steps in {wall:.1f}s "
                       f"({out['train_steps_per_s']:.2f} generator steps/s)")
         return out
@@ -345,17 +382,23 @@ class DefenseGAN:
             fold_seed(self.seed, 1))
         return save_images(self.generate(gen, 64).cpu().numpy(), path)
 
-    def save(self) -> str:
+    def save(self) -> Optional[str]:
         """Checkpoint the training state as <output_dir>/checkpoints/
         <step>.pt and write the weight export <output_dir>/export/
-        <step>.npz that `load` reads (reference: base_model.save)."""
+        <step>.npz that `load` reads (reference: base_model.save). In a
+        process group rank 0 writes, every rank waits for it, and the
+        other ranks get None."""
         state = self._train_state()
-        save_config(self.cfg)
         self.step = state.step
-        path = save_checkpoint(self.cfg.output_dir, state.step,
-                               dict(state.state_dict(),
-                                    rng=self._train_gen.get_state()))
-        self.write_export({"checkpoint": path})
+        path = None
+        if writes_files():
+            save_config(self.cfg)
+            path = save_checkpoint(self.cfg.output_dir, state.step,
+                                   dict(state.state_dict(),
+                                        rng=self._train_gen.get_state()))
+            self.write_export({"checkpoint": path})
+        if process_group() is not None:
+            dist.barrier()
         return path
 
     def restore(self, step: Optional[int] = None) -> "DefenseGAN":
@@ -370,7 +413,7 @@ class DefenseGAN:
         state.load_state_dict(ckpt)
         self._train_gen.set_state(ckpt["rng"])
         self.step = state.step
-        self._reconstructors.clear()
+        self.weights_changed()
         return self
 
     def write_export(self, sources: Optional[Dict] = None) -> str:
@@ -415,7 +458,11 @@ class DefenseGAN:
             beta_z=kw.pop("beta_z", cfg.encoder_beta_z),
             noise_aug=kw.pop("noise_aug", cfg.encoder_noise_aug),
             quiet=quiet, **kw)
-        self.write_export()
+        self.weights_changed()
+        if writes_files():
+            self.write_export()
+        if process_group() is not None:
+            dist.barrier()
         return metrics
 
     # -------------------------------------------------------------- defense

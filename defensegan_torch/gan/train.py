@@ -20,13 +20,27 @@ sample and save boundaries).
 Random draws come from a torch.Generator on the data's device; the JAX
 package's streams differ, so every draw is also injectable (`Draws`): the
 CPU tests pass JAX's draws in.
+
+Data parallel (a torch.distributed process group, the JAX step's
+`axis_name`): every optimizer update averages its gradients over the
+group with one all-reduce of a flat buffer (disc_iters + 1 a step), and
+the metrics are averaged. Two layouts:
+  - per-rank batches with local BatchNorm statistics, the running
+    statistics averaged after the generator update (JAX's shard_map
+    step; parallel/distributed.py::make_dp_train_step);
+  - the global batch split over the ranks (`global_batch=True`, JAX's
+    GSPMD step): BatchNorm's moments are the global batch's
+    (models/layers.py), so the step equals the single-process step on the
+    global batch; make_data_train_step(group=...) draws the global batch
+    on every rank and takes the rank's slice.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from defensegan_torch.gan.losses import critic_loss_fn, generator_loss_fn
@@ -43,6 +57,48 @@ class Draws(NamedTuple):
     eps: torch.Tensor
     z_gen: torch.Tensor
     idx: Optional[torch.Tensor] = None
+
+
+def draw_step(gen: Optional[torch.Generator], *, n_data: int, batch: int,
+              disc_iters: int, latent_dim: int, device) -> Draws:
+    """One data step's draws from `gen`, in the order the step consumes
+    them: the minibatch indices, each critic iteration's z and eps, then
+    the generator's z."""
+    idx = torch.randint(0, n_data, (disc_iters, batch), generator=gen,
+                        device=device)
+    zs, es = [], []
+    for _ in range(disc_iters):
+        zs.append(torch.randn((batch, latent_dim), generator=gen,
+                              device=device))
+        es.append(torch.rand((batch,), generator=gen, device=device))
+    z_gen = torch.randn((batch, latent_dim), generator=gen, device=device)
+    return Draws(torch.stack(zs), torch.stack(es), z_gen, idx)
+
+
+def rank_slice(draws: Draws, group) -> Draws:
+    """The calling rank's equal share of a global step's draws (the batch
+    axis split in rank order)."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    b = draws.z_gen.shape[0]
+    if b % world:
+        raise ValueError(f"batch {b} is not divisible by the {world} ranks")
+    lo, hi = rank * b // world, (rank + 1) * b // world
+    return Draws(draws.z_critic[:, lo:hi], draws.eps[:, lo:hi],
+                 draws.z_gen[lo:hi],
+                 None if draws.idx is None else draws.idx[:, lo:hi])
+
+
+def all_reduce_mean(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """The group's mean of each tensor, by one all-reduce of a flat buffer
+    (one float dtype)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view_as(t))
+        at += t.numel()
+    return out
 
 
 class GANState:
@@ -97,13 +153,28 @@ def init_gan_state(generator: nn.Module, critic: nn.Module, *,
 
 
 def make_train_step(state: GANState, *, latent_dim: int,
-                    disc_iters: int = 5, gp_lambda: float = 10.0
+                    disc_iters: int = 5, gp_lambda: float = 10.0,
+                    group=None, global_batch: bool = False
                     ) -> Callable[..., Metrics]:
     """train_step(real [disc_iters, B, H, W, C] in [0, 1], gen, draws=None)
     -> metrics; advances `state` in place. Draws come from the
-    torch.Generator `gen` on real's device unless `draws` is given."""
+    torch.Generator `gen` on real's device unless `draws` is given.
+
+    group: data parallel over a process group (module docstring): `real`
+    and the draws are the rank's share; global_batch=True takes BatchNorm's
+    moments over the group's global batch, else each rank normalizes its
+    own and the running statistics are averaged after the update. With
+    group=None the step is the single-process one."""
     generator, critic = state.generator, state.critic
     gen_params = [p for p in generator.parameters()]
+    bn_group = group if global_batch else None
+
+    def sync_grads(params):
+        if group is not None:
+            live = [p for p in params if p.grad is not None]
+            for p, g in zip(live, all_reduce_mean([p.grad for p in live],
+                                                  group)):
+                p.grad.copy_(g)
 
     def train_step(real_images: torch.Tensor,
                    gen: Optional[torch.Generator] = None,
@@ -121,23 +192,34 @@ def make_train_step(state: GANState, *, latent_dim: int,
             else:
                 z, eps = draws.z_critic[i], draws.eps[i]
             with torch.no_grad():
-                fake = generator(z, train=True)
+                fake = generator(z, train=True, group=bn_group)
             d_loss, aux = critic_loss_fn(critic, real[i], fake, eps,
                                          gp_lambda=gp_lambda)
             state.disc_opt.zero_grad(set_to_none=True)
             d_loss.backward()
+            sync_grads(critic.parameters())
             state.disc_opt.step()
 
         z = normal((batch, latent_dim)) if draws is None else draws.z_gen
-        fake = generator(z, train=True, update_stats=True)
+        fake = generator(z, train=True, update_stats=True, group=bn_group)
         g_loss = generator_loss_fn(critic, fake)
         grads = torch.autograd.grad(g_loss, gen_params)
         for p, g in zip(gen_params, grads):
             p.grad = g
+        sync_grads(gen_params)
         state.gen_opt.step()
+        if group is not None and not global_batch:
+            # keep the BatchNorm running averages equal across ranks
+            bufs = list(generator.buffers())
+            with torch.no_grad():
+                for t, m in zip(bufs, all_reduce_mean(bufs, group)):
+                    t.copy_(m)
         state.step += 1
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics.update(d_loss=d_loss.detach(), g_loss=g_loss.detach())
+        if group is not None:
+            metrics = dict(zip(metrics, all_reduce_mean(
+                [v.float() for v in metrics.values()], group)))
         return metrics
 
     return train_step
@@ -145,24 +227,31 @@ def make_train_step(state: GANState, *, latent_dim: int,
 
 def make_data_train_step(state: GANState, *, latent_dim: int,
                          batch_size: int, disc_iters: int = 5,
-                         gp_lambda: float = 10.0
+                         gp_lambda: float = 10.0, group=None
                          ) -> Callable[..., Metrics]:
     """train_step(data, gen, draws=None) -> metrics over a dataset resident
     on the device: data [N, H, W, C] float32 in [0, 1] or uint8 (divided by
     255 per minibatch, a quarter of float32's memory). Each step draws its
     disc_iters x batch_size indices with replacement (JAX's semantics: no
-    epoch cursor to carry or checkpoint)."""
+    epoch cursor to carry or checkpoint).
+
+    group: the global-batch data-parallel step. Every rank holds the whole
+    dataset and the same `gen`, draws the global step's draws (or takes
+    the global `draws`) and trains on its slice of batch_size, so the step
+    equals the single-process one on the global batch."""
     inner = make_train_step(state, latent_dim=latent_dim,
-                            disc_iters=disc_iters, gp_lambda=gp_lambda)
+                            disc_iters=disc_iters, gp_lambda=gp_lambda,
+                            group=group, global_batch=True)
 
     def train_step(data: torch.Tensor, gen: Optional[torch.Generator] = None,
                    draws: Optional[Draws] = None) -> Metrics:
         if draws is None:
-            idx = torch.randint(0, data.shape[0], (disc_iters, batch_size),
-                                generator=gen, device=data.device)
-        else:
-            idx = draws.idx
-        real = data[idx]
+            draws = draw_step(gen, n_data=data.shape[0], batch=batch_size,
+                              disc_iters=disc_iters, latent_dim=latent_dim,
+                              device=data.device)
+        if group is not None:
+            draws = rank_slice(draws, group)
+        real = data[draws.idx]
         if real.dtype == torch.uint8:
             real = real.to(torch.float32) / 255.0
         return inner(real, gen, draws)

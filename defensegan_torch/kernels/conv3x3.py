@@ -147,11 +147,13 @@ def conv3x3(inp: torch.Tensor, w: torch.Tensor, g: int, mode: str, *,
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(inp.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-            masks.data_ptr(), order.data_ptr(),
-            None if x is None else x.data_ptr(), out.data_ptr(), m, g, cin,
-            cout, in_fine, out_fine, MODES[mode], scale,
-            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):      # the library uses the current device
+        rc = fn(inp.data_ptr(), w.data_ptr(),
+                None if b is None else b.data_ptr(), masks.data_ptr(),
+                order.data_ptr(), None if x is None else x.data_ptr(),
+                out.data_ptr(), m, g, cin, cout, in_fine, out_fine,
+                MODES[mode], scale,
+                torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, "conv3x3")
     build.LAUNCHES[COUNTER] += 1
     return out

@@ -209,13 +209,16 @@ def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
         [ctypes.c_int] * (2 + len(dims)) + [ctypes.c_float] * 3 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for lo in range(0, rows, m):
-        rc = fn(z[lo].data_ptr(), v[lo].data_ptr(), x[lo].data_ptr(), *ptrs,
-                min(m, rows - lo), *dims, rec_iters, rec_lr, momentum,
-                2.0 / out_dim, stream)
-        build.check(lib, rc, name)
-        build.LAUNCHES[name] += 1
+    # the library's host code (kernel attributes, SM count, the launch)
+    # uses the runtime's current device: make it the tensors' device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for lo in range(0, rows, m):
+            rc = fn(z[lo].data_ptr(), v[lo].data_ptr(), x[lo].data_ptr(),
+                    *ptrs, min(m, rows - lo), *dims, rec_iters, rec_lr,
+                    momentum, 2.0 / out_dim, stream)
+            build.check(lib, rc, name)
+            build.LAUNCHES[name] += 1
     return z[:n, :k]
 
 

@@ -203,11 +203,12 @@ def gemm(a: torch.Tensor, b: torch.Tensor, epilogue: str = "store", *,
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + \
         [ctypes.c_float] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(a.data_ptr(), b.data_ptr(), _ptr(out), _ptr(bias), _ptr(x),
-            _ptr(h), _ptr(row_scale), _ptr(col_scale), amax.data_ptr(),
-            _ptr(zc), _ptr(vc), _ptr(zb), _ptr(ws), m, n, k, int(int8),
-            splits, EPILOGUES[epilogue], scale, lr, momentum,
-            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):      # the library uses the current device
+        rc = fn(a.data_ptr(), b.data_ptr(), _ptr(out), _ptr(bias), _ptr(x),
+                _ptr(h), _ptr(row_scale), _ptr(col_scale), amax.data_ptr(),
+                _ptr(zc), _ptr(vc), _ptr(zb), _ptr(ws), m, n, k, int(int8),
+                splits, EPILOGUES[epilogue], scale, lr, momentum,
+                torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, "gemm")
     build.LAUNCHES[COUNTER] += 1
     if epilogue == "momentum":

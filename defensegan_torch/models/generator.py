@@ -69,13 +69,14 @@ class Generator(nn.Module):
         return self.base_hw * (2 ** len(self.channels))
 
     def forward(self, z: torch.Tensor, train: bool = False,
-                update_stats: bool = False) -> torch.Tensor:
+                update_stats: bool = False, group=None) -> torch.Tensor:
         """train: BatchNorm on the batch statistics (flax train=True);
         update_stats: also fold them into the running averages, as the
         generator step of WGAN-GP training does (flax mutable
-        batch_stats)."""
+        batch_stats); group: the statistics of the process group's global
+        batch (models/layers.py::BatchNorm)."""
         hw, c0 = self.base_hw, self.channels[0]
-        bn = dict(train=train, update_stats=update_stats)
+        bn = dict(train=train, update_stats=update_stats, group=group)
         h = self.fc_in(z)
         h = h.reshape(h.shape[0], hw, hw, c0).permute(0, 3, 1, 2)
         h = torch.relu(self.bn_in(h, **bn))

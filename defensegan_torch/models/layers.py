@@ -125,6 +125,26 @@ class ConvTranspose(nn.Module):
         return self.linear(x.to(dt)) + self.bias.to(dt)[None, :, None, None]
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group's ranks, differentiable: every rank's loss
+    depends on every rank's input, so the gradient is summed too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the channel axis of NCHW activations, with flax's
     semantics.
@@ -136,6 +156,12 @@ class BatchNorm(nn.Module):
     the running statistics as ra = 0.99 ra + 0.01 batch, the variance kept
     biased. F.batch_norm's running update differs on both counts (momentum
     0.1, unbiased variance), so it is not used.
+
+    group (a torch.distributed process group, training only): the batch
+    moments E[x] and E[x^2] are averaged over the group's ranks by one
+    differentiable all-reduce, so with equal shards the statistics are the
+    global batch's (the JAX package's GSPMD step computes them over the
+    whole sharded batch).
     """
 
     momentum = 0.99
@@ -148,14 +174,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x, train: bool = False, update_stats: bool = False):
-        def c(v):
-            return v[None, :, None, None]
+    def forward(self, x, train: bool = False, update_stats: bool = False,
+                group=None):
         xf = x.float()
         if train:
             mean = xf.mean((0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean,
-                                  0.0)
+            sq = (xf * xf).mean((0, 2, 3))
+            if group is not None:
+                import torch.distributed as dist
+                both = _AllReduceSum.apply(torch.stack([mean, sq]), group)
+                both = both / dist.get_world_size(group)
+                mean, sq = both[0], both[1]
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             if update_stats:
                 with torch.no_grad():
                     m = self.momentum
@@ -163,6 +193,16 @@ class BatchNorm(nn.Module):
                     self.var.mul_(m).add_((1.0 - m) * var)
         else:
             mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        y = (xf - c(mean)) * c(mul) + c(self.bias)
-        return y.to(self.dtype)
+        return batch_norm(xf, mean, var, self.scale, self.bias, self.eps,
+                          self.dtype)
+
+
+def batch_norm(xf: torch.Tensor, mean, var, scale, bias, eps: float,
+               dtype) -> torch.Tensor:
+    """Normalize float32 NCHW `xf` per channel with the given statistics
+    and affine parameters, rounded to `dtype` (BatchNorm's arithmetic)."""
+    def c(v):
+        return v[None, :, None, None]
+    mul = torch.rsqrt(var + eps) * scale
+    y = (xf - c(mean)) * c(mul) + c(bias)
+    return y.to(dtype)

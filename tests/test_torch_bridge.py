@@ -57,7 +57,12 @@ def test_committed_export_equals_orbax_checkpoint():
 def _port_sources():
     files = sorted((ROOT / "defensegan_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "whitebox_torch.py",
-                    ROOT / "train_torch.py", ROOT / "blackbox_torch.py"]
+                    ROOT / "train_torch.py", ROOT / "blackbox_torch.py",
+                    ROOT / "multichip_torch.py",
+                    ROOT / "scripts" / "int8_validate_torch.py",
+                    ROOT / "scripts" / "serving_bench_torch.py",
+                    # imported by the ranks the CPU tests spawn
+                    ROOT / "tests" / "torch_parallel_workers.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
