@@ -5,8 +5,9 @@
 
 Drives the port's three served paths and holds every kernel of them
 against its plain PyTorch version, then the white-box evaluation path
-(phase 6), training (phase 7), the black-box path (phase 8) and several
-devices (phase 9):
+(phase 6), training (phase 7), the black-box path (phase 8), several
+devices (phase 9) and the ported Pallas experiments of scripts/ (phase
+10):
 
   - the flagship (configs/gans/mnist_fast.yml: wide generator, k 128,
     F 6272, 784 outputs padded to P 832; trained step-20000 weights from
@@ -144,7 +145,23 @@ devices (phase 9):
           --repeats 3 (classifier A from phase 6's cache, else a seeded one
           in a temporary cache); counters set to 0 before and read after:
           v2 and v2i must have run
- 10. the `kernels` line, then {"ok": true, "device": {...}} last.
+ 10. the experiments' kernels (chip_smoke.experiments_phase):
+       a. the stream64 level (the 64x64 generator's deconv levels 0-2 at
+          batch 512) against its plain version, half by half
+       b. each v3 variant (v3p, packed, ilp) on mnist.yml against its plain
+          version at L = 1 and 5 on 512 rows as 3a; the two-chain loop
+          also bit for bit against the v3 kernel
+       c. counters set to 0, then the experiments' entry points:
+          stream64_probe.run_probe at each level (batch 512, the JAX
+          probe's tiles, 50 steps, median of 3: kernel, cuDNN, plain;
+          per-level and geomean speedup beside the pre-registered rule)
+          and v3_variants.ab_variant for each variant (1024 images x R 10
+          x L 200: the gate against the v3 kernel, ilp bit for bit; loop
+          and recon times in turns with v3's, median of 3); every
+          experiment's counter must have risen
+       d. the variants' plain versions at that shape, one run each
+ 11. the `kernels` line (the four loops and the four experiments), then
+     {"ok": true, "device": {...}} last.
 
 Every phase prints one JSON line; any failed check exits nonzero. There is
 no CPU fallback: without a CUDA device the script exits 2 and prints no
@@ -1501,6 +1518,173 @@ def parallel_phase(build, gan, tmp: str) -> None:
         os.chdir(cwd)
 
 
+# (10) the experiments' kernels (defensegan_torch/experiments/): the
+# stream64 level and the three layout experiments on v3.
+# 10a holds the level kernel against its plain version half by half
+# (stream64_probe.check_against_plain): dh equal but where the relu test of
+# an h within 1e-4 of its summed absolute products of 0 took the other
+# side, dx within one bf16 ulp of the output plus one of every rounded tap
+# of the plain backward of the kernel's own dh (conv3x3.rounding_excess, as
+# 3a'' holds the grid convs). The probe's own numerics check (dx against
+# the library's float32-output form within 2e-2 of its largest element,
+# the JAX probe's bound) runs inside run_probe.
+# 10b holds each variant against its plain version at L 1 and 5 on 512
+# rows row by row with v3's bounds (3a), 192-row chunks bit for bit against
+# one chunk, and the two-chain loop bit for bit against the v3 kernel; at
+# L 200 on 1024 images x R 10 (ab_variant: the [B, R] final losses by the
+# tie-aware gate against the v3 kernel, the two-chain loop's z_final bit
+# for bit). The variants compute v3's function, so their bound and
+# library yardstick are v3's (phase 5).
+S64_BATCH = 512
+S64_ITERS = 50
+VARIANT_IMAGES = 1024
+
+
+def _once_ms(fn) -> float:
+    """Host time of one synchronized call, in ms (no warm-up: the plain
+    versions build nothing)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def experiments_phase(build, deep, v3_timing: dict) -> list:
+    """Phase 10; returns the experiments' entries of the `kernels` line."""
+    import torch
+    from defensegan_torch.experiments import stream64_probe as sp
+    from defensegan_torch.experiments.v3_variants import (VARIANTS,
+                                                          ab_variant)
+    from defensegan_torch.defense.project import tile_restarts
+    from defensegan_torch.defense.fastgen import pack_generator
+    from defensegan_torch.kernels.fused_projection_v3 import (
+        fused_projection_s2d, pack_s2d)
+    from defensegan_torch.models import from_image_space
+    t_phase = time.perf_counter()
+    dev = deep.device
+    cfg = deep.cfg
+    k, rr = cfg.latent_dim, cfg.rec_rr
+    kw_loop = dict(rec_iters=cfg.rec_iters, rec_lr=cfg.rec_lr,
+                   momentum=cfg.rec_momentum)
+
+    # ---- 10a. the level kernel against its plain version, each level
+    s64 = {}
+    for lvl, (g, ci, co) in sp.LEVELS.items():
+        a = sp.draw_arrays(lvl, S64_BATCH, seed=100 + lvl)
+        pack = sp.level_tensors(*sp.pack_level(a["w"], a["b"], a["scale"],
+                                               a["shift"]), g, dev)
+        x = torch.as_tensor(a["x0"]).to(dev)
+        cot = sp.to_phase_blocked(torch.as_tensor(a["cot"]).to(dev)) \
+            .to(torch.bfloat16)
+        dx, dh = sp.fused_level(x, cot, pack, return_dh=True)
+        torch.cuda.synchronize()
+        s64[f"L{lvl}"] = dict(g=g, ci=ci, co=co, batch=S64_BATCH,
+                              **sp.check_against_plain(x, cot, pack, dx, dh))
+        del a, pack, x, cot, dx, dh
+    emit("stream64_level_vs_plain", **s64)
+    if not all(r["ok"] for r in s64.values()):
+        fail(f"the stream64 level left its band: {s64}")
+
+    # ---- 10b. each variant against its plain version at L 1 and 5
+    pack3 = pack_s2d(deep.generator)
+    perm = pack_generator(deep.generator, "s2d").perm[0]
+    gd = torch.Generator(device=dev).manual_seed(97531)
+
+    def rows_s2d(x_img, r):
+        return tile_restarts(from_image_space(x_img).reshape(
+            x_img.shape[0], -1)[:, perm], r)
+
+    xr = rows_s2d(deep.generate(gd, 512), 1)
+    z0 = torch.randn(512, k, device=dev, generator=gd)
+    errs = {v: {} for v in VARIANTS}
+    for name, var in VARIANTS.items():
+        rec = {}
+        for steps, tol in ELEMENTWISE_TOL.items():
+            kw = dict(kw_loop, rec_iters=steps)
+            zk = var.loop(pack3, xr, z0, **kw)
+            zc = var.loop(pack3, xr, z0, chunk=192, **kw)
+            torch.cuda.synchronize()
+            zp = var.plain(pack3, xr, z0, **kw)
+            e = row_errors(zk, zp, z0)
+            errs[name][steps] = e["max_abs_err"]
+            ok = bool(torch.isfinite(zk).all()) and torch.equal(zc, zk) \
+                and e["row_rel_p50"] <= tol \
+                and e["row_rel_max"] <= V3_WORST_ROW_TOL[steps]
+            if var.bit_equal:
+                e["equals_v3_kernel"] = bool(torch.equal(
+                    zk, fused_projection_s2d(pack3, xr, z0, **kw)))
+                ok = ok and e["equals_v3_kernel"]
+            rec[f"L{steps}"] = dict(**e, chunked_equal=bool(
+                torch.equal(zc, zk)), tol_row_p50=tol,
+                tol_row_max=V3_WORST_ROW_TOL[steps], ok=bool(ok))
+        emit(f"variant_{name}_vs_plain", **rec)
+        if not all(r["ok"] for r in rec.values()):
+            fail(f"variant {name} against its plain version: {rec}")
+    del xr, z0
+
+    # ---- 10c. the experiments' entry points, counters from 0: the probe
+    # at each level (batch 512, the JAX probe's tiles, 50 steps, median of
+    # 3) and the A/B of each variant against v3 (1024 images x R 10 x L 200)
+    build.reset_launches()
+    probes = [sp.run_probe(lvl, S64_BATCH, sp.DEFAULT_TILE[lvl], S64_ITERS,
+                           3, device=dev, seed=200 + lvl)
+              for lvl in sp.LEVELS]
+    ab = {name: ab_variant(deep, name, VARIANT_IMAGES, repeats=3,
+                           seed=300 + i)
+          for i, name in enumerate(VARIANTS)}
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    decision = sp.decision([p["speedup"] for p in probes])
+    emit("stream64_probe", levels=probes, **decision,
+         launches=launches[sp.COUNTER])
+    for name, rec in ab.items():
+        emit(f"variant_{name}_ab", **rec,
+             launches=launches[VARIANTS[name].counter])
+    counters = [sp.COUNTER] + [v.counter for v in VARIANTS.values()]
+    if not all(p["numerics_ok"] for p in probes) or \
+            not all(r["gate"]["ok"] for r in ab.values()):
+        fail(f"the probe's numerics or a variant's gate against v3: "
+             f"{[p['rel_err'] for p in probes]}, "
+             f"{ {n: r['gate'] for n, r in ab.items()} }")
+    if not all(launches[c] > 0 for c in counters):
+        fail(f"an experiment's kernel never launched: {launches}")
+
+    # ---- 10d. the plain versions at the timed shape, one run each
+    x_img = deep.generate(gd, VARIANT_IMAGES)
+    x_rep = rows_s2d(x_img, rr)
+    z0 = torch.randn(VARIANT_IMAGES * rr, k, device=dev, generator=gd)
+    plain_ms = {name: _once_ms(lambda: var.plain(pack3, x_rep, z0,
+                                                 **kw_loop))
+                for name, var in VARIANTS.items()}
+    s = time.perf_counter() - t_phase
+    emit("experiments_plain_ms", **plain_ms, phase_s=s)
+
+    entries = [{
+        "name": sp.COUNTER, "route": "cuda",
+        "source": "defensegan_torch/csrc/stream64_level.cu",
+        "replaces": "scripts/stream64_probe.py:118",
+        "launches": launches[sp.COUNTER],
+        "max_abs_err": max(r["max_abs_err"] for r in s64.values()),
+        "ms": sum(p["kernel_ms_per_iter"] for p in probes),
+        "plain_ms": sum(p["plain_ms_per_iter"] for p in probes),
+        "bound_ms": sum(p["bound_ms"] for p in probes),
+        "bound_by": "operations"
+        if all(p["bound_by"] == "operations" for p in probes) else "bytes",
+        "library_ms": sum(p["library_ms_per_iter"] for p in probes)}]
+    for name, var in VARIANTS.items():
+        entries.append({
+            "name": var.counter, "route": "cuda", "source": var.source,
+            "replaces": var.replaces, "launches": launches[var.counter],
+            "max_abs_err": max(errs[name].values()),
+            "ms": ab[name][name]["loop_ms"], "plain_ms": plain_ms[name],
+            "bound_ms": v3_timing["bound_ms"],
+            "bound_by": v3_timing["bound_by"],
+            "library_ms": v3_timing["library_ms"]})
+    return entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2210,7 +2394,13 @@ def main() -> int:
     print(json.dumps({"phase": "phase_9", "s": time.perf_counter() - t0}),
           flush=True)
 
-    # ------------------------------------------------- 10. kernels line
+    # ---------------------------------- 10. the experiments' kernels
+    t0 = time.perf_counter()
+    experiments = experiments_phase(build, deep, timing[V3])
+    print(json.dumps({"phase": "phase_10", "s": time.perf_counter() - t0}),
+          flush=True)
+
+    # ------------------------------------------------- 11. kernels line
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": kk["source"],
          "replaces": kk["replaces"], "launches": launches[name],
@@ -2219,7 +2409,7 @@ def main() -> int:
          "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name]["library_ms"]}
-        for name, kk in kernels.items()]}
+        for name, kk in kernels.items()] + experiments}
     RECORD["kernels"] = line
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

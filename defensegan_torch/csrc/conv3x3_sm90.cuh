@@ -10,12 +10,17 @@
 // dx, k = (dy+1)*3 + (dx+1). A tap is a change of the A column and of the
 // weights' row block, the same for the whole tile; a tap whose source pixel
 // leaves the grid is skipped (masks[p*9 + k] == 0), not masked element by
-// element.
+// element. A grid may also have gy rows of g pixels (the padded 7 x 8 grid
+// of the v3p experiment, fused_projection_v3_variants.cu): then every g*g
+// here reads gy*g, and a tap whose source pixel index leaves [0, gy*g)
+// reads the zeros of TMA's out-of-bounds fill, so such a grid may issue
+// every tap (masks all 1).
 //
 // kBackward = false: out[p] = sum_k in[p + off_k] @ W_k, valid iff
 // masks[p, k]. kBackward = true (the input gradient): out[p] = sum_k
 // bf16(in[p - off_k] @ W_k), valid iff masks[p, 8 - k]; W_k are then the
-// per-tap transposes. Weights: [9*cin, cout], taps stacked on rows.
+// per-tap transposes (with kChain: the taps' sum in one chain, rounded
+// once by the epilogue). Weights: [9*cin, cout], taps stacked on rows.
 // epi(row, channel, pixel_offset, acc0, acc1) writes channels c and c + 1
 // of pixel p at pixel_offset + c.
 //
@@ -64,7 +69,8 @@
 //                such sums);
 //   kPerTapBf16  as kPerTap, each tap's partial rounded to bf16 before the
 //                add: the backward convs' rounding, where the TPU kernels
-//                round.
+//                round. (A backward conv takes kChain too: the tap-packed
+//                conv A experiment sums its taps as one K = 9*cin product.)
 // Folding a partial waits for its wgmma group; the other consumer
 // warpgroup, on its own 64 rows of the same stages, keeps the tensor cores
 // busy meanwhile. (Two partial sums taken in turns would fold one tap while
@@ -127,8 +133,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_sm90(const __grid_constant__ CUtensorMap map_in,
                  const __grid_constant__ CUtensorMap map_w,
                  const float* __restrict__ masks,
-                 const int* __restrict__ order, int M, int g, int cin,
-                 int cout, int in_fine, int out_fine, Epi epi) {
+                 const int* __restrict__ order, int M, int g, int gy,
+                 int cin, int cout, int in_fine, int out_fine, Epi epi) {
   using R = Ring<BN>;
   constexpr int kRegs = BN / 2;        // f32 sums per thread of 64 x BN
   extern __shared__ unsigned char smem_raw[];
@@ -136,7 +142,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t bars = ring + R::kStages * R::kStage;
   auto full = [&](uint32_t s) { return bars + 8 * s; };
   auto empty = [&](uint32_t s) { return bars + 8 * (R::kStages + s); };
-  const int p2 = g * g;
+  const int p2 = gy * g;
   const int n_n = cout / BN;
   const int n_tiles = ((M + kBM - 1) / kBM) * p2 * n_n;
   const int spt = cin / kBK;           // slabs per tap
@@ -305,30 +311,34 @@ struct Conv3x3 {
   CUtensorMap in, w;
   const float* masks;   // [g*g, 9] f32 0/1
   const int* order;     // [g*g] pixels, 9 taps first
-  int M, g, cin, cout, in_fine, out_fine;
+  int M, g, gy, cin, cout, in_fine, out_fine;
 };
 
-// in: [M, g*g*cin] (fine order where in_fine); w: [9*cin, cout]. Returns
-// cudaErrorInvalidValue on widths the kernel does not take or a map the
-// driver refuses.
+// in: [M, g*g*cin] (fine order where in_fine); w: [9*cin, cout]. gy: the
+// grid's rows where they are not g (0: a square grid; an interleave needs
+// one). Returns cudaErrorInvalidValue on widths the kernel does not take
+// or a map that cuTensorMapEncodeTiled refuses.
 inline cudaError_t make_conv3x3(Conv3x3* c, const bf16* in, const bf16* w,
                                 const float* masks, const int* order, int M,
                                 int g, int cin, int cout, int in_fine = 0,
-                                int out_fine = 0) {
-  if (M < 1 || g < 1 || cin % 64 || cout % 64 || in_fine % 64 ||
+                                int out_fine = 0, int gy = 0) {
+  if (gy == 0) gy = g;
+  if (M < 1 || g < 1 || gy < 1 || cin % 64 || cout % 64 || in_fine % 64 ||
       out_fine % 64 || (in_fine && 4 * in_fine != cin) ||
-      (out_fine && 4 * out_fine != cout))
+      (out_fine && 4 * out_fine != cout) ||
+      ((in_fine || out_fine) && gy != g))
     return cudaErrorInvalidValue;
   *c = Conv3x3{};
   c->masks = masks;
   c->order = order;
   c->M = M;
   c->g = g;
+  c->gy = gy;
   c->cin = cin;
   c->cout = cout;
   c->in_fine = in_fine;
   c->out_fine = out_fine;
-  cudaError_t e = encode_map(&c->in, in, 2, M, g * g * cin, sm90::kBM);
+  cudaError_t e = encode_map(&c->in, in, 2, M, gy * g * cin, sm90::kBM);
   if (e != cudaSuccess) return e;
   return encode_map(&c->w, w, 2, 9 * cin, cout, sm90::kBK);
 }
@@ -345,22 +355,22 @@ inline cudaError_t launch_conv3x3_bn(const Conv3x3& c, Epi epi,
       cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
   if (e != cudaSuccess) return e;
   const int tiles =
-      ((c.M + sm90::kBM - 1) / sm90::kBM) * c.g * c.g * (c.cout / BN);
+      ((c.M + sm90::kBM - 1) / sm90::kBM) * c.gy * c.g * (c.cout / BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
   sm90::conv3x3_sm90<BN, kSum, kBackward, Epi>
       <<<grid, sm90::kThreads, R::kSmem, stream>>>(
-          c.in, c.w, c.masks, c.order, c.M, c.g, c.cin, c.cout, c.in_fine,
-          c.out_fine, epi);
+          c.in, c.w, c.masks, c.order, c.M, c.g, c.gy, c.cin, c.cout,
+          c.in_fine, c.out_fine, epi);
   return cudaGetLastError();
 }
 
 // kSum: how the taps are summed; a backward conv (kBackward) rounds each
-// tap (kPerTapBf16).
+// tap (kPerTapBf16) or sums them in one chain (kChain).
 template <TapSum kSum, bool kBackward, typename Epi>
 inline cudaError_t launch_conv3x3(const Conv3x3& c, Epi epi,
                                   cudaStream_t stream) {
-  static_assert(!kBackward || kSum == kPerTapBf16,
-                "a backward conv rounds each tap");
+  static_assert(!kBackward || kSum != kPerTap,
+                "a backward conv rounds each tap or sums them in one chain");
   return c.cout % 128 == 0
              ? launch_conv3x3_bn<128, kSum, kBackward, Epi>(c, epi, stream)
              : launch_conv3x3_bn<64, kSum, kBackward, Epi>(c, epi, stream);

@@ -64,62 +64,9 @@
 // from Python runs all L steps of a row chunk. The weights (4.6 MB) stay
 // in L2. A fused conv B is later work.
 
-#include "conv3x3_sm90.cuh"
-#include "gemm_sm90.cuh"
-
-namespace {
+#include "fused_projection_v3_step.cuh"
 
 using fpk::bf16;
-
-constexpr int kPackThreads = 256;
-
-// One block per latent m. Phase 1: o[p, c] = bb[c] + sum over valid taps
-// of obb[m, p+off_k, k*cb + c] (k ascending, f32); t = tanh(o);
-// do[p, c] = bf16((t - x)(1 - t^2) * scale), kept in shared memory.
-// Phase 2: dop[m, p, k*cb + c] = do[p-off_k, c] where that pixel is in the
-// grid, else 0; columns 9*cb .. kpk are zero.
-__global__ void __launch_bounds__(kPackThreads)
-    tanh_grad_pack(const bf16* __restrict__ obb, const bf16* __restrict__ x,
-                   const float* __restrict__ bb,
-                   const float* __restrict__ masks, bf16* __restrict__ dop,
-                   int g, int cb, int npk, int kpk, float scale) {
-  extern __shared__ __align__(16) unsigned char s_raw[];
-  bf16* s_do = reinterpret_cast<bf16*>(s_raw);
-  const int p2 = g * g;
-  const size_t m = blockIdx.x;
-  const bf16* ob = obb + m * p2 * npk;
-  const bf16* xr = x + m * p2 * cb;
-  for (int i = threadIdx.x; i < p2 * cb; i += kPackThreads) {
-    int p = i / cb, c = i - p * cb;
-    float o = bb[c];
-    for (int k = 0; k < 9; ++k) {
-      if (masks[p * 9 + k] != 0.0f) {
-        int off = (k / 3 - 1) * g + (k % 3 - 1);
-        o += __bfloat162float(ob[(p + off) * npk + k * cb + c]);
-      }
-    }
-    float t = tanhf(o);
-    float res = t - __bfloat162float(xr[i]);
-    s_do[i] = __float2bfloat16_rn(res * (1.0f - t * t) * scale);
-  }
-  __syncthreads();
-  bf16* dp = dop + m * p2 * kpk;
-  const bf16 zero = __float2bfloat16_rn(0.0f);
-  for (int i = threadIdx.x; i < p2 * kpk; i += kPackThreads) {
-    int p = i / kpk, j = i - p * kpk;
-    bf16 val = zero;
-    if (j < 9 * cb) {
-      int k = j / cb, c = j - k * cb;
-      if (masks[p * 9 + 8 - k] != 0.0f) {
-        int off = (k / 3 - 1) * g + (k % 3 - 1);
-        val = s_do[(p - off) * cb + c];
-      }
-    }
-    dp[i] = val;
-  }
-}
-
-}  // namespace
 
 // Runs `iters` projection steps on M rows, updating z and v in place.
 // z, v: [M, K] f32 (v zeroed by the caller); x: [M, P2*cb] bf16 tanh-space
@@ -140,57 +87,10 @@ extern "C" int fp_v3_run(float* z, float* v, const bf16* x, const bf16* w1,
                          int M, int K, int c0, int ca, int cb, int g, int npk,
                          int kpk, int splits, int iters, float lr,
                          float momentum, float scale, void* stream_ptr) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
-  const int p2 = g * g;
-  const int F = p2 * c0;
-  // conv A: h0 -> h1 forward; dh1 (over h1) -> dh0 (over h0) backward
-  fpk::Conv3x3 conv_a, conv_at;
-  cudaError_t e = fpk::make_conv3x3(&conv_a, h0, ka, masks, order, M, g, c0,
-                                    ca);
-  if (e == cudaSuccess)
-    e = fpk::make_conv3x3(&conv_at, h1, kat, masks, order, M, g, ca, c0);
-  // fc forward and backward; conv B packed, forward [M*P2, ca] @ [ca, npk]
-  // and backward [M*P2, kpk] @ [kpk, ca]
-  fpk::Gemm fc, fct, conv_b, conv_bt;
-  if (e == cudaSuccess) e = fpk::make_gemm<bf16>(&fc, zb, w1, M, F, K);
-  if (e == cudaSuccess)
-    e = fpk::make_gemm<bf16>(&fct, h0, w1t, M, K, F, splits);
-  if (e == cudaSuccess)
-    e = fpk::make_gemm<bf16>(&conv_b, h1, kbp, M * p2, npk, ca);
-  if (e == cudaSuccess)
-    e = fpk::make_gemm<bf16>(&conv_bt, dop, kbpt, M * p2, ca, kpk);
-  if (e == cudaSuccess) e = fpk::launch_cast_bf16(z, zb, M * K, st);
-  for (int it = 0; it < iters && e == cudaSuccess; ++it) {
-    // fc forward
-    e = fpk::launch_gemm<bf16>(fc, fpk::EpiBiasRelu{b1, h0, F}, nullptr, st);
-    // conv A forward
-    if (e == cudaSuccess)
-      e = fpk::launch_conv3x3<fpk::kChain, false>(
-          conv_a, fpk::EpiConvBiasRelu{ba, h1, p2 * ca}, st);
-    // conv B forward, packed
-    if (e == cudaSuccess)
-      e = fpk::launch_gemm<bf16>(conv_b, fpk::EpiStoreBf16{obb, npk},
-                                 nullptr, st);
-    // tap sum, tanh gradient, tap-major pack of do
-    if (e == cudaSuccess) {
-      tanh_grad_pack<<<M, kPackThreads, p2 * cb * sizeof(bf16), st>>>(
-          obb, x, bb, masks, dop, g, cb, npk, kpk, scale);
-      e = cudaGetLastError();
-    }
-    // conv B backward, masked by h1, over h1
-    if (e == cudaSuccess)
-      e = fpk::launch_gemm<bf16>(conv_bt, fpk::EpiReluMask{h1, h1, ca},
-                                 nullptr, st);
-    // conv A backward, each tap rounded, masked by h0, over h0
-    if (e == cudaSuccess)
-      e = fpk::launch_conv3x3<fpk::kPerTapBf16, true>(
-          conv_at, fpk::EpiConvReluMask{h0, p2 * c0}, st);
-    // fc backward + momentum update
-    if (e == cudaSuccess)
-      e = fpk::launch_gemm<bf16>(
-          fct, fpk::EpiMomentum{z, v, zb, K, momentum, lr}, ws, st);
-  }
-  return (int)e;
+  return fpk::v3::run<false, false, false>(
+      z, v, x, w1, w1t, b1, ka, kat, ba, kbp, kbpt, bb, masks, order,
+      nullptr, zb, h0, h1, obb, dop, ws, M, K, c0, ca, cb, g, npk, kpk,
+      splits, iters, lr, momentum, scale, stream_ptr);
 }
 
 extern "C" const char* fp_error_string(int code) {

@@ -38,7 +38,7 @@ packed apply rounds (after each product, bias add and tanh).
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -379,3 +379,8 @@ def packed_apply_for(generator: Generator, variant: str = "conv"
                      ) -> Callable:
     """Pack the frozen generator; returns gen_apply_flat."""
     return make_packed_apply(pack_generator(generator, variant))
+
+
+def unflatten(flat: torch.Tensor, image_shape: Sequence[int]) -> torch.Tensor:
+    """[N, prod(image_shape)] flat rows -> [N, *image_shape]."""
+    return flat.reshape((flat.shape[0],) + tuple(image_shape))

@@ -31,7 +31,9 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 KERNELS = ("fused_projection_v2", "fused_projection_v2i",
-           "fused_projection_v3", "fused_projection_v4")
+           "fused_projection_v3", "fused_projection_v4",
+           # the experiments' kernels (defensegan_torch/experiments/)
+           "fused_projection_v3_variants", "stream64_level")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

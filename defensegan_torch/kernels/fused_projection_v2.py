@@ -160,10 +160,14 @@ def padded_fc(pack: DensePack):
 def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
              weights, scratch, dims: Sequence[int], *, out_dim: int,
              rec_iters: int, rec_lr: float, momentum: float,
-             chunk: Optional[int] = None) -> torch.Tensor:
+             chunk: Optional[int] = None, entry: Optional[str] = None,
+             counter: Optional[str] = None) -> torch.Tensor:
     """Drive a fused loop's library on CUDA tensors; z_final [N, k].
 
-    Shared by the v2, v2i, v3 and v4 wrappers. Every library entry takes
+    Shared by the v2, v2i, v3 and v4 wrappers and the v3 variants (whose
+    library holds three loops: `entry` names the one to call, `counter`
+    its build.LAUNCHES key; both default to the library's own). Every
+    library entry takes
     (z, v, x, *weights, *scratch, M, *dims, iters, lr, momentum, scale,
     stream). `weights`: the padded pack tensors in the library's argument
     order, W1 [kp, .] first; an entry that is no tensor (a host table of
@@ -172,7 +176,7 @@ def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
     scratch buffer, in argument order. `dims`: the kernel's widths, kp
     first. Rows are zero-padded up to a multiple of ROW_TILE and cropped
     after. They run in chunks of `chunk` rows, one library call (all L steps)
-    each, counted in build.LAUNCHES[name]; by default one chunk, unless
+    each, counted in build.LAUNCHES[counter]; by default one chunk, unless
     its scratch would pass SCRATCH_CAP bytes.
     """
     w1 = weights[0]
@@ -204,7 +208,7 @@ def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
     ptrs = [t.contiguous().data_ptr() if isinstance(t, torch.Tensor) else t
             for t in weights] + [t.data_ptr() for t in bufs]
     lib = build.load(name)
-    fn = getattr(lib, LIBRARY_ENTRY[name])
+    fn = getattr(lib, entry or LIBRARY_ENTRY[name])
     fn.argtypes = [ctypes.c_void_p] * (3 + len(ptrs)) + \
         [ctypes.c_int] * (2 + len(dims)) + [ctypes.c_float] * 3 + \
         [ctypes.c_void_p]
@@ -217,8 +221,8 @@ def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
             rc = fn(z[lo].data_ptr(), v[lo].data_ptr(), x[lo].data_ptr(),
                     *ptrs, min(m, rows - lo), *dims, rec_iters, rec_lr,
                     momentum, 2.0 / out_dim, stream)
-            build.check(lib, rc, name)
-            build.LAUNCHES[name] += 1
+            build.check(lib, rc, entry or name)
+            build.LAUNCHES[counter or name] += 1
     return z[:n, :k]
 
 

@@ -139,8 +139,8 @@ def _bf16_round(a: torch.Tensor) -> torch.Tensor:
 
 def s2d_loop_plain(pack: S2DPack, x_s2d: torch.Tensor, z0: torch.Tensor, *,
                    rec_iters: int, rec_lr: float, momentum: float,
-                   product_dtype: torch.dtype = torch.float32
-                   ) -> torch.Tensor:
+                   product_dtype: torch.dtype = torch.float32,
+                   round_taps: bool = True) -> torch.Tensor:
     """Plain PyTorch version of the v3 loop; returns z_final [N, k].
 
     x_s2d: [N, 49*cb] tanh-space targets in s2d-flat order (rounded to
@@ -150,9 +150,12 @@ def s2d_loop_plain(pack: S2DPack, x_s2d: torch.Tensor, z0: torch.Tensor, *,
     (then z0 has the padded width). On a CUDA device the caller turns TF32
     off. product_dtype=float64 sums every product exactly and rounds the
     sum to float32: the control that shows how far two float32 summation
-    orders of this loop drift apart on their own.
+    orders of this loop drift apart on their own. round_taps=False: conv
+    A's backward rounds once, after the sum of its taps (the tap-packed
+    experiment, experiments/v3_packed.py).
     """
     rnd = _bf16_round
+    tap = rnd if round_taps else (lambda a: a)
     g, c0, ca, cb = pack.grid_hw, pack.c0, pack.ca, pack.cb
     p2 = g * g
     n = z0.shape[0]
@@ -192,7 +195,7 @@ def s2d_loop_plain(pack: S2DPack, x_s2d: torch.Tensor, z0: torch.Tensor, *,
         do = rnd((t - x) * (1.0 - t * t) * scale)
         dop = torch.cat([read(do, k, -1) for k in range(9)], dim=2)
         dh1 = rnd(torch.where(h1 > 0.0, mm(dop, kbpt), 0.0))
-        dh0 = sum(read(rnd(mm(dh1, kat[k])), k, -1) for k in range(9))
+        dh0 = sum(read(tap(mm(dh1, kat[k])), k, -1) for k in range(9))
         dh0 = rnd(torch.where(h0 > 0.0, dh0, 0.0))
         v = momentum * v + mm(dh0.reshape(n, p2 * c0), w1t)
         z = z - rec_lr * v
@@ -237,6 +240,15 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
+def check_targets(pack: S2DPack, x_s2d: torch.Tensor,
+                  z0_flat: torch.Tensor) -> None:
+    """Raise unless x_s2d is [N, 49*cb] for the N rows of z0_flat."""
+    n, out_dim = z0_flat.shape[0], pack.grid_hw ** 2 * pack.cb
+    if tuple(x_s2d.shape) != (n, out_dim):
+        raise ValueError(f"x {tuple(x_s2d.shape)} vs [N, out_dim] = "
+                         f"[{n}, {out_dim}]")
+
+
 def fused_projection_s2d(pack: S2DPack, x_s2d: torch.Tensor,
                          z0_flat: torch.Tensor, *, rec_iters: int,
                          rec_lr: float, momentum: float,
@@ -248,14 +260,25 @@ def fused_projection_s2d(pack: S2DPack, x_s2d: torch.Tensor,
     runs the plain version; a CUDA tensor launches the kernel or raises.
     Rows are zero-padded to a multiple of 64 and cropped after.
     """
-    p2 = pack.grid_hw ** 2
-    n = z0_flat.shape[0]
-    if tuple(x_s2d.shape) != (n, p2 * pack.cb):
-        raise ValueError(f"x {tuple(x_s2d.shape)} vs [N, out_dim] = "
-                         f"[{n}, {p2 * pack.cb}]")
+    check_targets(pack, x_s2d, z0_flat)
     if _on_cpu(z0_flat):
         return s2d_loop_plain(pack, x_s2d, z0_flat, rec_iters=rec_iters,
                               rec_lr=rec_lr, momentum=momentum)
+    return run_s2d(pack, x_s2d, z0_flat, rec_iters=rec_iters, rec_lr=rec_lr,
+                   momentum=momentum, chunk=chunk)
+
+
+def run_s2d(pack: S2DPack, x_s2d: torch.Tensor, z0_flat: torch.Tensor, *,
+            rec_iters: int, rec_lr: float, momentum: float,
+            chunk: Optional[int] = None,
+            library: str = "fused_projection_v3",
+            entry: Optional[str] = None,
+            counter: Optional[str] = None) -> torch.Tensor:
+    """The loop on CUDA tensors through a library entry with fp_v3_run's
+    arguments: v3's own, or one of the layout experiments that keep them
+    (defensegan_torch/experiments/: `library`, `entry`, `counter` as in
+    run_loop)."""
+    p2 = pack.grid_hw ** 2
     pp = padded_s2d(pack)
     npk, kpk = pp.kbp.shape[1], pp.kbpt.shape[0]
     order = torch.from_numpy(pixel_order(pp.grid_hw)).to(z0_flat.device)
@@ -266,26 +289,30 @@ def fused_projection_s2d(pack: S2DPack, x_s2d: torch.Tensor,
     # the scratch is zb, h0, h1, the packed product, the packed do and the
     # fc backward's split sums
     return run_loop(
-        "fused_projection_v3", x_s2d.to(bf), z0_flat,
+        library, x_s2d.to(bf), z0_flat,
         [pp.w1, pp.w1t, pp.b1, pp.ka, pp.kat, pp.ba, pp.kbp, pp.kbpt, pp.bb,
          pp.masks, order],
         [(pp.z_dim, bf), (p2 * pp.c0, bf), (p2 * pp.ca, bf), (p2 * npk, bf),
          (p2 * kpk, bf), (splits * pp.z_dim, torch.float32)],
         (pp.z_dim, pp.c0, pp.ca, pp.cb, pp.grid_hw, npk, kpk, splits),
         out_dim=p2 * pack.cb, rec_iters=rec_iters, rec_lr=rec_lr,
-        momentum=momentum, chunk=chunk)
+        momentum=momentum, chunk=chunk, entry=entry, counter=counter)
 
 
 def make_s2d_reconstructor(generator, image_shape, *, rec_rr: int,
-                           rec_iters: int, rec_lr: float, momentum: float):
+                           rec_iters: int, rec_lr: float, momentum: float,
+                           loop=None):
     """f(x, gen=None, z0=None) -> ReconstructionResult on the fused s2d
     loop, for two-deconv deep generators.
 
     z0 ([B, R, k]) overrides sampling from the torch.Generator `gen`.
     Restart selection and G(z*) run outside the loop on the s2d packed
     apply (MSE is permutation-invariant), so argmin semantics are those of
-    defense/project.py; x_hat is permuted back to image order.
+    defense/project.py; x_hat is permuted back to image order. `loop`:
+    another L loop with `fused_projection_s2d`'s signature (the layout
+    experiments of defensegan_torch/experiments/), the same epilogue.
     """
+    loop = loop or fused_projection_s2d
     pack = pack_s2d(generator)
     packed = pack_generator(generator, "s2d")
     apply_s2d = make_packed_apply(packed)             # flat s2d order
@@ -300,7 +327,7 @@ def make_s2d_reconstructor(generator, image_shape, *, rec_rr: int,
         x_rep = tile_restarts(x_s2d, rec_rr)
         if z0 is None:
             z0 = sample_z0(gen, batch, rec_rr, z_dim, device=x.device)
-        z_fin = fused_projection_s2d(
+        z_fin = loop(
             pack, x_rep, z0.reshape(batch * rec_rr, z_dim),
             rec_iters=rec_iters, rec_lr=rec_lr, momentum=momentum)
         losses = rec_losses(apply_s2d, z_fin, x_rep).reshape(batch, rec_rr)

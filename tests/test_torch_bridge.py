@@ -61,6 +61,8 @@ def _port_sources():
                     ROOT / "multichip_torch.py",
                     ROOT / "scripts" / "int8_validate_torch.py",
                     ROOT / "scripts" / "serving_bench_torch.py",
+                    ROOT / "scripts" / "stream64_probe_torch.py",
+                    ROOT / "scripts" / "pallas_v3_variants_torch.py",
                     # imported by the ranks the CPU tests spawn
                     ROOT / "tests" / "torch_parallel_workers.py"]
 

@@ -15,6 +15,9 @@ tile straddle two runs; chip_smoke.py checks the full widths, where only
 the out level is padded. The grid conv alone (kernels/conv3x3.py) runs at
 published widths and at the edges of its design (CONV_EDGES), and so does
 the GEMM that carries every other product (kernels/gemm.py, GEMM_EDGES).
+The experiments' kernels (defensegan_torch/experiments/) close the file:
+the stream64 level at its published widths, the three v3 variants at the
+narrow deep model's.
 Tolerances are chip_smoke.py's elementwise bounds: kernel and plain
 version differ only in float32 summation order, which flips a bf16
 rounding (2^-8 relative) of an intermediate now and then, carried forward
@@ -25,6 +28,9 @@ import numpy as np
 import pytest
 import torch
 
+from defensegan_torch.experiments import stream64_probe as sp
+from defensegan_torch.experiments.v3_ilp import fused_projection_ilp
+from defensegan_torch.experiments.v3_variants import VARIANTS
 from defensegan_torch.kernels import build
 from defensegan_torch.kernels.conv3x3 import (COUNTER, conv3x3, conv3x3_plain,
                                               rounding_excess, to_fine)
@@ -392,3 +398,61 @@ def test_training_checkpoint_round_trip_on_card(cuda_device, tmp_path):
     assert all(t.device.type == "cpu" for t in steps)
     out = back.train(data, train_iters=3, quiet=True)
     assert back.step == 3 and np.isfinite(out["g_loss"])
+
+
+# ---- the experiments' kernels (defensegan_torch/experiments/): the
+# stream64 level at its published widths, the three v3 variants at the
+# narrow deep model's (their plain versions as tolerances as v3's)
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_stream64_level_matches_plain(cuda_device, level):
+    """dh equal to the plain version's but where the relu test of an h
+    within float32 noise of 0 took the other side, dx within one bf16 ulp
+    of every rounded tap of the plain backward of that dh
+    (stream64_probe.check_against_plain)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = sp.LEVELS[level][0]
+    a = sp.draw_arrays(level, 128, seed=level)
+    pack = sp.level_tensors(*sp.pack_level(a["w"], a["b"], a["scale"],
+                                           a["shift"]), g, cuda_device)
+    x = torch.as_tensor(a["x0"]).to(cuda_device)
+    cot = sp.to_phase_blocked(torch.as_tensor(a["cot"]).to(cuda_device)) \
+        .to(torch.bfloat16)
+    before = build.LAUNCHES[sp.COUNTER]
+    dx, dh = sp.fused_level(x, cot, pack, return_dh=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[sp.COUNTER] == before + 1
+    r = sp.check_against_plain(x, cot, pack, dx, dh)
+    assert r["ok"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 5])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_v3_variant_matches_plain(cuda_device, variant, steps):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tg, x, z0 = _case(cuda_device, arch="deep")
+    pack, var = pack_s2d(tg), VARIANTS[variant]
+    before = build.LAUNCHES[var.counter]
+    got = var.loop(pack, x, z0, rec_iters=steps, rec_lr=LR, momentum=MOM,
+                   chunk=64)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[var.counter] == before + 2    # two 64-row chunks
+    ref = var.plain(pack, x, z0, rec_iters=steps, rec_lr=LR, momentum=MOM)
+    moved = (ref - z0).abs().max().item()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= TOL[steps] * moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 200, 320])
+def test_v3_ilp_equals_v3_bit_for_bit(cuda_device, n):
+    """One chain (64 rows), two equal halves (200 rows padded to 256) and
+    two unequal ones (320: 192 + 128): every row is v3's."""
+    tg, x, z0 = _case(cuda_device, n=n, arch="deep")
+    pack = pack_s2d(tg)
+    kw = dict(rec_iters=5, rec_lr=LR, momentum=MOM)
+    got = fused_projection_ilp(pack, x, z0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_projection_s2d(pack, x, z0, **kw))
