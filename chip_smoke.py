@@ -6,8 +6,8 @@
 Drives the port's three served paths and holds every kernel of them
 against its plain PyTorch version, then the white-box evaluation path
 (phase 6), training (phase 7), the black-box path (phase 8), several
-devices (phase 9) and the ported Pallas experiments of scripts/ (phase
-10):
+devices (phase 9), the ported Pallas experiments of scripts/ (phase 10)
+and its two compile probes (phase 11):
 
   - the flagship (configs/gans/mnist_fast.yml: wide generator, k 128,
     F 6272, 784 outputs padded to P 832; trained step-20000 weights from
@@ -160,8 +160,20 @@ devices (phase 9) and the ported Pallas experiments of scripts/ (phase
           and recon times in turns with v3's, median of 3); every
           experiment's counter must have risen
        d. the variants' plain versions at that shape, one run each
- 11. the `kernels` line (the four loops and the four experiments), then
-     {"ok": true, "device": {...}} last.
+ 11. the compile probes (chip_smoke.probes_phase):
+       a. the ten cases of scripts/pallas_v3_diag.py at its shapes, each
+          kernel against its plain version (v3_diag.check)
+       b. the seven cuts of scripts/pallas_v3_diag2.py on mnist.yml
+          (seeded) at 64 latents: each section against the plain
+          version's from the kernel's own earlier sections, z_out equal to
+          z0 before `full`, `full` row by row as v3 at L 1; then with one
+          NaN in x, the NaN patterns of every cut
+       c. counters set to 0, then the two scripts' runs
+          (v3_diag.run_cases, v3_diag2.run_cuts: each case and cut once,
+          checked, timed: kernel, plain, library composition, median of
+          3); both counters must have risen
+ 12. the `kernels` line (the four loops, the four experiments and the two
+     probes), then {"ok": true, "device": {...}} last.
 
 Every phase prints one JSON line; any failed check exits nonzero. There is
 no CPU fallback: without a CUDA device the script exits 2 and prints no
@@ -1685,6 +1697,138 @@ def experiments_phase(build, deep, v3_timing: dict) -> list:
     return entries
 
 
+# (11) the compile probes (defensegan_torch/experiments/v3_diag.py,
+# v3_diag2.py).
+# 11a holds each of the ten cases at the script's shapes against its plain
+# version (v3_diag.check): the copies, rolls, shifts, lane concats and the
+# mask product bit for bit; the two single products within
+# gemm.rounding_excess (1e-4 of the summed absolute products); the tanh
+# chain (k6) within 8 float32 ulps of the size of its terms; the two
+# chains of four products (k7, k10), which round to bf16 between products,
+# within 1e-2 of the output's largest magnitude (the plain version and the
+# Pallas kernel in interpret mode sit 1.75e-3 of it apart).
+# 11b runs the seven cuts on the seeded mnist.yml at 64 latents. Each
+# section is held against the plain version's computed from the kernel's
+# own earlier sections (v3_diag2.check_sections): one section's float32
+# summation order alone, within one bf16 ulp of each element plus 1e-3 of
+# the section's largest magnitude. (End to end, a relu decision within
+# float32 noise of zero would switch a whole gradient element, as 3a
+# says.) z_out equals z0 bit for bit before `full`; `full` is held row by
+# row as v3 at L 1 (3a's bounds). With one NaN in x: the cuts before the
+# tanh gradient return z0, the summed cuts from it on all NaN, `full` NaN
+# in that latent's row alone; each pattern as the plain version's.
+
+
+def probes_phase(build, deep) -> list:
+    """Phase 11; returns the probes' entries of the `kernels` line."""
+    import torch
+    from defensegan_torch.experiments import v3_diag, v3_diag2
+    from defensegan_torch.kernels.fused_projection_v3 import CUTS, pack_s2d
+    t_phase = time.perf_counter()
+    dev = deep.device
+
+    # ---- 11a. the ten cases against their plain versions
+    cases = {}
+    for name in v3_diag.CASES:
+        inputs = v3_diag.draw_inputs(name, dev)
+        got = v3_diag.diag_case(name, *inputs)
+        torch.cuda.synchronize()
+        cases[name] = v3_diag.check(name, got,
+                                    v3_diag.diag_case_plain(name, *inputs),
+                                    inputs)
+    emit("probe_cases_vs_plain", **cases, chain_tol=v3_diag.CHAIN_TOL,
+         tanh_ulps=v3_diag.ULPS_K6)
+    if not all(r["ok"] for r in cases.values()):
+        fail(f"a probe case left its bound: {cases}")
+
+    # ---- 11b. the seven cuts against the plain version, then a NaN in x
+    pack = pack_s2d(deep.generator)
+    out_dim = pack.grid_hw ** 2 * pack.cb
+    z0, x = v3_diag2.diag2_inputs(pack.z_dim, out_dim, seed=11, device=dev)
+    sections, z0_equal = {}, {}
+    for upto in CUTS:
+        z_out, sections[upto] = v3_diag2.run_cut(pack, x, z0, upto)
+        torch.cuda.synchronize()
+        if upto == "full":
+            z_full = z_out
+        else:
+            z0_equal[upto] = bool(torch.equal(z_out, z0))
+    checked = v3_diag2.check_sections(pack, x, z0, sections)
+    z_ref, _ = v3_diag2.cut_plain(pack, x, z0, "full")
+    full = row_errors(z_full, z_ref, z0)
+    full["ok"] = bool(torch.isfinite(z_full).all()) and \
+        full["row_rel_p50"] <= ELEMENTWISE_TOL[1] and \
+        full["row_rel_max"] <= V3_WORST_ROW_TOL[1]
+    nan_row = 5
+    xn = x.clone()
+    xn[nan_row, 7 * pack.cb + 3] = float("nan")
+    nan = {}
+    for upto in CUTS:
+        zn, _ = v3_diag2.run_cut(pack, xn, z0, upto)
+        zp, _ = v3_diag2.cut_plain(pack, xn, z0, upto)
+        torch.cuda.synchronize()
+        rows = torch.isnan(zn).any(1).nonzero().flatten().tolist()
+        if CUTS.index(upto) < CUTS.index("grad"):
+            ok = torch.equal(zn, z0)
+        elif upto != "full":
+            ok = bool(torch.isnan(zn).all())
+        else:
+            ok = rows == [nan_row] and bool(torch.isnan(zn[nan_row]).all())
+        nan[upto] = dict(nan_rows=len(rows), ok=bool(ok) and torch.equal(
+            torch.isnan(zn), torch.isnan(zp)))
+    emit("probe_cuts_vs_plain", sections=checked, z0_equal=z0_equal,
+         full=dict(**full, tol_row_p50=ELEMENTWISE_TOL[1],
+                   tol_row_max=V3_WORST_ROW_TOL[1]), nan=nan,
+         section_ulp=v3_diag2.SECTION_ULP,
+         section_abs=v3_diag2.SECTION_ABS, latents=v3_diag2.TILE)
+    if not (all(r["ok"] for r in checked.values())
+            and all(z0_equal.values()) and full["ok"]
+            and all(r["ok"] for r in nan.values())):
+        fail(f"a cut against its plain version: {checked}, {z0_equal}, "
+             f"{full}, {nan}")
+
+    # ---- 11c. the two scripts' runs, counters from 0
+    build.reset_launches()
+    recs = v3_diag.run_cases(dev)
+    cut_recs = v3_diag2.run_cuts(pack, x, z0, repeats=3)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    one = dict(rec_iters=1, rec_lr=v3_diag2.LR, momentum=v3_diag2.MOMENTUM)
+    full_library_ms = median_ms(lambda: library_loop_v3(pack, x, z0, **one))
+    full_bound = bounds_v3(deep.generator, pack, v3_diag2.TILE, 1)
+    emit("probe_runs", cases=recs, cuts=cut_recs,
+         full_library_ms=full_library_ms, full_bound=full_bound,
+         launches={c: launches[c] for c in (v3_diag.COUNTER,
+                                            v3_diag2.COUNTER)},
+         phase_s=time.perf_counter() - t_phase)
+    if not all(r["ok"] for r in recs + cut_recs):
+        fail(f"a probe's run failed: {recs}, {cut_recs}")
+    if launches[v3_diag.COUNTER] <= 0 or launches[v3_diag2.COUNTER] <= 0:
+        fail(f"a probe's kernel never launched: {launches}")
+    by_cut = {r["upto"]: r for r in cut_recs}
+    return [{
+        "name": v3_diag.COUNTER, "route": "cuda",
+        "source": "defensegan_torch/csrc/v3_diag.cu",
+        "replaces": "scripts/pallas_v3_diag.py:30",
+        "launches": launches[v3_diag.COUNTER],
+        "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+        "ms": sum(r["ms"] for r in recs),
+        "plain_ms": sum(r["plain_ms"] for r in recs),
+        "bound_ms": sum(r["bound_ms"] for r in recs),
+        "bound_by": "operations" if all(r["bound_by"] == "operations"
+                                        for r in recs) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in recs)}, {
+        "name": v3_diag2.COUNTER, "route": "cuda",
+        "source": "defensegan_torch/csrc/v3_diag2.cu",
+        "replaces": "scripts/pallas_v3_diag2.py:30",
+        "launches": launches[v3_diag2.COUNTER],
+        "max_abs_err": full["max_abs_err"],
+        "ms": by_cut["full"]["ms"], "plain_ms": by_cut["full"]["plain_ms"],
+        "bound_ms": full_bound["bound_ms"],
+        "bound_by": full_bound["bound_by"],
+        "library_ms": full_library_ms}]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2400,7 +2544,13 @@ def main() -> int:
     print(json.dumps({"phase": "phase_10", "s": time.perf_counter() - t0}),
           flush=True)
 
-    # ------------------------------------------------- 11. kernels line
+    # ---------------------------------------- 11. the compile probes
+    t0 = time.perf_counter()
+    probes = probes_phase(build, deep)
+    print(json.dumps({"phase": "phase_11", "s": time.perf_counter() - t0}),
+          flush=True)
+
+    # ------------------------------------------------- 12. kernels line
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": kk["source"],
          "replaces": kk["replaces"], "launches": launches[name],
@@ -2409,7 +2559,7 @@ def main() -> int:
          "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name]["library_ms"]}
-        for name, kk in kernels.items()] + experiments}
+        for name, kk in kernels.items()] + experiments + probes}
     RECORD["kernels"] = line
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -1,7 +1,8 @@
 // The step of the deep loop v3 and its L loop, shared by
-// fused_projection_v3.cu (v3) and fused_projection_v3_variants.cu (the
-// layout experiments v3p, packed and ilp, which change one switch each;
-// see those files' headers for the function, the layouts and the design).
+// fused_projection_v3.cu (v3), fused_projection_v3_variants.cu (the
+// layout experiments v3p, packed and ilp, which change one switch each)
+// and v3_diag2.cu (the step cut after one of its sections; see those
+// files' headers for the function, the layouts and the design).
 //
 // A chain is one row range's step: seven launches (eight with the split-K
 // sum) over its own buffers, its products' tensor maps encoded once per
@@ -16,8 +17,14 @@
 //   kChainBackward  conv A's backward sums its taps in one chain and rounds
 //                   once (v3 rounds each tap);
 //   kTwoChains      two independent chains (ilp).
-// With all three off it is v3's loop, launch for launch.
+// With all three off it is v3's loop, launch for launch. `step` takes two
+// more, for v3_diag2.cu alone: kF32ConvB (conv B's packed product stored
+// in float32, tanh_grad_pack reading it so) and the cut (`upto`: the step
+// ends after that section; the conv B and tanh-gradient cuts write o and
+// do out of tanh_grad_pack's first phase).
 #pragma once
+
+#include <type_traits>
 
 #include "conv3x3_sm90.cuh"
 #include "gemm_sm90.cuh"
@@ -27,6 +34,9 @@ namespace v3 {
 
 constexpr int kPackThreads = 256;
 
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
 // One block per latent m, on a grid of gy rows of gx pixels (P = gy*gx).
 // Phase 1: o[p, c] = bb[c] + sum over counted taps of obb[m, p+off_k,
 // k*cb + c] (k ascending, f32); t = tanh(o); do[p, c] = bf16((t - x)(1 -
@@ -35,19 +45,22 @@ constexpr int kPackThreads = 256;
 // zero. kPadded = false: v3's tanh_grad_pack (a tap counts where masks
 // says its source pixel is in the grid). kPadded = true: a tap counts where
 // its source pixel index lies in [0, P), and do is zero on pad pixels
-// (padm[p] == 0).
-template <bool kPadded>
+// (padm[p] == 0). Ob: obb's type (bf16; float under kF32ConvB). kExits:
+// phase 1 also writes o and do to o_out and do_out [M, P*cb], and phase 2
+// does not run (the step's conv B and tanh-gradient cuts).
+template <bool kPadded, typename Ob = bf16, bool kExits = false>
 __global__ void __launch_bounds__(kPackThreads)
-    tanh_grad_pack(const bf16* __restrict__ obb, const bf16* __restrict__ x,
+    tanh_grad_pack(const Ob* __restrict__ obb, const bf16* __restrict__ x,
                    const float* __restrict__ bb,
                    const float* __restrict__ masks,
                    const float* __restrict__ padm, bf16* __restrict__ dop,
+                   float* __restrict__ o_out, bf16* __restrict__ do_out,
                    int gy, int gx, int cb, int npk, int kpk, float scale) {
   extern __shared__ __align__(16) unsigned char s_raw[];
   bf16* s_do = reinterpret_cast<bf16*>(s_raw);
   const int p2 = gy * gx;
   const size_t m = blockIdx.x;
-  const bf16* ob = obb + m * p2 * npk;
+  const Ob* ob = obb + m * p2 * npk;
   const bf16* xr = x + m * p2 * cb;
   const bf16 zero = __float2bfloat16_rn(0.0f);
   for (int i = threadIdx.x; i < p2 * cb; i += kPackThreads) {
@@ -57,13 +70,18 @@ __global__ void __launch_bounds__(kPackThreads)
       int off = (k / 3 - 1) * gx + (k % 3 - 1);
       bool counts = kPadded ? (p + off >= 0 && p + off < p2)
                             : masks[p * 9 + k] != 0.0f;
-      if (counts) o += __bfloat162float(ob[(p + off) * npk + k * cb + c]);
+      if (counts) o += to_f32(ob[(p + off) * npk + k * cb + c]);
     }
     float t = tanhf(o);
     float res = t - __bfloat162float(xr[i]);
     s_do[i] = __float2bfloat16_rn(res * (1.0f - t * t) * scale);
     if (kPadded && padm[p] == 0.0f) s_do[i] = zero;
+    if constexpr (kExits) {
+      o_out[m * p2 * cb + i] = o;
+      do_out[m * p2 * cb + i] = s_do[i];
+    }
   }
+  if constexpr (kExits) return;
   __syncthreads();
   bf16* dp = dop + m * p2 * kpk;
   for (int i = threadIdx.x; i < p2 * kpk; i += kPackThreads) {
@@ -123,12 +141,14 @@ struct EpiConvBiasReluPad {
 
 // One step chain over rows [0, M) of its buffers: the products' tensor maps
 // (encoded once) and the buffers they read and write.
+// obf, osec, dosec: v3_diag2.cu's float32 conv B product and its o and do
+// cut outputs (set by the caller; unused elsewhere).
 struct Chain {
   fpk::Conv3x3 conv_a, conv_at;
   fpk::Gemm fc, fct, conv_b, conv_bt;
-  float *z, *v, *ws;
+  float *z, *v, *ws, *obf, *osec;
   const bf16* x;
-  bf16 *zb, *h0, *h1, *obb, *dop;
+  bf16 *zb, *h0, *h1, *obb, *dop, *dosec;
   const float *b1, *ba, *bb, *masks, *padm;
   int M, K, F, gy, gx, ca, cb, npk, kpk;
   float lr, momentum, scale;
@@ -190,11 +210,28 @@ inline cudaError_t make_chain(
   return e;
 }
 
+// Where `step` may end: after the fc (h0), conv A (h1), conv B (o), the
+// tanh gradient (do), conv B's backward (dh1, over h1), conv A's backward
+// (dh0, over h0), or the whole step.
+enum Cut : int {
+  kCutFc,
+  kCutConvA,
+  kCutConvB,
+  kCutGrad,
+  kCutConvBBwd,
+  kCutConvABwd,
+  kCutFull
+};
+
 // One projection step of a chain: fused_projection_v3.cu's seven launches
-// (eight with the split-K sum), with the variant's changes.
-template <bool kPadded, bool kChainBackward>
-inline cudaError_t step(const Chain& ch, cudaStream_t st) {
+// (eight with the split-K sum), with the variant's changes; cut after
+// section `upto`.
+template <bool kPadded, bool kChainBackward, bool kF32ConvB = false>
+inline cudaError_t step(const Chain& ch, cudaStream_t st,
+                        int upto = kCutFull) {
+  using Ob = typename std::conditional<kF32ConvB, float, bf16>::type;
   const int p2 = ch.gy * ch.gx;
+  const size_t smem = p2 * ch.cb * sizeof(bf16);
   cudaError_t e;
   // fc forward
   if constexpr (kPadded) {
@@ -204,46 +241,57 @@ inline cudaError_t step(const Chain& ch, cudaStream_t st) {
     e = fpk::launch_gemm<bf16>(ch.fc, fpk::EpiBiasRelu{ch.b1, ch.h0, ch.F},
                                nullptr, st);
   }
+  if (e != cudaSuccess || upto == kCutFc) return e;
   // conv A forward
-  if (e == cudaSuccess) {
-    if constexpr (kPadded) {
-      e = fpk::launch_conv3x3<fpk::kChain, false>(
-          ch.conv_a,
-          EpiConvBiasReluPad{ch.ba, ch.padm, ch.h1, p2 * ch.ca, ch.ca}, st);
-    } else {
-      e = fpk::launch_conv3x3<fpk::kChain, false>(
-          ch.conv_a, fpk::EpiConvBiasRelu{ch.ba, ch.h1, p2 * ch.ca}, st);
-    }
+  if constexpr (kPadded) {
+    e = fpk::launch_conv3x3<fpk::kChain, false>(
+        ch.conv_a,
+        EpiConvBiasReluPad{ch.ba, ch.padm, ch.h1, p2 * ch.ca, ch.ca}, st);
+  } else {
+    e = fpk::launch_conv3x3<fpk::kChain, false>(
+        ch.conv_a, fpk::EpiConvBiasRelu{ch.ba, ch.h1, p2 * ch.ca}, st);
   }
+  if (e != cudaSuccess || upto == kCutConvA) return e;
   // conv B forward, packed
-  if (e == cudaSuccess)
+  const Ob* ob;
+  if constexpr (kF32ConvB) {
+    ob = ch.obf;
+    e = fpk::launch_gemm<bf16>(ch.conv_b, fpk::EpiStoreF32{ch.obf, ch.npk},
+                               nullptr, st);
+  } else {
+    ob = ch.obb;
     e = fpk::launch_gemm<bf16>(ch.conv_b, fpk::EpiStoreBf16{ch.obb, ch.npk},
                                nullptr, st);
-  // tap sum, tanh gradient, tap-major pack of do
-  if (e == cudaSuccess) {
-    tanh_grad_pack<kPadded><<<ch.M, kPackThreads, p2 * ch.cb * sizeof(bf16),
-                              st>>>(ch.obb, ch.x, ch.bb, ch.masks, ch.padm,
-                                    ch.dop, ch.gy, ch.gx, ch.cb, ch.npk,
-                                    ch.kpk, ch.scale);
-    e = cudaGetLastError();
   }
+  if (e != cudaSuccess) return e;
+  // tap sum, tanh gradient: cut there (o and do out), or on to the
+  // tap-major pack of do
+  if (upto == kCutConvB || upto == kCutGrad) {
+    tanh_grad_pack<kPadded, Ob, true><<<ch.M, kPackThreads, smem, st>>>(
+        ob, ch.x, ch.bb, ch.masks, ch.padm, nullptr, ch.osec, ch.dosec, ch.gy,
+        ch.gx, ch.cb, ch.npk, ch.kpk, ch.scale);
+    return cudaGetLastError();
+  }
+  tanh_grad_pack<kPadded, Ob><<<ch.M, kPackThreads, smem, st>>>(
+      ob, ch.x, ch.bb, ch.masks, ch.padm, ch.dop, nullptr, nullptr, ch.gy,
+      ch.gx, ch.cb, ch.npk, ch.kpk, ch.scale);
+  e = cudaGetLastError();
   // conv B backward, masked by h1, over h1
   if (e == cudaSuccess)
     e = fpk::launch_gemm<bf16>(ch.conv_bt,
                                fpk::EpiReluMask{ch.h1, ch.h1, ch.ca}, nullptr,
                                st);
+  if (e != cudaSuccess || upto == kCutConvBBwd) return e;
   // conv A backward, masked by h0, over h0: each tap rounded, or (packed)
   // the taps in one chain, rounded once
-  if (e == cudaSuccess)
-    e = fpk::launch_conv3x3<kChainBackward ? fpk::kChain : fpk::kPerTapBf16,
-                            true>(ch.conv_at,
-                                  fpk::EpiConvReluMask{ch.h0, ch.F}, st);
+  e = fpk::launch_conv3x3<kChainBackward ? fpk::kChain : fpk::kPerTapBf16,
+                          true>(ch.conv_at, fpk::EpiConvReluMask{ch.h0, ch.F},
+                                st);
+  if (e != cudaSuccess || upto == kCutConvABwd) return e;
   // fc backward + momentum update
-  if (e == cudaSuccess)
-    e = fpk::launch_gemm<bf16>(
-        ch.fct, fpk::EpiMomentum{ch.z, ch.v, ch.zb, ch.K, ch.momentum, ch.lr},
-        ch.ws, st);
-  return e;
+  return fpk::launch_gemm<bf16>(
+      ch.fct, fpk::EpiMomentum{ch.z, ch.v, ch.zb, ch.K, ch.momentum, ch.lr},
+      ch.ws, st);
 }
 
 // The L loop. kTwoChains: the rows in two halves (the first a multiple of

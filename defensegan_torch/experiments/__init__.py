@@ -17,6 +17,12 @@ functions its script drives; the scripts themselves are thin:
   v3_variants          the A/B of the three against v3
                        (scripts/pallas_v3p_bench.py and the two scripts'
                        main -> scripts/pallas_v3_variants_torch.py)
+  v3_diag              the ten construct probes of the v3 kernel
+                       (scripts/pallas_v3_diag.py ->
+                       scripts/pallas_v3_diag_torch.py)
+  v3_diag2             v3's step cut after each of its sections
+                       (scripts/pallas_v3_diag2.py ->
+                       scripts/pallas_v3_diag2_torch.py)
 
 Nothing on the served path imports them.
 """

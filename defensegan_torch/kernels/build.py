@@ -33,7 +33,8 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 KERNELS = ("fused_projection_v2", "fused_projection_v2i",
            "fused_projection_v3", "fused_projection_v4",
            # the experiments' kernels (defensegan_torch/experiments/)
-           "fused_projection_v3_variants", "stream64_level")
+           "fused_projection_v3_variants", "stream64_level", "v3_diag",
+           "v3_diag2")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -137,6 +137,109 @@ def _bf16_round(a: torch.Tensor) -> torch.Tensor:
     return a.to(torch.bfloat16).float()
 
 
+# Where v3's step may be cut (the sections of scripts/pallas_v3_diag2.py
+# and of csrc/fused_projection_v3_step.cuh's `upto`), in step order
+CUTS = ("fc", "convA", "convB", "grad", "convB_bwd", "convA_bwd", "full")
+
+
+def s2d_step_plain(pack: S2DPack, x_s2d: torch.Tensor, z: torch.Tensor,
+                   v: torch.Tensor, *, rec_lr: float, momentum: float,
+                   product_dtype: torch.dtype = torch.float32,
+                   round_taps: bool = True, round_obb: bool = True,
+                   upto: str = "full", given: Optional[dict] = None):
+    """One step of `s2d_loop_plain`; returns (z, v, sections).
+
+    sections: each section's tensor up to the cut `upto` (CUTS), latent-
+    major and flat [N, 49*C] in float32, as the kernel stores it: "fc" h0,
+    "convA" h1 (both rounded to bf16), "convB" o (float32), "grad" do,
+    "convB_bwd" dh1, "convA_bwd" dh0 (bf16), "full" the new v. A cut
+    before "full" returns z and v as they were. `given` maps sections to
+    tensors taken as they are instead of computed (a kernel's own, so
+    that one section's arithmetic can be held alone). round_obb=False
+    keeps conv B's packed product in float32 (v3 rounds it to bf16).
+    """
+    if upto not in CUTS:
+        raise ValueError(f"upto={upto!r} is not one of {CUTS}")
+    rnd = _bf16_round
+    tap = rnd if round_taps else (lambda a: a)
+    obr = rnd if round_obb else (lambda a: a)
+    g, c0, ca, cb = pack.grid_hw, pack.c0, pack.ca, pack.cb
+    p2 = g * g
+    n = z.shape[0]
+    offs = [dy * g + dx for dy, dx in _tap_offsets(g)]
+    pd = product_dtype
+    given = given or {}
+    sections = {}
+
+    def mm(a, w):
+        """a @ w summed in the product dtype, the sum rounded to f32."""
+        return (a.to(pd) @ w).float()
+
+    def read(a, k, sign=1):
+        """a[:, p + sign*off_k, :] per pixel p, zero where that pixel
+        leaves the grid (p - off_k is p + off_{8-k})."""
+        valid = pack.masks[:, k if sign > 0 else 8 - k]
+        return torch.roll(a, -sign * offs[k], dims=1) * valid[None, :, None]
+
+    def section(name, compute, store=lambda a: a):
+        """The section's value: given, else computed; kept as stored."""
+        t = given.get(name)
+        val = compute() if t is None else t.float().reshape(n, p2, -1)
+        sections[name] = store(val).reshape(n, -1)
+        return val
+
+    w1, w1t = pack.w1.to(pd), pack.w1t.to(pd)
+    ka = pack.ka.to(pd).reshape(9, c0, ca)
+    kat = pack.kat.to(pd).reshape(9, ca, c0)
+    kbp = pack.kbp.to(pd)[:, :9 * cb]
+    kbpt = pack.kbpt.to(pd)[:9 * cb]
+    x = rnd(x_s2d).reshape(n, p2, cb)
+    scale = 2.0 / (p2 * cb)
+
+    h0 = section("fc", lambda: torch.relu(
+        mm(rnd(z), w1).reshape(n, p2, c0) + pack.b1), rnd)
+    if upto == "fc":
+        return z, v, sections
+    h0b = rnd(h0)
+    h1 = section("convA", lambda: torch.relu(
+        sum(mm(read(h0b, k), ka[k]) for k in range(9)) + pack.ba), rnd)
+    if upto == "convA":
+        return z, v, sections
+
+    def conv_b():
+        obb = obr(mm(rnd(h1), kbp))                      # [N, 49, 9*cb]
+        o = pack.bb + torch.zeros_like(x)
+        for k in range(9):
+            o = o + read(obb[:, :, k * cb:(k + 1) * cb], k)
+        return o
+
+    o = section("convB", conv_b)
+    if upto == "convB":
+        return z, v, sections
+
+    def grad():
+        t = torch.tanh(o)
+        return rnd((t - x) * (1.0 - t * t) * scale)
+
+    do = section("grad", grad)
+    if upto == "grad":
+        return z, v, sections
+    dop = torch.cat([read(do, k, -1) for k in range(9)], dim=2)
+    dh1 = section("convB_bwd", lambda: rnd(
+        torch.where(h1 > 0.0, mm(dop, kbpt), 0.0)))
+    if upto == "convB_bwd":
+        return z, v, sections
+    dh0 = section("convA_bwd", lambda: rnd(torch.where(
+        h0 > 0.0, sum(read(tap(mm(dh1, kat[k])), k, -1) for k in range(9)),
+        0.0)))
+    if upto == "convA_bwd":
+        return z, v, sections
+    v = momentum * v + mm(dh0.reshape(n, p2 * c0), w1t)
+    z = z - rec_lr * v
+    sections["full"] = v
+    return z, v, sections
+
+
 def s2d_loop_plain(pack: S2DPack, x_s2d: torch.Tensor, z0: torch.Tensor, *,
                    rec_iters: int, rec_lr: float, momentum: float,
                    product_dtype: torch.dtype = torch.float32,
@@ -152,53 +255,15 @@ def s2d_loop_plain(pack: S2DPack, x_s2d: torch.Tensor, z0: torch.Tensor, *,
     sum to float32: the control that shows how far two float32 summation
     orders of this loop drift apart on their own. round_taps=False: conv
     A's backward rounds once, after the sum of its taps (the tap-packed
-    experiment, experiments/v3_packed.py).
+    experiment, experiments/v3_packed.py). One step is `s2d_step_plain`.
     """
-    rnd = _bf16_round
-    tap = rnd if round_taps else (lambda a: a)
-    g, c0, ca, cb = pack.grid_hw, pack.c0, pack.ca, pack.cb
-    p2 = g * g
-    n = z0.shape[0]
-    offs = [dy * g + dx for dy, dx in _tap_offsets(g)]
-    pd = product_dtype
-
-    def mm(a, w):
-        """a @ w summed in the product dtype, the sum rounded to f32."""
-        return (a.to(pd) @ w).float()
-
-    w1, w1t = pack.w1.to(pd), pack.w1t.to(pd)
-    ka = pack.ka.to(pd).reshape(9, c0, ca)
-    kat = pack.kat.to(pd).reshape(9, ca, c0)
-    kbp = pack.kbp.to(pd)[:, :9 * cb]
-    kbpt = pack.kbpt.to(pd)[:9 * cb]
-    x = rnd(x_s2d).reshape(n, p2, cb)
-    scale = 2.0 / (p2 * cb)
-
-    def read(a, k, sign=1):
-        """a[:, p + sign*off_k, :] per pixel p, zero where that pixel
-        leaves the grid (p - off_k is p + off_{8-k})."""
-        valid = pack.masks[:, k if sign > 0 else 8 - k]
-        return torch.roll(a, -sign * offs[k], dims=1) * valid[None, :, None]
-
     z = z0.float().clone()
     v = torch.zeros_like(z)
     for _ in range(rec_iters):
-        h0 = torch.relu(mm(rnd(z), w1).reshape(n, p2, c0) + pack.b1)
-        h0b = rnd(h0)
-        h1 = sum(mm(read(h0b, k), ka[k]) for k in range(9))
-        h1 = torch.relu(h1 + pack.ba)
-        obb = rnd(mm(rnd(h1), kbp))                      # [N, 49, 9*cb]
-        o = pack.bb + torch.zeros_like(x)
-        for k in range(9):
-            o = o + read(obb[:, :, k * cb:(k + 1) * cb], k)
-        t = torch.tanh(o)
-        do = rnd((t - x) * (1.0 - t * t) * scale)
-        dop = torch.cat([read(do, k, -1) for k in range(9)], dim=2)
-        dh1 = rnd(torch.where(h1 > 0.0, mm(dop, kbpt), 0.0))
-        dh0 = sum(read(tap(mm(dh1, kat[k])), k, -1) for k in range(9))
-        dh0 = rnd(torch.where(h0 > 0.0, dh0, 0.0))
-        v = momentum * v + mm(dh0.reshape(n, p2 * c0), w1t)
-        z = z - rec_lr * v
+        z, v, _ = s2d_step_plain(pack, x_s2d, z, v, rec_lr=rec_lr,
+                                 momentum=momentum,
+                                 product_dtype=product_dtype,
+                                 round_taps=round_taps)
     return z
 
 

@@ -63,6 +63,9 @@ def _port_sources():
                     ROOT / "scripts" / "serving_bench_torch.py",
                     ROOT / "scripts" / "stream64_probe_torch.py",
                     ROOT / "scripts" / "pallas_v3_variants_torch.py",
+                    ROOT / "scripts" / "pallas_v3_diag_torch.py",
+                    ROOT / "scripts" / "pallas_v3_diag2_torch.py",
+                    ROOT / "scripts" / "torch_v3_zfinal.py",
                     # imported by the ranks the CPU tests spawn
                     ROOT / "tests" / "torch_parallel_workers.py"]
 

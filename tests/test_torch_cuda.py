@@ -17,7 +17,8 @@ published widths and at the edges of its design (CONV_EDGES), and so does
 the GEMM that carries every other product (kernels/gemm.py, GEMM_EDGES).
 The experiments' kernels (defensegan_torch/experiments/) close the file:
 the stream64 level at its published widths, the three v3 variants at the
-narrow deep model's.
+narrow deep model's, the ten construct probes at their script's shapes and
+the cut steps at the narrow deep model's widths.
 Tolerances are chip_smoke.py's elementwise bounds: kernel and plain
 version differ only in float32 summation order, which flips a bf16
 rounding (2^-8 relative) of an intermediate now and then, carried forward
@@ -29,6 +30,7 @@ import pytest
 import torch
 
 from defensegan_torch.experiments import stream64_probe as sp
+from defensegan_torch.experiments import v3_diag, v3_diag2
 from defensegan_torch.experiments.v3_ilp import fused_projection_ilp
 from defensegan_torch.experiments.v3_variants import VARIANTS
 from defensegan_torch.kernels import build
@@ -39,7 +41,7 @@ from defensegan_torch.kernels.fused_projection_v2 import (
 from defensegan_torch.kernels.fused_projection_v2i import (
     dense_int8_loop_plain, fused_projection_dense_int8, pack_dense_int8)
 from defensegan_torch.kernels.fused_projection_v3 import (
-    fused_projection_s2d, pack_s2d, s2d_loop_plain)
+    CUTS, fused_projection_s2d, pack_s2d, s2d_loop_plain)
 from defensegan_torch.kernels.fused_projection_v4 import (
     fused_projection_v4, pack_v4, v4_loop_plain, x_rows)
 from defensegan_torch.kernels.gemm import COUNTER as GEMM_COUNTER
@@ -456,3 +458,46 @@ def test_v3_ilp_equals_v3_bit_for_bit(cuda_device, n):
     got = fused_projection_ilp(pack, x, z0, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, fused_projection_s2d(pack, x, z0, **kw))
+
+
+# ---- the two compile probes (defensegan_torch/experiments/v3_diag.py,
+# v3_diag2.py): the ten cases at the script's shapes, the seven cuts at the
+# narrow deep model's widths (padded to the kernel's tiles and cropped)
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(v3_diag.CASES))
+def test_v3_diag_case_matches_plain(cuda_device, name):
+    """Within the case's bound (v3_diag.check: copies bit for bit, products
+    within gemm.rounding_excess, k6 within 8 float32 ulps of its terms,
+    the chains within 1e-2 of the largest magnitude)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = v3_diag.draw_inputs(name, cuda_device)
+    before = build.LAUNCHES[v3_diag.COUNTER]
+    got = v3_diag.diag_case(name, *inputs)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[v3_diag.COUNTER] == before + 1
+    r = v3_diag.check(name, got, v3_diag.diag_case_plain(name, *inputs),
+                      inputs)
+    assert r["ok"], r
+
+
+@pytest.mark.cuda
+def test_v3_diag2_cuts_match_plain(cuda_device):
+    """Each section within one bf16 ulp plus 1e-3 of its largest magnitude
+    of the plain version's from the kernel's earlier sections, z_out equal
+    to z0 before `full`, `full` within TOL[1] of the step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tg, x, z0 = _case(cuda_device, n=100, arch="deep")
+    pack = pack_s2d(tg)
+    sections = {}
+    for upto in CUTS:
+        before = build.LAUNCHES[v3_diag2.COUNTER]
+        z_out, sections[upto] = v3_diag2.run_cut(pack, x, z0, upto)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[v3_diag2.COUNTER] == before + 1
+        if upto != "full":
+            assert torch.equal(z_out, z0), upto
+    res = v3_diag2.check_sections(pack, x, z0, sections)
+    assert all(r["ok"] for r in res.values()), res
+    ref, _ = v3_diag2.cut_plain(pack, x, z0, "full")
+    moved = (ref - z0).abs().max().item()
+    assert (z_out - ref).abs().max().item() <= TOL[1] * moved
