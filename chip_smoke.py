@@ -167,11 +167,26 @@ and its two compile probes (phase 11):
           (seeded) at 64 latents: each section against the plain
           version's from the kernel's own earlier sections, z_out equal to
           z0 before `full`, `full` row by row as v3 at L 1; then with one
-          NaN in x, the NaN patterns of every cut
+          NaN in x, the NaN patterns of every cut; one plan
+          (v3_diag2.prepare) through every cut, clean and NaN, its
+          graphs replayed, bit for bit against the fresh calls (a pack
+          alone: the same launches issued one by one)
        c. counters set to 0, then the two scripts' runs
-          (v3_diag.run_cases, v3_diag2.run_cuts: each case and cut once,
-          checked, timed: kernel, plain, library composition, median of
-          3); both counters must have risen
+          (v3_diag.run_cases, v3_diag2.run_cuts: each case and cut
+          checked, then timed on the host clock, 20 calls in a row, the
+          median of PROBE_REPEATS rounds (a cut: 3) in turns with the
+          plain version and the library composition, and on the card by
+          CUDA events: a cut on its plan, with its device profile);
+          both counters must have risen; the launch path's floor
+          (v3_diag.launch_costs: a bare ctypes call, an empty kernel, a
+          torch op); no case may be slower than its PyTorch composition:
+          the median over the rounds of the kernel's host time over the
+          composition's, both writing into the same given output (the
+          launch path against torch's dispatch; the allocating calls'
+          ratio is recorded beside it)
+       d. v3's z_final at 512 rows x L 5 and 10240 x L 200 against the
+          digests of scripts/torch_v3_zfinal.py; a card or torch build
+          with no recorded digest fails the phase
  12. the `kernels` line (the four loops, the four experiments and the two
      probes), then {"ok": true, "device": {...}} last.
 
@@ -1719,6 +1734,25 @@ def experiments_phase(build, deep, v3_timing: dict) -> list:
 # in that latent's row alone; each pattern as the plain version's.
 
 
+ZFINAL_SHAPES = ((512, 5), (10240, 200))     # v3's z_final, rows x L
+# rounds of the probe cases' host timing (20 calls each, the kernel, its
+# plain version and its library composition in turns): a case's host time
+# is a few microseconds, and the machine's host wanders by more than the
+# gap between the kernel and torch's own op within a round or two
+PROBE_REPEATS = 21
+
+
+def _zfinal_module():
+    """scripts/torch_v3_zfinal.py as a module (its `zfinal`)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_v3_zfinal", os.path.join(ROOT, "scripts",
+                                        "torch_v3_zfinal.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def probes_phase(build, deep) -> list:
     """Phase 11; returns the probes' entries of the `kernels` line."""
     import torch
@@ -1726,13 +1760,14 @@ def probes_phase(build, deep) -> list:
     from defensegan_torch.kernels.fused_projection_v3 import CUTS, pack_s2d
     t_phase = time.perf_counter()
     dev = deep.device
+    sync = torch.cuda.synchronize
 
     # ---- 11a. the ten cases against their plain versions
     cases = {}
     for name in v3_diag.CASES:
         inputs = v3_diag.draw_inputs(name, dev)
         got = v3_diag.diag_case(name, *inputs)
-        torch.cuda.synchronize()
+        sync()
         cases[name] = v3_diag.check(name, got,
                                     v3_diag.diag_case_plain(name, *inputs),
                                     inputs)
@@ -1741,63 +1776,89 @@ def probes_phase(build, deep) -> list:
     if not all(r["ok"] for r in cases.values()):
         fail(f"a probe case left its bound: {cases}")
 
-    # ---- 11b. the seven cuts against the plain version, then a NaN in x
+    # ---- 11b. the seven cuts against the plain version, then a NaN in x;
+    # one plan through every cut (graph replays) bit for bit against the
+    # fresh calls (launches one by one)
     pack = pack_s2d(deep.generator)
     out_dim = pack.grid_hw ** 2 * pack.cb
     z0, x = v3_diag2.diag2_inputs(pack.z_dim, out_dim, seed=11, device=dev)
-    sections, z0_equal = {}, {}
-    for upto in CUTS:
-        z_out, sections[upto] = v3_diag2.run_cut(pack, x, z0, upto)
-        torch.cuda.synchronize()
-        if upto == "full":
-            z_full = z_out
-        else:
-            z0_equal[upto] = bool(torch.equal(z_out, z0))
+    nan_row = 5
+    xn = x.clone()
+    xn[nan_row, 7 * pack.cb + 3] = float("nan")
+    plan = v3_diag2.prepare(pack, z0.shape[0], dev)
+    sections, z0_equal, nan, plan_equal = {}, {}, {}, {}
+    for targets in (x, xn):
+        for upto in CUTS:
+            z_out, sec = v3_diag2.run_cut(pack, targets, z0, upto)
+            sync()
+            got = v3_diag2.run_cut(plan, targets, z0, upto)
+            sync()
+            plan_equal[f"{upto}{'' if targets is x else '.nan'}"] = all(
+                torch.equal(a.nan_to_num(), b.nan_to_num()) and
+                torch.equal(a.isnan(), b.isnan())
+                for a, b in zip(got, (z_out, sec)))
+            if targets is x:
+                sections[upto] = sec
+                if upto == "full":
+                    z_full = z_out
+                else:
+                    z0_equal[upto] = bool(torch.equal(z_out, z0))
+                continue
+            zp, _ = v3_diag2.cut_plain(pack, xn, z0, upto)
+            rows = torch.isnan(z_out).any(1).nonzero().flatten().tolist()
+            if CUTS.index(upto) < CUTS.index("grad"):
+                ok = torch.equal(z_out, z0)
+            elif upto != "full":
+                ok = bool(torch.isnan(z_out).all())
+            else:
+                ok = rows == [nan_row] and bool(
+                    torch.isnan(z_out[nan_row]).all())
+            nan[upto] = dict(nan_rows=len(rows), ok=bool(ok) and torch.equal(
+                torch.isnan(z_out), torch.isnan(zp)))
     checked = v3_diag2.check_sections(pack, x, z0, sections)
     z_ref, _ = v3_diag2.cut_plain(pack, x, z0, "full")
     full = row_errors(z_full, z_ref, z0)
     full["ok"] = bool(torch.isfinite(z_full).all()) and \
         full["row_rel_p50"] <= ELEMENTWISE_TOL[1] and \
         full["row_rel_max"] <= V3_WORST_ROW_TOL[1]
-    nan_row = 5
-    xn = x.clone()
-    xn[nan_row, 7 * pack.cb + 3] = float("nan")
-    nan = {}
-    for upto in CUTS:
-        zn, _ = v3_diag2.run_cut(pack, xn, z0, upto)
-        zp, _ = v3_diag2.cut_plain(pack, xn, z0, upto)
-        torch.cuda.synchronize()
-        rows = torch.isnan(zn).any(1).nonzero().flatten().tolist()
-        if CUTS.index(upto) < CUTS.index("grad"):
-            ok = torch.equal(zn, z0)
-        elif upto != "full":
-            ok = bool(torch.isnan(zn).all())
-        else:
-            ok = rows == [nan_row] and bool(torch.isnan(zn[nan_row]).all())
-        nan[upto] = dict(nan_rows=len(rows), ok=bool(ok) and torch.equal(
-            torch.isnan(zn), torch.isnan(zp)))
     emit("probe_cuts_vs_plain", sections=checked, z0_equal=z0_equal,
          full=dict(**full, tol_row_p50=ELEMENTWISE_TOL[1],
                    tol_row_max=V3_WORST_ROW_TOL[1]), nan=nan,
-         section_ulp=v3_diag2.SECTION_ULP,
+         plan_equal=plan_equal, section_ulp=v3_diag2.SECTION_ULP,
          section_abs=v3_diag2.SECTION_ABS, latents=v3_diag2.TILE)
     if not (all(r["ok"] for r in checked.values())
             and all(z0_equal.values()) and full["ok"]
-            and all(r["ok"] for r in nan.values())):
-        fail(f"a cut against its plain version: {checked}, {z0_equal}, "
-             f"{full}, {nan}")
+            and all(r["ok"] for r in nan.values())
+            and all(plan_equal.values())):
+        fail(f"a cut against its plain version or a plan against the "
+             f"fresh calls: {checked}, {z0_equal}, {full}, {nan}, "
+             f"{plan_equal}")
+    del plan
 
-    # ---- 11c. the two scripts' runs, counters from 0
+    # ---- 11c. the two scripts' runs, counters from 0; the launch path's
+    # floor; every case at least as fast as its PyTorch composition, both
+    # into one given output, round by round (v3_diag.run_cases'
+    # vs_library)
     build.reset_launches()
-    recs = v3_diag.run_cases(dev)
-    cut_recs = v3_diag2.run_cuts(pack, x, z0, repeats=3)
-    torch.cuda.synchronize()
+    recs = v3_diag.run_cases(dev, repeats=PROBE_REPEATS)
+    cut_recs = v3_diag2.run_cuts(pack, x, z0)
+    sync()
     launches = dict(build.LAUNCHES)
+    floor = v3_diag.launch_costs(dev)
     one = dict(rec_iters=1, rec_lr=v3_diag2.LR, momentum=v3_diag2.MOMENTUM)
-    full_library_ms = median_ms(lambda: library_loop_v3(pack, x, z0, **one))
+    full_library_ms = v3_diag.host_ms(
+        {"lib": lambda: library_loop_v3(pack, x, z0, **one)}, sync)["lib"]
     full_bound = bounds_v3(deep.generator, pack, v3_diag2.TILE, 1)
-    emit("probe_runs", cases=recs, cuts=cut_recs,
+    full_profile = v3_diag2.profile_cut(v3_diag2.prepare(pack, z0.shape[0],
+                                                         dev), x, z0)
+    empty_ms = floor["empty_kernel_device_us"] * 1e-3
+    for r in recs:
+        if r["ok"]:
+            r["device_vs_floor"] = r["device_ms"] / max(r["bound_ms"],
+                                                        empty_ms)
+    emit("probe_runs", cases=recs, cuts=cut_recs, launch_floor=floor,
          full_library_ms=full_library_ms, full_bound=full_bound,
+         full_profile=full_profile,
          launches={c: launches[c] for c in (v3_diag.COUNTER,
                                             v3_diag2.COUNTER)},
          phase_s=time.perf_counter() - t_phase)
@@ -1805,6 +1866,26 @@ def probes_phase(build, deep) -> list:
         fail(f"a probe's run failed: {recs}, {cut_recs}")
     if launches[v3_diag.COUNTER] <= 0 or launches[v3_diag2.COUNTER] <= 0:
         fail(f"a probe's kernel never launched: {launches}")
+    slower = {r["case"]: r["vs_library"] for r in recs
+              if r["vs_library"]["ratio"] > 1.0}
+    if slower:
+        fail(f"probe cases slower than their PyTorch composition (the "
+             f"median of the rounds' host-time ratios, each writing into "
+             f"the same given output, above 1): {slower}")
+
+    # ---- 11d. v3's z_final against the reference digests (the probes'
+    # cut step shares v3's step header)
+    zmod = _zfinal_module()
+    zfinal = [zmod.zfinal(r, it, seeded_deep_gan=seeded_deep_gan)
+              for r, it in ZFINAL_SHAPES]
+    emit("v3_zfinal", runs=zfinal)
+    if any(z["same"] is None for z in zfinal):
+        fail(f"no reference digest of v3's z_final for this card and torch "
+             f"build (scripts/torch_v3_zfinal.py's REFERENCE says how to "
+             f"record one): {zfinal}")
+    if not all(z["same"] for z in zfinal):
+        fail(f"v3's z_final left its reference digest: {zfinal}")
+
     by_cut = {r["upto"]: r for r in cut_recs}
     return [{
         "name": v3_diag.COUNTER, "route": "cuda",

@@ -26,7 +26,18 @@
 // What bounds it on an H100: operations. The full cut is one step of v3's
 // loop at 64 latents: 37.9 MFLOP a latent of the function, 2.5 us at 989
 // TFLOP/s bf16, above its weights' 4.6 MB at 3.35 TB/s (1.4 us). At that
-// size its nine launches and the wrapper's host work take far longer.
+// size a cut's ten launches (the inputs' load, the cast, up to seven of
+// the step and the split-K sum, or the two of the cut's sum) and the host
+// work around them take far longer, so the
+// launch path is made once: a plan (fp_v3_diag2_plan) keeps the chain with
+// its tensor maps encoded once, and the first run of each cut on a plan
+// captures the cut's launches after the load into a CUDA graph (on a
+// stream of the plan's own) that every later run of that cut replays: a
+// run is the load kernel (z = z0, v = 0, x to bf16, on the caller's
+// stream: the inputs' pointers change from run to run) and one graph
+// launch, from one call. A failed capture, replay or launch returns its
+// error; nothing falls back to the uncaptured launches, which only a plan
+// made for a single run takes (graph = 0: nothing to replay later).
 
 #include "fused_projection_v3_step.cuh"
 
@@ -89,60 +100,178 @@ cudaError_t cut_sum(const T* section, int cols, float* part, float* total,
   return cudaGetLastError();
 }
 
+// A run's fresh state: z [M, K] = z0 [n, k] in its first n rows and k
+// columns, else 0; v = 0; xb [M, xc] = bf16(x [n, xc]) in its first n
+// rows, else 0.
+__global__ void __launch_bounds__(kSumThreads)
+    load_inputs(const float* __restrict__ z0, const float* __restrict__ x,
+                float* __restrict__ z, float* __restrict__ v,
+                bf16* __restrict__ xb, int n, int k, int M, int K, int xc) {
+  const int nz = M * K, nx = M * xc;
+  for (int i = blockIdx.x * kSumThreads + threadIdx.x; i < nz + nx;
+       i += gridDim.x * kSumThreads) {
+    if (i < nz) {
+      const int r = i / K, c = i - r * K;
+      z[i] = r < n && c < k ? z0[(size_t)r * k + c] : 0.0f;
+      v[i] = 0.0f;
+    } else {
+      const int j = i - nz;
+      xb[j] = __float2bfloat16_rn(j < n * xc ? x[j] : 0.0f);
+    }
+  }
+}
+
+// One cut on M rows of its buffers: the chain (tensor maps encoded once),
+// the cut outputs and sums, and the graphs of its cuts, captured at first
+// use on `capture`.
+struct Plan {
+  fpk::v3::Chain ch;
+  float *z, *v, *part, *total;
+  bf16* xb;
+  int M, K, n, k, xc, c0, ca, cb;
+  cudaStream_t capture = nullptr;
+  cudaGraphExec_t graphs[fpk::v3::kCutFull + 1] = {};
+};
+
+// Everything a run launches after the load: z to bf16, the step up to the
+// cut, the cut's sum into z (z + 0 * sum) before the whole step.
+inline cudaError_t cut_launches(const Plan& p, int upto, cudaStream_t st) {
+  namespace v3 = fpk::v3;
+  const int p2 = p.ch.gy * p.ch.gx, M = p.M, K = p.K;
+  cudaError_t e = fpk::launch_cast_bf16(p.z, p.ch.zb, M * K, st);
+  if (e == cudaSuccess) e = v3::step<false, true, true>(p.ch, st, upto);
+  if (e != cudaSuccess) return e;
+  switch (upto) {
+    case v3::kCutFc:
+    case v3::kCutConvABwd:
+      return cut_sum(p.ch.h0, p2 * p.c0, p.part, p.total, p.z, M, K, st);
+    case v3::kCutConvA:
+    case v3::kCutConvBBwd:
+      return cut_sum(p.ch.h1, p2 * p.ca, p.part, p.total, p.z, M, K, st);
+    case v3::kCutConvB:
+      return cut_sum(p.ch.osec, p2 * p.cb, p.part, p.total, p.z, M, K, st);
+    case v3::kCutGrad:
+      return cut_sum(p.ch.dosec, p2 * p.cb, p.part, p.total, p.z, M, K, st);
+    default:
+      return cudaSuccess;
+  }
+}
+
+// The cut's graph, captured on the plan's stream at its first use.
+inline cudaError_t graph_of(Plan* p, int upto, cudaGraphExec_t* exec) {
+  if (p->graphs[upto] == nullptr) {
+    cudaError_t e = cudaSuccess;
+    if (p->capture == nullptr)
+      e = cudaStreamCreateWithFlags(&p->capture, cudaStreamNonBlocking);
+    if (e == cudaSuccess)
+      e = cudaStreamBeginCapture(p->capture, cudaStreamCaptureModeRelaxed);
+    if (e != cudaSuccess) return e;
+    const cudaError_t launched = cut_launches(*p, upto, p->capture);
+    cudaGraph_t graph = nullptr;
+    e = cudaStreamEndCapture(p->capture, &graph);
+    if (launched != cudaSuccess) e = launched;
+    if (e == cudaSuccess)
+      e = cudaGraphInstantiate(&p->graphs[upto], graph, 0);
+    if (graph != nullptr) cudaGraphDestroy(graph);
+    if (e != cudaSuccess) return e;
+  }
+  *exec = p->graphs[upto];
+  return cudaSuccess;
+}
+
 }  // namespace diag2
 }  // namespace fpk
 
-// One cut step on M rows, z updated in place: z + 0 * sum(section) for
-// upto < 6 (fpk::v3::Cut), the whole step (z -= lr * (m * v + dz), v =
-// m * v + dz) for upto = 6. Arguments as fp_v3_run's (fused_projection_v3
-// .cu: z, v [M, K] f32 with v zeroed; x [M, P*cb] bf16; the bf16 pack, b1,
-// ba, bb, masks, order; scratch zb, h0, h1, dop, ws), except the packed
-// conv B product obf [M, P*npk] in float32. Cut outputs: osec [M, P*cb]
-// f32 (o, the conv B cut) and dosec [M, P*cb] bf16 (do, the tanh-gradient
-// cut); part [M] and total [1] f32, the sum's row sums and the sum. The
-// section stays where the step wrote it: h0 (fc), h1 (conv A), osec,
-// dosec, h1 (dh1), h0 (dh0), z and v (the whole step). Returns the first
+using fpk::diag2::Plan;
+
+// A plan for the cut steps of n latents on M rows (n <= M, a multiple of
+// 64), written to *out. Arguments as fp_v3_run's (fused_projection_v3.cu:
+// z, v [M, K] f32; x [M, P*cb] bf16; the bf16 pack, b1, ba, bb, masks,
+// order; scratch zb, h0, h1, dop, ws), except the packed conv B product
+// obf [M, P*npk] in float32. Cut outputs: osec [M, P*cb] f32 (o, the conv B
+// cut) and dosec [M, P*cb] bf16 (do, the tanh-gradient cut); part [M] and
+// total [1] f32, the sum's row sums and the sum; k: z0's columns. The
+// buffers stay the caller's and must outlive the plan. Returns the first
 // CUDA error, else 0.
-extern "C" int fp_v3_diag2_run(
-    float* z, float* v, const bf16* x, const bf16* w1, const bf16* w1t,
+extern "C" int fp_v3_diag2_plan(
+    void** out, float* z, float* v, bf16* x, const bf16* w1, const bf16* w1t,
     const float* b1, const bf16* ka, const bf16* kat, const float* ba,
     const bf16* kbp, const bf16* kbpt, const float* bb, const float* masks,
     const int* order, bf16* zb, bf16* h0, bf16* h1, float* obf, bf16* dop,
     float* ws, float* osec, bf16* dosec, float* part, float* total, int M,
-    int K, int c0, int ca, int cb, int g, int npk, int kpk, int splits,
-    int upto, float lr, float momentum, float scale, void* stream_ptr) {
-  namespace v3 = fpk::v3;
-  using fpk::diag2::cut_sum;
-  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
-  if (upto < v3::kCutFc || upto > v3::kCutFull)
-    return (int)cudaErrorInvalidValue;
-  const int p2 = g * g;
-  v3::Chain ch;
-  cudaError_t e = v3::make_chain(
-      &ch, 0, M, z, v, x, w1, w1t, b1, ka, kat, ba, kbp, kbpt, bb, masks,
+    int K, int c0, int ca, int cb, int g, int npk, int kpk, int splits, int n,
+    int k, float lr, float momentum, float scale) {
+  *out = nullptr;
+  if (n < 1 || n > M || k < 1 || k > K) return (int)cudaErrorInvalidValue;
+  Plan* p = new Plan;
+  cudaError_t e = fpk::v3::make_chain(
+      &p->ch, 0, M, z, v, x, w1, w1t, b1, ka, kat, ba, kbp, kbpt, bb, masks,
       order, nullptr, zb, h0, h1, nullptr, dop, ws, K, c0, ca, cb, g, g, npk,
       kpk, splits, lr, momentum, scale);
-  if (e != cudaSuccess) return (int)e;
-  ch.obf = obf;
-  ch.osec = osec;
-  ch.dosec = dosec;
-  e = fpk::launch_cast_bf16(z, zb, M * K, st);
-  if (e == cudaSuccess) e = v3::step<false, true, true>(ch, st, upto);
-  if (e != cudaSuccess) return (int)e;
-  switch (upto) {
-    case v3::kCutFc:
-    case v3::kCutConvABwd:
-      return (int)cut_sum(h0, p2 * c0, part, total, z, M, K, st);
-    case v3::kCutConvA:
-    case v3::kCutConvBBwd:
-      return (int)cut_sum(h1, p2 * ca, part, total, z, M, K, st);
-    case v3::kCutConvB:
-      return (int)cut_sum(osec, p2 * cb, part, total, z, M, K, st);
-    case v3::kCutGrad:
-      return (int)cut_sum(dosec, p2 * cb, part, total, z, M, K, st);
-    default:
-      return 0;
+  if (e != cudaSuccess) {
+    delete p;
+    return (int)e;
   }
+  p->ch.obf = obf;
+  p->ch.osec = osec;
+  p->ch.dosec = dosec;
+  p->z = z;
+  p->v = v;
+  p->xb = x;
+  p->part = part;
+  p->total = total;
+  p->M = M;
+  p->K = K;
+  p->n = n;
+  p->k = k;
+  p->xc = g * g * cb;
+  p->c0 = c0;
+  p->ca = ca;
+  p->cb = cb;
+  *out = p;
+  return 0;
+}
+
+// One cut step of the plan's latents, z updated in place: z + 0 *
+// sum(section) for upto < 6 (fpk::v3::Cut), the whole step (z -= lr * (m
+// * v + dz), v = m * v + dz) for upto = 6, from z0 [n, k] f32 and x [n,
+// P*cb] f32 (bf16 values). graph != 0: the cut's graph (captured at its
+// first run on this plan); 0: the same launches issued one by one (a plan
+// made for one run). The section stays where the step wrote it: h0 (fc),
+// h1 (conv A), osec, dosec, h1 (dh1), h0 (dh0), z and v (the whole step).
+// Returns the first CUDA error, else 0.
+extern "C" int fp_v3_diag2_plan_run(void* plan, const float* z0,
+                                    const float* x, int upto, int graph,
+                                    void* stream_ptr) {
+  namespace v3 = fpk::v3;
+  Plan* p = static_cast<Plan*>(plan);
+  if (p == nullptr || upto < v3::kCutFc || upto > v3::kCutFull)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  const int items = p->M * (p->K + p->xc);
+  const int blocks = (items + fpk::diag2::kSumThreads - 1) /
+                     fpk::diag2::kSumThreads;
+  fpk::diag2::load_inputs<<<blocks < 1024 ? blocks : 1024,
+                            fpk::diag2::kSumThreads, 0, st>>>(
+      z0, x, p->z, p->v, p->xb, p->n, p->k, p->M, p->K, p->xc);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (!graph) return (int)fpk::diag2::cut_launches(*p, upto, st);
+  cudaGraphExec_t exec;
+  e = fpk::diag2::graph_of(p, upto, &exec);
+  if (e == cudaSuccess) e = cudaGraphLaunch(exec, st);
+  return (int)e;
+}
+
+// Frees a plan: its graphs and its capture stream (work in flight ends
+// first).
+extern "C" void fp_v3_diag2_plan_free(void* plan) {
+  Plan* p = static_cast<Plan*>(plan);
+  if (p == nullptr) return;
+  for (cudaGraphExec_t g : p->graphs)
+    if (g != nullptr) cudaGraphExecDestroy(g);
+  if (p->capture != nullptr) cudaStreamDestroy(p->capture);
+  delete p;
 }
 
 extern "C" const char* fp_error_string(int code) {

@@ -17,8 +17,12 @@ earlier).
 those two switches and the cut, and a two-pass float32 sum), on CPU
 tensors through `cut_plain`. Both return the cut's section tensor as well
 as z_out, latent-major and flat as the kernel stores it
-(kernels/fused_projection_v3.py::s2d_step_plain). `run_cuts` is the
-script's run (scripts/pallas_v3_diag2_torch.py).
+(kernels/fused_projection_v3.py::s2d_step_plain). `prepare(pack, n,
+device)` makes the launch path once (a Diag2Plan: the padded pack, the
+workspace, the C plan with its tensor maps and one CUDA graph a cut), so
+that `run_cut(plan, x, z0, upto)` is one ctypes call and a graph replay;
+a pack alone prepares on the fly. `run_cuts` is the script's run
+(scripts/pallas_v3_diag2_torch.py).
 """
 
 from __future__ import annotations
@@ -26,13 +30,15 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import time
+import weakref
 
 import torch
 
-from defensegan_torch.experiments.v3_diag import device_ms
+from defensegan_torch.experiments.v3_diag import (bind, events_ms, host_ms,
+                                                  launch)
 from defensegan_torch.kernels import build
-from defensegan_torch.kernels.fused_projection_v2 import (ROW_TILE,
-                                                          _round_up, pad_to)
+from defensegan_torch.kernels.fused_projection_v2 import ROW_TILE, _round_up
 from defensegan_torch.kernels.fused_projection_v3 import (
     CUTS, S2DPack, check_targets, pack_s2d, padded_s2d, pixel_order,
     s2d_step_plain)
@@ -81,69 +87,174 @@ def _crop(t: torch.Tensor, p2: int, width: int) -> torch.Tensor:
     return t.reshape(n, p2, -1)[:, :, :width].reshape(n, -1)
 
 
-def run_cut(pack: S2DPack, x_s2d: torch.Tensor, z0_flat: torch.Tensor,
-            upto: str):
+_CUT = {upto: i for i, upto in enumerate(CUTS)}     # fpk::v3::Cut
+_f32, _bf = torch.float32, torch.bfloat16
+_vp, _i32, _fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the plan's extern "C" entries (csrc/v3_diag2.cu) and their ctypes types
+ENTRIES = {
+    "fp_v3_diag2_plan": ((_vp,) * 25 + (_i32,) * 11 + (_fl,) * 3, _i32),
+    "fp_v3_diag2_plan_run": ((_vp,) * 3 + (_i32,) * 2 + (_vp,), _i32),
+    "fp_v3_diag2_plan_free": ((_vp,), None),
+}
+
+
+def _entry(name: str):
+    argtypes, restype = ENTRIES[name]
+    return bind(name, argtypes, LIBRARY, restype)
+
+
+class Diag2Plan:
+    """The cut step's launch path for `n` latents of one pack on one
+    device, made once (`prepare`): the padded pack, the pixel order and
+    the workspace on the device, and on a card the C plan (the v3 chain
+    with its tensor maps encoded once, each cut's launches captured into a
+    CUDA graph at its first run). `run` loads z0 and x into its buffers
+    (z = z0, v = 0) and runs a cut in one ctypes call, leaving the state a
+    fresh `run_cut` leaves; its results are views of the plan's buffers,
+    valid until its next run. A CPU plan runs the plain version."""
+
+    def __init__(self, pack: S2DPack, n: int, device):
+        self.pack, self.n = pack, int(n)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if self.device.type == "cpu":
+            return
+        if self.device.type != "cuda":
+            raise ValueError(f"a plan on {self.device}: the CPU or a card")
+        if any(t.dtype != _bf for t in (pack.w1, pack.ka, pack.kbp)):
+            raise ValueError("the kernel takes a bf16 pack")
+        if pack.w1.device != self.device:
+            raise ValueError(f"pack on {pack.w1.device}, plan on "
+                             f"{self.device}")
+        dev = self.device
+        pp = padded_s2d(pack)
+        g, p2 = pp.grid_hw, pp.grid_hw ** 2
+        npk, kpk = pp.kbp.shape[1], pp.kbpt.shape[0]
+        k, kp, rows = pack.z_dim, pp.z_dim, _round_up(self.n, ROW_TILE)
+        splits = split_k_for(p2 * pp.c0, kp)          # the fc backward
+        order = torch.from_numpy(pixel_order(g)).to(dev)
+        weights = [t.contiguous() for t in (
+            pp.w1, pp.w1t, pp.b1, pp.ka, pp.kat, pp.ba, pp.kbp, pp.kbpt,
+            pp.bb, pp.masks, order)]
+
+        def buf(cols, dt):
+            return torch.empty((rows, cols), dtype=dt, device=dev)
+
+        z, v, x = buf(kp, _f32), buf(kp, _f32), buf(p2 * pack.cb, _bf)
+        zb, h0, h1 = buf(kp, _bf), buf(p2 * pp.c0, _bf), buf(p2 * pp.ca, _bf)
+        obf, dop = buf(p2 * npk, _f32), buf(p2 * kpk, _bf)
+        ws = buf(splits * kp, _f32)
+        osec, dosec = buf(p2 * pp.cb, _f32), buf(p2 * pp.cb, _bf)
+        part = torch.empty(rows, dtype=_f32, device=dev)
+        total = torch.empty(1, dtype=_f32, device=dev)
+        self._keep = weights + [z, v, x, zb, h0, h1, obf, dop, ws, osec,
+                                dosec, part, total]
+        n = self.n
+
+        def section(t, width):
+            view = t[:n]
+            if t.shape[1] == p2 * width:
+                return lambda: view
+            return lambda: _crop(view, p2, width)
+
+        self.z_out = z[:n, :k]
+        full = v[:n, :k]
+        self._section = {
+            "fc": section(h0, pack.c0), "convA": section(h1, pack.ca),
+            "convB": section(osec, pack.cb), "grad": section(dosec, pack.cb),
+            "convB_bwd": section(h1, pack.ca),
+            "convA_bwd": section(h0, pack.c0), "full": lambda: full}
+        handle = ctypes.c_void_p()
+        ptrs = [z, v, x] + weights + [zb, h0, h1, obf, dop, ws, osec, dosec,
+                                      part, total]
+        with torch.cuda.device(dev):
+            rc = _entry("fp_v3_diag2_plan")(
+                ctypes.byref(handle), *[t.data_ptr() for t in ptrs], rows,
+                kp, pp.c0, pp.ca, pp.cb, g, npk, kpk, splits, n, k, LR,
+                MOMENTUM, 2.0 / (p2 * pack.cb))
+        build.check(build.load(LIBRARY), rc, "v3_diag2 plan")
+        self._handle = handle.value
+        self._run = _entry("fp_v3_diag2_plan_run")
+        # freed with the plan (not at interpreter exit: the context may be
+        # gone by then, and the process's end frees it)
+        fin = weakref.finalize(self, _entry("fp_v3_diag2_plan_free"),
+                               self._handle)
+        fin.atexit = False
+
+    def check(self, x_s2d: torch.Tensor, z0_flat: torch.Tensor,
+              upto: str) -> None:
+        """Raise unless `upto` is a cut, z0 is [n, k] for the plan's n
+        latents and its pack's k, x [n, 49*cb], and both lie on its
+        device."""
+        if upto not in _CUT:
+            raise ValueError(f"upto={upto!r} is not one of {CUTS}")
+        if z0_flat.shape[0] != self.n:
+            raise ValueError(f"the plan takes {self.n} latents, got "
+                             f"{z0_flat.shape[0]}")
+        if tuple(z0_flat.shape) != (self.n, self.pack.z_dim):
+            raise ValueError(f"z0 {tuple(z0_flat.shape)} vs [n, k] = "
+                             f"[{self.n}, {self.pack.z_dim}]")
+        check_targets(self.pack, x_s2d, z0_flat)
+        if z0_flat.device != self.device or x_s2d.device != self.device:
+            raise ValueError(f"plan on {self.device}, x on {x_s2d.device}, "
+                             f"z0 on {z0_flat.device}: all must be on one "
+                             f"device")
+
+    def run(self, x_s2d: torch.Tensor, z0_flat: torch.Tensor, upto: str):
+        """One cut (run_cut's contract), on a card a replay of the cut's
+        CUDA graph."""
+        self.check(x_s2d, z0_flat, upto)
+        if self.device.type == "cpu":
+            return cut_plain(self.pack, x_s2d, z0_flat, upto)
+        return self._launch(x_s2d, z0_flat, upto, graph=True)
+
+    def _launch(self, x_s2d, z0_flat, upto, graph: bool):
+        """The cut on the card, checked inputs: the load and the cut's
+        graph (graph=True), or the load and the same launches one by one
+        (a plan made for one call, which has nothing to replay)."""
+        if z0_flat.dtype is not _f32 or not z0_flat.is_contiguous():
+            z0_flat = z0_flat.float().contiguous()
+        if x_s2d.dtype is not _f32 or not x_s2d.is_contiguous():
+            # the kernel reads x in bf16: round once, as x.to(bf16) does
+            x_s2d = x_s2d.to(_bf).float().contiguous()
+        rc = launch(self._run, [self._handle, z0_flat.data_ptr(),
+                                x_s2d.data_ptr(), _CUT[upto], int(graph)],
+                    self.device.index)
+        if rc:
+            build.check(build.load(LIBRARY), rc, f"v3_diag2 upto={upto}")
+        build.LAUNCHES[COUNTER] += 1
+        return self.z_out, self._section[upto]()
+
+
+def prepare(pack: S2DPack, n: int, device) -> Diag2Plan:
+    """The launch path of the cut step for n latents of `pack` on
+    `device`, made once (Diag2Plan)."""
+    return Diag2Plan(pack, n, device)
+
+
+def run_cut(pack, x_s2d: torch.Tensor, z0_flat: torch.Tensor, upto: str):
     """The cut step for all N latents in one call; (z_out [N, k], section
     [N, 49*C]). x_s2d [N, 49*cb] tanh-space targets in s2d-flat order,
     z0_flat [N, k] float32. A CPU tensor runs the plain version, a CUDA
-    tensor the kernel (or raises)."""
+    tensor the kernel (or raises). `pack` is an S2DPack or a Diag2Plan
+    (`prepare`): a plan runs on its buffers, replaying the cut's CUDA
+    graph, and returns views of them; a pack alone prepares a plan for
+    this call and issues its launches one by one."""
+    if isinstance(pack, Diag2Plan):
+        return pack.run(x_s2d, z0_flat, upto)
     check_targets(pack, x_s2d, z0_flat)
     if upto not in CUTS:
         raise ValueError(f"upto={upto!r} is not one of {CUTS}")
     if z0_flat.device.type == "cpu":
         return cut_plain(pack, x_s2d, z0_flat, upto)
-    dev = z0_flat.device
-    if pack.w1.device != dev or x_s2d.device != dev:
+    if pack.w1.device != z0_flat.device or x_s2d.device != z0_flat.device:
         raise ValueError(f"pack on {pack.w1.device}, x on {x_s2d.device}, "
-                         f"z0 on {dev}: all must be on one device")
-    pp = padded_s2d(pack)
-    g, p2 = pp.grid_hw, pp.grid_hw ** 2
-    npk, kpk = pp.kbp.shape[1], pp.kbpt.shape[0]
-    n, k = z0_flat.shape
-    kp, rows = pp.z_dim, _round_up(n, ROW_TILE)
-    splits = split_k_for(p2 * pp.c0, kp)          # the fc backward
-    f32, bf = torch.float32, torch.bfloat16
-    z = torch.zeros((rows, kp), dtype=f32, device=dev)
-    z[:n, :k] = z0_flat
-    v = torch.zeros_like(z)
-    x = pad_to(x_s2d.to(bf), 0, ROW_TILE).contiguous()
-    order = torch.from_numpy(pixel_order(g)).to(dev)
-    weights = [pp.w1, pp.w1t, pp.b1, pp.ka, pp.kat, pp.ba, pp.kbp, pp.kbpt,
-               pp.bb, pp.masks, order]
-    if any(t.dtype != bf for t in (pp.w1, pp.ka, pp.kbp)):
-        raise ValueError("the kernel takes a bf16 pack")
-    weights = [t.contiguous() for t in weights]
-
-    def buf(cols, dt):
-        return torch.empty((rows, cols), dtype=dt, device=dev)
-
-    zb, h0, h1 = buf(kp, bf), buf(p2 * pp.c0, bf), buf(p2 * pp.ca, bf)
-    obf, dop, ws = buf(p2 * npk, f32), buf(p2 * kpk, bf), buf(splits * kp,
-                                                               f32)
-    osec, dosec = buf(p2 * pp.cb, f32), buf(p2 * pp.cb, bf)
-    part = torch.empty(rows, dtype=f32, device=dev)
-    total = torch.empty(1, dtype=f32, device=dev)
-    ptrs = [z, v, x] + weights + [zb, h0, h1, obf, dop, ws, osec, dosec,
-                                  part, total]
-    lib = build.load(LIBRARY)
-    fn = lib.fp_v3_diag2_run
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 10 + \
-        [ctypes.c_float] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        rc = fn(*[t.data_ptr() for t in ptrs], rows, kp, pp.c0, pp.ca, pp.cb,
-                g, npk, kpk, splits, CUTS.index(upto), LR, MOMENTUM,
-                2.0 / (p2 * pack.cb),
-                torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, rc, f"v3_diag2 upto={upto}")
-    build.LAUNCHES[COUNTER] += 1
-    section = {"fc": lambda: _crop(h0, p2, pack.c0),
-               "convA": lambda: _crop(h1, p2, pack.ca),
-               "convB": lambda: osec, "grad": lambda: dosec,
-               "convB_bwd": lambda: _crop(h1, p2, pack.ca),
-               "convA_bwd": lambda: _crop(h0, p2, pack.c0),
-               "full": lambda: v[:, :k]}[upto]()
-    return z[:n, :k], section[:n]
+                         f"z0 on {z0_flat.device}: all must be on one "
+                         f"device")
+    plan = prepare(pack, z0_flat.shape[0], z0_flat.device)
+    plan.check(x_s2d, z0_flat, upto)
+    return plan._launch(x_s2d, z0_flat, upto, graph=False)
 
 
 def section_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -183,16 +294,21 @@ def diag2_inputs(z_dim: int, out_dim: int, n: int = TILE, seed: int = 0,
 
 
 def run_cuts(pack: S2DPack, x_s2d: torch.Tensor, z0: torch.Tensor,
-             repeats: int = 3) -> list:
-    """The script's run: every cut once through `run_cut`, z_out's sum,
-    the section against the plain version's (check_sections), z_out
-    against z0 before "full", then the kernel's and the plain version's
-    times (v3_diag.device_ms: median of `repeats` single calls). One record a cut; a cut that raises or
-    fails a check has ok False and its error."""
+             repeats: int = 3, calls: int = 20) -> list:
+    """The script's run: every cut once through `run_cut` on the pack,
+    z_out's sum, the section against the plain version's
+    (check_sections), z_out against z0 before "full"; then the cut on one
+    plan (`prepare`, replaying its graphs on a card) bit for bit against
+    those results (plan_equal), and the times: the plan's calls (ms), the
+    pack's (fresh_ms) and the plain version (plain_ms) on the host clock
+    in turns (v3_diag.host_ms: `calls` calls in a row, median of
+    `repeats`), and on a card the plan's device time (v3_diag.events_ms:
+    device_ms). One record a cut; a cut that raises or fails a check has
+    ok False and its error."""
     dev = z0.device
-    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
-        else (lambda: None)
-    recs, sections = [], {}
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    recs, sections, plan = [], {}, None
     for upto in CUTS:
         rec = {"upto": upto}
         try:
@@ -205,11 +321,16 @@ def run_cuts(pack: S2DPack, x_s2d: torch.Tensor, z0: torch.Tensor,
                 z_ref, _ = cut_plain(pack, x_s2d, z0, upto)
                 rec["max_abs_err"] = (z_out - z_ref).abs().max().item()
                 rec["moved"] = (z_ref - z0).abs().max().item()
-            rec["ms"] = device_ms(lambda: run_cut(pack, x_s2d, z0, upto),
-                                  sync, repeats, calls=1)
-            rec["plain_ms"] = device_ms(
-                lambda: cut_plain(pack, x_s2d, z0, upto), sync, repeats,
-                calls=1)
+            plan = plan or prepare(pack, z0.shape[0], dev)
+            z_plan, s_plan = run_cut(plan, x_s2d, z0, upto)
+            rec["plan_equal"] = bool(torch.equal(z_plan, z_out) and
+                                     torch.equal(s_plan, sections[upto]))
+            fns = {"ms": lambda: run_cut(plan, x_s2d, z0, upto),
+                   "fresh_ms": lambda: run_cut(pack, x_s2d, z0, upto),
+                   "plain_ms": lambda: cut_plain(pack, x_s2d, z0, upto)}
+            rec.update(host_ms(fns, sync, repeats, calls))
+            rec["device_ms"] = events_ms(fns["ms"], dev, rec["ms"], repeats,
+                                         calls) if cuda else None
             rec["error"] = None
         except Exception as e:           # noqa: BLE001 -- the script's FAIL
             rec["error"] = f"{type(e).__name__}: {str(e)[:160]}"
@@ -221,11 +342,44 @@ def run_cuts(pack: S2DPack, x_s2d: torch.Tensor, z0: torch.Tensor,
         c = checked.get(rec["upto"], {"ok": False})
         rec["section"] = c
         rec["ok"] = bool(rec["error"] is None and c["ok"]
-                         and rec.get("z0_equal", True))
+                         and rec.get("z0_equal", True)
+                         and rec.get("plan_equal", False))
         if rec["error"] is None and not rec["ok"]:
-            rec["error"] = (f"section {c} or z_out != z0 "
-                            f"({rec.get('z0_equal')})")
+            rec["error"] = (f"section {c}, z_out != z0 "
+                            f"({rec.get('z0_equal')}) or the plan's "
+                            f"results != the pack's "
+                            f"({rec.get('plan_equal')})")
     return recs
+
+
+def profile_cut(plan: Diag2Plan, x_s2d: torch.Tensor, z0: torch.Tensor,
+                upto: str = "full", runs: int = 20) -> dict:
+    """Where a cut's device time goes on its plan: `runs` runs (graph
+    replays) under torch.profiler after a warm-up, each kernel's device
+    time a run in microseconds by name (the GEMM and the grid conv by
+    their epilogue's template), their sum, and the wall time a run of the
+    profiled window, host clock."""
+    from torch.profiler import ProfilerActivity, profile
+    run_cut(plan, x_s2d, z0, upto)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            run_cut(plan, x_s2d, z0, upto)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0 and e.key not in kernels and not e.key.startswith(
+                ("cuda", "Memcpy", "Memset", "aten::")):
+            kernels[e.key[:120]] = us / runs
+    return {"upto": upto, "runs": runs, "kernels_us": kernels,
+            "device_us": sum(kernels.values()),
+            "wall_us": wall * 1e6 / runs}
 
 
 def main(argv=None) -> list:
@@ -244,13 +398,16 @@ def main(argv=None) -> list:
     pack = pack_s2d(gan.generator)
     z0, x = diag2_inputs(pack.z_dim, pack.grid_hw ** 2 * pack.cb,
                          device=dev)
-    recs = run_cuts(pack, x, z0, repeats=3 if dev.type == "cuda" else 1)
+    # the plain version's times on the CPU are no device metric: one call
+    recs = run_cuts(pack, x, z0, **({} if dev.type == "cuda" else
+                                    dict(repeats=1, calls=1)))
     for r in recs:
         if r["ok"]:
             extra = (f" max_abs_err={r['max_abs_err']:.3e}"
                      if r["upto"] == "full" else "")
             print(f"PASS upto={r['upto']}: sum={r['sum']:.4e} "
-                  f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                  f"ms={r['ms']:.4f} fresh_ms={r['fresh_ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} "
                   f"section_err={r['section']['max_abs_err']:.3e}{extra}",
                   flush=True)
         else:

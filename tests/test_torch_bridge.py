@@ -66,6 +66,7 @@ def _port_sources():
                     ROOT / "scripts" / "pallas_v3_diag_torch.py",
                     ROOT / "scripts" / "pallas_v3_diag2_torch.py",
                     ROOT / "scripts" / "torch_v3_zfinal.py",
+                    ROOT / "scripts" / "torch_probe_gate.py",
                     # imported by the ranks the CPU tests spawn
                     ROOT / "tests" / "torch_parallel_workers.py"]
 

@@ -501,3 +501,99 @@ def test_v3_diag2_cuts_match_plain(cuda_device):
     ref, _ = v3_diag2.cut_plain(pack, x, z0, "full")
     moved = (ref - z0).abs().max().item()
     assert (z_out - ref).abs().max().item() <= TOL[1] * moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100, 64])
+def test_v3_diag2_plan_reused_equals_fresh_calls(cuda_device, n):
+    """One plan run through all seven cuts twice (and on NaN targets)
+    equals a fresh run_cut on the pack bit for bit: the plan replays the
+    cut's CUDA graph, the pack issues the same launches one by one; one
+    launch counted a run."""
+    tg, x, z0 = _case(cuda_device, n=n, arch="deep")
+    pack = pack_s2d(tg)
+    plan = v3_diag2.prepare(pack, n, cuda_device)
+    xn = x.clone()
+    xn[n // 2, 7] = float("nan")
+    for targets in (x, x, xn):
+        for upto in CUTS:
+            ref = [t.clone() for t in v3_diag2.run_cut(pack, targets, z0,
+                                                       upto)]
+            before = build.LAUNCHES[v3_diag2.COUNTER]
+            got = v3_diag2.run_cut(plan, targets, z0, upto)
+            torch.cuda.synchronize()
+            assert build.LAUNCHES[v3_diag2.COUNTER] == before + 1
+            for a, b in zip(got, ref):
+                assert torch.equal(torch.isnan(a), torch.isnan(b))
+                assert torch.equal(a.nan_to_num(), b.nan_to_num()), upto
+
+
+@pytest.mark.cuda
+def test_v3_diag2_plan_refuses_mismatch_on_card(cuda_device):
+    tg, x, z0 = _case(cuda_device, n=64, arch="deep")
+    pack = pack_s2d(tg)
+    plan = v3_diag2.prepare(pack, 64, cuda_device)
+    with pytest.raises(ValueError, match="latents"):
+        v3_diag2.run_cut(plan, x[:32], z0[:32], "full")
+    with pytest.raises(ValueError, match="one device"):
+        v3_diag2.run_cut(plan, x.cpu(), z0.cpu(), "full")
+    # inputs shaped for another pack: z0 of another k, x of another width
+    with pytest.raises(ValueError, match=r"\[n, k\]"):
+        v3_diag2.run_cut(plan, x, z0[:, :-1], "full")
+    with pytest.raises(ValueError, match="out_dim"):
+        v3_diag2.run_cut(plan, x[:, :-pack.cb], z0, "full")
+
+
+@pytest.mark.cuda
+def test_v3_diag_launch_floor_is_measured(cuda_device):
+    """launch_costs: every figure a positive number of microseconds, the
+    bare ctypes call cheaper than a ctypes call that launches."""
+    r = v3_diag.launch_costs(cuda_device, calls=50)
+    assert all(v > 0 for v in r.values()), r
+    assert r["bare_ctypes_host_us"] < r["empty_kernel_host_us"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mask-lane-slice", "fori-shift-matmul"])
+def test_v3_diag_outputs_stay_distinct_across_slabs(cuda_device, name):
+    """Every call allocates its own output: each of 35 calls on other
+    inputs, kept, then a call on another stream, still holds its own
+    result (copies bit for bit, the chain within its bound) and no two
+    share memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = v3_diag.draw_inputs(name, cuda_device)
+    runs = []
+    for i in range(35):
+        inputs = [base[0] * (1.0 + 0.125 * i)] + base[1:]
+        runs.append((inputs, v3_diag.diag_case(name, *inputs)))
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        inputs = [base[0] * -1.0] + base[1:]
+        runs.append((inputs, v3_diag.diag_case(name, *inputs)))
+    torch.cuda.synchronize()
+    ptrs = {out.data_ptr() for _, out in runs}
+    assert len(ptrs) == len(runs)
+    for inputs, out in runs:
+        r = v3_diag.check(name, out, v3_diag.diag_case_plain(name, *inputs),
+                          inputs)
+        assert r["ok"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(v3_diag.CASES))
+def test_v3_diag_into_a_given_output_equals_the_allocating_call(cuda_device,
+                                                                 name):
+    """diag_case_into writes the kernel's result into the given output,
+    bit for bit what diag_case returns, and the PyTorch composition into
+    that output equals its allocating form; one launch counted a call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = v3_diag.draw_inputs(name, cuda_device)
+    ref = v3_diag.diag_case(name, *inputs)
+    out = torch.full_like(ref, float("nan"))
+    before = build.LAUNCHES[v3_diag.COUNTER]
+    got = v3_diag.diag_case_into(out, name, *inputs)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[v3_diag.COUNTER] == before + 1
+    assert got is out and torch.equal(out, ref)
+    lib = v3_diag.diag_case_library(name, *inputs)
+    assert torch.equal(v3_diag.diag_case_library(name, *inputs, out=out), lib)

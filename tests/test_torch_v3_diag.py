@@ -13,6 +13,7 @@ products, within 1e-2 of it (measured: 1.75e-3, a rounding that a sum near
 its boundary takes the other way, carried through the later products).
 """
 
+import ctypes
 import os
 import subprocess
 import sys
@@ -32,6 +33,8 @@ sys.path.insert(1, os.path.join(ROOT, "scripts"))
 import pallas_v3_diag as jax_diag  # noqa: E402
 from defensegan_torch.experiments import v3_diag  # noqa: E402
 from defensegan_torch.kernels import build  # noqa: E402
+from torch_csrc_signatures import (  # noqa: E402
+    c_signatures, c_struct_fields)
 
 TOL = {"product": 1e-6, "tanh": 1e-6, "chain": 1e-2}
 
@@ -137,6 +140,101 @@ def test_wrapper_rejects_inputs_of_another_shape_or_type():
         v3_diag.diag_case("matmul", a.float(), b)
     with pytest.raises(ValueError, match="no case"):
         v3_diag.diag_case("no-such-case", a, b)
+
+
+def test_call_table_covers_every_case():
+    """One ctypes call a case: CALLS has exactly the cases, each naming an
+    extern "C" entry of csrc/v3_diag.cu, with a pointer for every input,
+    the output and each scratch buffer, then its DiagDims' address, then
+    the stream; the dims fill DiagDims."""
+    assert list(v3_diag.CALLS) == list(v3_diag.CASES)
+    entries = c_signatures("v3_diag.cu")
+    for name, call in v3_diag.CALLS.items():
+        assert call.entry in entries, name
+        n_ptr = len(v3_diag.CASES[name].inputs) + 1 + call.scratch
+        assert call.argtypes == (ctypes.c_void_p,) * (n_ptr + 2), name
+        assert len(call.dims) == len(v3_diag.DiagDims._fields_)
+        v3_diag.DiagDims(*call.dims)
+    for entry in v3_diag.HELPERS:
+        assert entry in entries
+
+
+def test_dims_struct_matches_the_c_struct():
+    """v3_diag.DiagDims has csrc/v3_diag.cu's DiagDims fields, in order
+    and type."""
+    fields = c_struct_fields("v3_diag.cu", "DiagDims")
+    assert fields == [(n, t) for n, t in v3_diag.DiagDims._fields_]
+
+
+@pytest.mark.parametrize("entry", sorted(
+    {c.entry for c in v3_diag.CALLS.values()} | set(v3_diag.HELPERS)))
+def test_call_types_match_the_c_signature(entry):
+    """The ctypes types bound for an entry are its parameters' in the
+    source's text: count and type (pointer, int, long long, float), and
+    every case that shares the entry binds the same types."""
+    restype, params = c_signatures("v3_diag.cu")[entry]
+    assert restype is ctypes.c_int
+    bound = {c.argtypes for c in v3_diag.CALLS.values() if c.entry == entry}
+    if entry in v3_diag.HELPERS:
+        bound.add(v3_diag.HELPERS[entry])
+    assert bound == {tuple(params)}
+
+
+@pytest.mark.parametrize("how", ["shape", "dtype", "device", "count",
+                                 "strides"])
+def test_validation_raises_before_any_launch(how):
+    """The wrapper's cheap checks still refuse what its kernel does not
+    take: another shape, type or device (the CPU beside a meta tensor, or
+    a device that is neither the CPU nor a card), a missing input, a
+    non-contiguous input; nothing is launched or counted."""
+    a, m = v3_diag.draw_inputs("mask-lane-slice")
+    bad = {"shape": (a[:, :64].contiguous(), m),
+           "dtype": (a, m.double()),
+           "device": (a, m.to("meta")),
+           "count": (a,),
+           "strides": (a.t().contiguous().t(), m)}[how]
+    before = build.LAUNCHES[v3_diag.COUNTER]
+    with pytest.raises(ValueError):
+        v3_diag.diag_case("mask-lane-slice", *bad)
+    meta = [t.to("meta") for t in (a, m)]
+    with pytest.raises(ValueError, match="neither the CPU nor a card"):
+        v3_diag.diag_case("mask-lane-slice", *meta)
+    assert build.LAUNCHES[v3_diag.COUNTER] == before
+
+
+@pytest.mark.parametrize("name", list(v3_diag.CASES))
+def test_out_is_written_and_equals_the_allocating_call(name):
+    """diag_case_into(out, ...) and diag_case_library(..., out=) write the
+    case into the given output and return it, bit for bit what the
+    allocating calls (diag_case, diag_case_library) return."""
+    inputs = v3_diag.draw_inputs(name)
+    shape, dtype = v3_diag.CASES[name].out
+    into = {v3_diag.diag_case: lambda out: v3_diag.diag_case_into(
+                out, name, *inputs),
+            v3_diag.diag_case_library: lambda out: v3_diag.diag_case_library(
+                name, *inputs, out=out)}
+    for fn, fn_into in into.items():
+        ref = fn(name, *inputs)
+        out = torch.full(shape, float("nan"), dtype=dtype)
+        got = fn_into(out)
+        assert got is out and torch.equal(out, ref), fn.__name__
+
+
+@pytest.mark.parametrize("how", ["shape", "dtype", "strides", "device",
+                                 "overlap"])
+def test_out_is_checked_before_any_launch(how):
+    """A given output of another shape, type or device, not contiguous,
+    or overlapping an input, raises; nothing is launched or counted."""
+    a, m = v3_diag.draw_inputs("mask-lane-slice")
+    out = {"shape": torch.empty(a.shape[0], 64),
+           "dtype": torch.empty(a.shape, dtype=torch.float64),
+           "strides": torch.empty(a.shape[::-1]).t(),
+           "device": torch.empty(a.shape, device="meta"),
+           "overlap": a}[how]
+    before = build.LAUNCHES[v3_diag.COUNTER]
+    with pytest.raises(ValueError, match="out"):
+        v3_diag.diag_case_into(out, "mask-lane-slice", a, m)
+    assert build.LAUNCHES[v3_diag.COUNTER] == before
 
 
 def test_script_runs_every_case_on_the_cpu():

@@ -43,6 +43,7 @@ from defensegan_torch.kernels import build  # noqa: E402
 from defensegan_torch.kernels.fused_projection_v3 import (  # noqa: E402
     CUTS, pack_s2d, s2d_loop_plain)
 from defensegan_torch.models.generator import generator_for  # noqa: E402
+from torch_csrc_signatures import c_signatures  # noqa: E402
 
 TILE = 8
 
@@ -195,6 +196,55 @@ def test_run_cut_rejects_a_cut_or_targets_it_does_not_have(pair):
         v3_diag2.run_cut(tp, x, z0, "conv_c")
     with pytest.raises(ValueError, match="out_dim"):
         v3_diag2.run_cut(tp, x[:, :700], z0, "fc")
+
+
+@pytest.mark.parametrize("upto", CUTS)
+def test_plan_equals_fresh_calls_bit_for_bit(pair, upto):
+    """prepare + run_cut equals run_cut on the pack, bit for bit, for the
+    cut run twice on one plan with the whole step between (no state
+    leaks from one run to the next), on other inputs after; nothing
+    launched on the CPU."""
+    _, tp = pair
+    plan = v3_diag2.prepare(tp, TILE, "cpu")
+    before = build.LAUNCHES[v3_diag2.COUNTER]
+    for seed in (0, 0, 3):
+        z0, x = (torch.from_numpy(a) for a in _inputs(seed))
+        ref = v3_diag2.run_cut(tp, x, z0, upto)
+        for first in ("full", upto):
+            v3_diag2.run_cut(plan, x, z0, first)
+        got = v3_diag2.run_cut(plan, x, z0, upto)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    assert build.LAUNCHES[v3_diag2.COUNTER] == before
+
+
+def test_plan_refuses_another_n_device_or_pack(pair):
+    _, tp = pair
+    z0, x = (torch.from_numpy(a) for a in _inputs())
+    plan = v3_diag2.prepare(tp, TILE, "cpu")
+    with pytest.raises(ValueError, match="latents"):
+        v3_diag2.run_cut(plan, x[:TILE - 1], z0[:TILE - 1], "fc")
+    with pytest.raises(ValueError, match="one device"):
+        v3_diag2.run_cut(plan, x.to("meta"), z0.to("meta"), "fc")
+    with pytest.raises(ValueError, match="one device"):
+        v3_diag2.run_cut(plan, x, z0.to("meta"), "fc")
+    # inputs shaped for another pack: z0 of another k, x of another width
+    with pytest.raises(ValueError, match=r"\[n, k\]"):
+        v3_diag2.run_cut(plan, x, z0[:, :-1], "fc")
+    with pytest.raises(ValueError, match="out_dim"):
+        v3_diag2.run_cut(plan, x[:, :-tp.cb], z0, "fc")
+    with pytest.raises(ValueError, match="the CPU or a card"):
+        v3_diag2.prepare(tp, TILE, "meta")
+    with pytest.raises(ValueError, match="upto"):
+        v3_diag2.run_cut(plan, x, z0, "conv_c")
+
+
+def test_plan_entries_match_the_c_signatures():
+    """The plan's ctypes bindings (ENTRIES) are csrc/v3_diag2.cu's
+    extern "C" entries, parameter for parameter."""
+    entries = c_signatures("v3_diag2.cu")
+    for name, (argtypes, restype) in v3_diag2.ENTRIES.items():
+        assert entries[name] == (restype, list(argtypes)), name
 
 
 def test_script_runs_every_cut_on_the_cpu():
