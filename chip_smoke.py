@@ -149,8 +149,11 @@ and its two compile probes (phase 11):
        a. the stream64 level (the 64x64 generator's deconv levels 0-2 at
           batch 512) against its plain version, half by half
        b. each v3 variant (v3p, packed, ilp) on mnist.yml against its plain
-          version at L = 1 and 5 on 512 rows as 3a; the two-chain loop
-          also bit for bit against the v3 kernel
+          version at L = 1 and 5 on 512 rows as 3a; the ilp loop also bit
+          for bit against the v3 kernel; v3p's z_final at 512 rows x L 5
+          and 10240 x L 200 against the digests of
+          scripts/torch_v3_zfinal.py (recorded from the design that issued
+          every tap: skipping the zero taps must change no bit)
        c. counters set to 0, then the experiments' entry points:
           stream64_probe.run_probe at each level (batch 512, the JAX
           probe's tiles, 50 steps, median of 3: kernel, cuDNN, plain;
@@ -158,7 +161,11 @@ and its two compile probes (phase 11):
           and v3_variants.ab_variant for each variant (1024 images x R 10
           x L 200: the gate against the v3 kernel, ilp bit for bit; loop
           and recon times in turns with v3's, median of 3); every
-          experiment's counter must have risen
+          experiment's counter must have risen; then (not counted) v3's
+          and ilp's L-20 profiles at 10240 rows (torch_kernel_profile.py
+          `by_launch`: conv A's device ms and share of the bf16 peak each
+          way) and conv A's ceilings on both schedules (the feed alone,
+          the products alone)
        d. the variants' plain versions at that shape, one run each
  11. the compile probes (chip_smoke.probes_phase):
        a. the ten cases of scripts/pallas_v3_diag.py at its shapes, each
@@ -1557,14 +1564,18 @@ def parallel_phase(build, gan, tmp: str) -> None:
 # the JAX probe's bound) runs inside run_probe.
 # 10b holds each variant against its plain version at L 1 and 5 on 512
 # rows row by row with v3's bounds (3a), 192-row chunks bit for bit against
-# one chunk, and the two-chain loop bit for bit against the v3 kernel; at
-# L 200 on 1024 images x R 10 (ab_variant: the [B, R] final losses by the
-# tie-aware gate against the v3 kernel, the two-chain loop's z_final bit
-# for bit). The variants compute v3's function, so their bound and
-# library yardstick are v3's (phase 5).
+# one chunk, and the ilp loop bit for bit against the v3 kernel; at L 200
+# on 1024 images x R 10 (ab_variant: the [B, R] final losses by the
+# tie-aware gate against the v3 kernel, ilp's z_final bit for bit). v3p's
+# conv A issues only the taps that can be nonzero; a skipped tap's
+# products were exact zeros, so its z_final must equal the digests recorded
+# from the design that issued all 504 taps a direction (as 11d holds v3's).
+# The variants compute v3's function, so their bound and library yardstick
+# are v3's (phase 5).
 S64_BATCH = 512
 S64_ITERS = 50
 VARIANT_IMAGES = 1024
+PROFILE_ITERS = 20          # steps of the loops profiled in 10c
 
 
 def _once_ms(fn) -> float:
@@ -1650,6 +1661,13 @@ def experiments_phase(build, deep, v3_timing: dict) -> list:
         if not all(r["ok"] for r in rec.values()):
             fail(f"variant {name} against its plain version: {rec}")
     del xr, z0
+    zmod = _script_module("torch_v3_zfinal")
+    v3p_digests = [zmod.zfinal(r, it, seeded_deep_gan=seeded_deep_gan,
+                               variant="v3p") for r, it in ZFINAL_SHAPES]
+    emit("v3p_zfinal", runs=v3p_digests)
+    if not all(z["same"] for z in v3p_digests):
+        fail(f"v3p's z_final is not its recorded digest (None: none "
+             f"recorded for this card and torch build): {v3p_digests}")
 
     # ---- 10c. the experiments' entry points, counters from 0: the probe
     # at each level (batch 512, the JAX probe's tiles, 50 steps, median of
@@ -1677,6 +1695,27 @@ def experiments_phase(build, deep, v3_timing: dict) -> list:
              f"{ {n: r['gate'] for n, r in ab.items()} }")
     if not all(launches[c] > 0 for c in counters):
         fail(f"an experiment's kernel never launched: {launches}")
+
+    # conv A of v3 and of ilp in their loops' profiles, and its ceilings
+    prof = _script_module("torch_kernel_profile")
+    n_prof = VARIANT_IMAGES * rr
+    x_prof = rows_s2d(deep.generate(gd, n_prof), 1)
+    conv_a = {}
+    for name, key, loop in (
+            ("v3", "fused_projection_v3", fused_projection_s2d),
+            ("ilp", VARIANTS["ilp"].counter, VARIANTS["ilp"].loop)):
+        rec = prof.profile_loop(key, loop, pack3, x_prof, cfg, PROFILE_ITERS)
+        if not isinstance(rec["by_launch"], list):
+            fail(f"{name}'s profile: {rec['by_launch']}")
+        conv_a[name] = {r["launch"]: dict(ms=r["ms"],
+                                          peak_share=r["peak_share"])
+                        for r in rec["by_launch"]
+                        if r["launch"].startswith("conv A")}
+        conv_a[name]["device_ms"] = rec["device_ms"]
+    ceilings = prof.conv_a_ceilings(pack3, n_prof)
+    emit("conv_a_profile", rows=n_prof, iters=PROFILE_ITERS, loops=conv_a,
+         ceilings=ceilings)
+    del x_prof
 
     # ---- 10d. the plain versions at the timed shape, one run each
     x_img = deep.generate(gd, VARIANT_IMAGES)
@@ -1734,7 +1773,7 @@ def experiments_phase(build, deep, v3_timing: dict) -> list:
 # in that latent's row alone; each pattern as the plain version's.
 
 
-ZFINAL_SHAPES = ((512, 5), (10240, 200))     # v3's z_final, rows x L
+ZFINAL_SHAPES = ((512, 5), (10240, 200))   # v3p and v3 z_final, rows x L
 # rounds of the probe cases' host timing (20 calls each, the kernel, its
 # plain version and its library composition in turns): a case's host time
 # is a few microseconds, and the machine's host wanders by more than the
@@ -1742,12 +1781,11 @@ ZFINAL_SHAPES = ((512, 5), (10240, 200))     # v3's z_final, rows x L
 PROBE_REPEATS = 21
 
 
-def _zfinal_module():
-    """scripts/torch_v3_zfinal.py as a module (its `zfinal`)."""
+def _script_module(name: str):
+    """scripts/<name>.py as a module."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "torch_v3_zfinal", os.path.join(ROOT, "scripts",
-                                        "torch_v3_zfinal.py"))
+        name, os.path.join(ROOT, "scripts", name + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1875,7 +1913,7 @@ def probes_phase(build, deep) -> list:
 
     # ---- 11d. v3's z_final against the reference digests (the probes'
     # cut step shares v3's step header)
-    zmod = _zfinal_module()
+    zmod = _script_module("torch_v3_zfinal")
     zfinal = [zmod.zfinal(r, it, seeded_deep_gan=seeded_deep_gan)
               for r, it in ZFINAL_SHAPES]
     emit("v3_zfinal", runs=zfinal)

@@ -12,9 +12,9 @@
 // leaves the grid is skipped (masks[p*9 + k] == 0), not masked element by
 // element. A grid may also have gy rows of g pixels (the padded 7 x 8 grid
 // of the v3p experiment, fused_projection_v3_variants.cu): then every g*g
-// here reads gy*g, and a tap whose source pixel index leaves [0, gy*g)
-// reads the zeros of TMA's out-of-bounds fill, so such a grid may issue
-// every tap (masks all 1).
+// here reads gy*g, and the walk may be shorter than the grid (n_walk
+// pixels of `order`): v3p walks its 49 real pixels, never its pad column,
+// and its masks count a tap only where the source is a real pixel.
 //
 // kBackward = false: out[p] = sum_k in[p + off_k] @ W_k, valid iff
 // masks[p, k]. kBackward = true (the input gradient): out[p] = sum_k
@@ -71,11 +71,39 @@
 //                add: the backward convs' rounding, where the TPU kernels
 //                round. (A backward conv takes kChain too: the tap-packed
 //                conv A experiment sums its taps as one K = 9*cin product.)
-// Folding a partial waits for its wgmma group; the other consumer
-// warpgroup, on its own 64 rows of the same stages, keeps the tensor cores
-// busy meanwhile. (Two partial sums taken in turns would fold one tap while
-// the next runs, but at BN 128 they need 192 f32 registers a thread and
-// spill: on an H100 that ran v4's convs 10% slower.)
+// Folding a partial waits for its wgmma group. (Two partial sums taken in
+// turns would fold one tap while the next runs, but at BN 128 they need
+// 192 f32 registers a thread and spill: on an H100 that ran v4's convs 10%
+// slower.)
+//
+// How the two consumer warpgroups share the tensor cores (Sched):
+//   kCoop      in phase (v3, v4, stream64 and the probes): both read each
+//              stage as it lands, so both wait at every tap's fold and
+//              run the epilogue at once;
+//   kPingPong  out of phase (the ilp experiment's conv A): the same loop,
+//              slab for slab, but warpgroup 1 starts each tap only once
+//              warpgroup 0 has issued it (an ordered pair per tap:
+//              warpgroup 0 arrives on the tap's named barrier without
+//              waiting, warpgroup 1 syncs on it). Warpgroup 1 so trails
+//              by about a tap, and one's fold and tile epilogue fall
+//              while the other's products are queued. Both still read
+//              every stage (one B slab per 128 rows: the L2 feed is
+//              kCoop's), the ring bounds the lead (6 stages at BN 128; a
+//              tap is 2 slabs at cin 128, 4 at cin 256), the registers
+//              are kCoop's (one partial sum a thread), and every output
+//              element sees the same wgmma sequence: the result is
+//              kCoop's bit for bit. A strict alternation (each warpgroup
+//              issuing half a tap a turn, then waiting for its products
+//              before its next turn) ran slower than kCoop both ways on
+//              an H100: the handover then sits between every two units.
+//              Measured (PERF.md), conv A is bound by the L2 feed forward
+//              and by its issue backward, not by these stalls: kPingPong
+//              ties kCoop.
+// Probe (a launch's what-is-kept, for measuring the kernel's ceilings):
+// kWhole the conv; kFeedOnly the producer's copies and the ring's
+// barriers, no wgmma (the L2 feed alone: the epilogue stores zeros);
+// kMathOnly the wgmma on whatever the ring holds, no copies (the producer
+// arrives on `full` itself: the issue alone). Only kWhole is a conv.
 //
 // Requirements (checked by make_conv3x3 and the Python wrappers): M >= 1
 // (rows past M read zeros and are not stored), cin, cout, in_fine and
@@ -91,6 +119,8 @@
 namespace fpk {
 
 enum TapSum { kChain, kPerTap, kPerTapBf16 };
+enum Sched { kCoop, kPingPong };
+enum Probe { kWhole, kFeedOnly, kMathOnly };
 
 // Offset of lane c of blocked pixel p in the fine layout.
 __host__ __device__ __forceinline__ int interleaved_offset(int p, int c,
@@ -115,25 +145,33 @@ struct Ring {
 };
 
 // The tile at position t of the walk: (m-tile, pixel rank, n-tile), the
-// n-tile fastest; order[rank] is the pixel.
+// n-tile fastest; order[rank] is the pixel, rank < n_walk.
 struct TileAt {
   int p, m0, n0;
-  __device__ __forceinline__ TileAt(int t, int n_n, int p2, int bn,
+  __device__ __forceinline__ TileAt(int t, int n_n, int n_walk, int bn,
                                     const int* order) {
     const int nt = t % n_n;
     const int rest = t / n_n;
-    p = order[rest % p2];
-    m0 = (rest / p2) * kBM;
+    p = order[rest % n_walk];
+    m0 = (rest / n_walk) * kBM;
     n0 = nt * bn;
   }
 };
 
-template <int BN, TapSum kSum, bool kBackward, typename Epi>
+// The ping-pong schedule's gate: warpgroup 0 arrives on named barrier id
+// without waiting; warpgroup 1's bar.sync on it completes the barrier.
+__device__ __forceinline__ void gate_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers * 128)
+               : "memory");
+}
+
+template <int BN, TapSum kSum, bool kBackward, typename Epi,
+          Sched kSched = kCoop, Probe kProbe = kWhole>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_sm90(const __grid_constant__ CUtensorMap map_in,
                  const __grid_constant__ CUtensorMap map_w,
                  const float* __restrict__ masks,
-                 const int* __restrict__ order, int M, int g, int gy,
+                 const int* __restrict__ order, int M, int g, int n_walk,
                  int cin, int cout, int in_fine, int out_fine, Epi epi) {
   using R = Ring<BN>;
   constexpr int kRegs = BN / 2;        // f32 sums per thread of 64 x BN
@@ -142,9 +180,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t bars = ring + R::kStages * R::kStage;
   auto full = [&](uint32_t s) { return bars + 8 * s; };
   auto empty = [&](uint32_t s) { return bars + 8 * (R::kStages + s); };
-  const int p2 = gy * g;
   const int n_n = cout / BN;
-  const int n_tiles = ((M + kBM - 1) / kBM) * p2 * n_n;
+  const int n_tiles = ((M + kBM - 1) / kBM) * n_walk * n_n;
   const int spt = cin / kBK;           // slabs per tap
 
   if (threadIdx.x == 0) {
@@ -165,7 +202,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x != kConsumers * 128) return;
     uint32_t stage = 0, phase = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const TileAt tile(t, n_n, p2, BN, order);
+      const TileAt tile(t, n_n, n_walk, BN, order);
       for (int k = 0; k < 9; ++k) {
         if (masks[tile.p * 9 + (kBackward ? 8 - k : k)] == 0.0f) continue;
         const int off = (k / 3 - 1) * g + (k % 3 - 1);
@@ -173,6 +210,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int s = 0; s < spt; ++s) {
           const int k0 = s * kBK;
           mbar_wait(empty(stage), phase ^ 1);
+          if constexpr (kProbe == kMathOnly) {
+            mbar_arrive(full(stage));
+            if (++stage == R::kStages) {
+              stage = 0;
+              phase ^= 1;
+            }
+            continue;
+          }
           mbar_expect_tx(full(stage), R::kStage);
           const uint32_t sa = ring + stage * R::kStage;
           const int col = in_fine ? interleaved_offset(src, k0, g, in_fine)
@@ -198,8 +243,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     float acc[kRegs];
     float part[kRegs];       // one tap's sum; unused with kChain
     uint32_t stage = 0, phase = 0;
+    // ping-pong: warpgroup 1 starts a tap once warpgroup 0 has issued its
+    // first `lag` slabs (the whole tap, up to kStages - 1: warpgroup 1
+    // waits at the gate holding at most one stage, so warpgroup 0 can
+    // always get those slabs). The gate of tap number `gate` (counted
+    // over the block's walk) is named barrier 1 + gate % kGates: warpgroup
+    // 0 leads by at most the ring, so kGates = kStages + 1 ids keep each
+    // barrier to one pending arrival.
+    constexpr int kGates = R::kStages + 1;
+    static_assert(kGates <= 15, "named barriers 1..15");
+    const int lag = spt < R::kStages - 1 ? spt : R::kStages - 1;
+    int gate = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const TileAt tile(t, n_n, p2, BN, order);
+      const TileAt tile(t, n_n, n_walk, BN, order);
       int n_taps = 0;
       for (int k = 0; k < 9; ++k) n_taps += masks[tile.p * 9 + k] != 0.0f;
       n_taps = __shfl_sync(0xffffffffu, n_taps, 0);
@@ -227,62 +283,82 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
 #pragma unroll
       for (int i = 0; i < kRegs; ++i) acc[i] = 0.0f;
-      int held = -1;         // a stage whose wgmma may still be reading it
-      for (int tap = 0; tap < n_taps; ++tap) {
-        for (int s = 0; s < spt; ++s) {
+      if constexpr (kProbe == kFeedOnly) {
+        // the feed alone: take each stage as it lands and release it
+        for (int i = 0; i < n_taps * spt; ++i) {
           mbar_wait(full(stage), phase);
-          const uint32_t sa = ring + stage * R::kStage;
-          if constexpr (kSum == kChain) fence_regs(acc);
-          else fence_regs(part);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < kBK / 16; ++kk) {
-            const uint64_t da = sw128_desc(sa + wg * (kABytes / 2) + kk * 32,
-                                           16, 1024);
-            const uint64_t db =
-                sw128_desc(sa + kABytes + kk * 16 * 128, kBChunk, 1024);
-            if constexpr (kSum == kChain) {
-              Wgmma<BN>::mma(acc, da, db, (tap | s | kk) != 0);
-            } else {
-              Wgmma<BN>::mma(part, da, db, (s | kk) != 0);
-            }
-          }
-          wgmma_commit();
-          if (kSum != kChain && s == spt - 1) {
-            // the tap is complete: fold its sum, release its stages
-            wgmma_wait<0>();
-            fence_regs(part);
-#pragma unroll
-            for (int i = 0; i < kRegs; ++i) {
-              if constexpr (kSum == kPerTapBf16) {
-                acc[i] += __bfloat162float(__float2bfloat16_rn(part[i]));
-              } else {
-                acc[i] += part[i];
-              }
-            }
-            fence_regs(part);
-            if (signals) {
-              if (held >= 0) mbar_arrive(empty(held));
-              mbar_arrive(empty(stage));
-            }
-            __syncwarp();
-            held = -1;
-          } else {
-            // the previous slab's products are done: release its stage
-            wgmma_wait<1>();
-            if (signals && held >= 0) mbar_arrive(empty(held));
-            __syncwarp();
-            held = static_cast<int>(stage);
-          }
+          if (signals) mbar_arrive(empty(stage));
+          __syncwarp();
           if (++stage == R::kStages) {
             stage = 0;
             phase ^= 1;
           }
         }
-      }
-      if (held >= 0) {
-        wgmma_wait<0>();
-        if (signals) mbar_arrive(empty(held));
+      } else {
+        int held = -1;         // a stage whose wgmma may still be reading it
+        for (int tap = 0; tap < n_taps; ++tap) {
+          if constexpr (kSched == kPingPong) {
+            if (wg == 1) named_barrier(1 + gate % kGates, kConsumers * 128);
+          }
+          for (int s = 0; s < spt; ++s) {
+            mbar_wait(full(stage), phase);
+            const uint32_t sa = ring + stage * R::kStage;
+            if constexpr (kSum == kChain) fence_regs(acc);
+            else fence_regs(part);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kBK / 16; ++kk) {
+              const uint64_t da = sw128_desc(
+                  sa + wg * (kABytes / 2) + kk * 32, 16, 1024);
+              const uint64_t db =
+                  sw128_desc(sa + kABytes + kk * 16 * 128, kBChunk, 1024);
+              if constexpr (kSum == kChain) {
+                Wgmma<BN>::mma(acc, da, db, (tap | s | kk) != 0);
+              } else {
+                Wgmma<BN>::mma(part, da, db, (s | kk) != 0);
+              }
+            }
+            wgmma_commit();
+            if constexpr (kSched == kPingPong) {
+              if (wg == 0 && s == lag - 1) gate_arrive(1 + gate % kGates);
+            }
+            if (kSum != kChain && s == spt - 1) {
+              // the tap is complete: fold its sum, release its stages
+              wgmma_wait<0>();
+              fence_regs(part);
+#pragma unroll
+              for (int i = 0; i < kRegs; ++i) {
+                if constexpr (kSum == kPerTapBf16) {
+                  acc[i] += __bfloat162float(__float2bfloat16_rn(part[i]));
+                } else {
+                  acc[i] += part[i];
+                }
+              }
+              fence_regs(part);
+              if (signals) {
+                if (held >= 0) mbar_arrive(empty(held));
+                mbar_arrive(empty(stage));
+              }
+              __syncwarp();
+              held = -1;
+            } else {
+              // the previous slab's products are done: release its stage
+              wgmma_wait<1>();
+              if (signals && held >= 0) mbar_arrive(empty(held));
+              __syncwarp();
+              held = static_cast<int>(stage);
+            }
+            if (++stage == R::kStages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+          ++gate;
+        }
+        if (held >= 0) {
+          wgmma_wait<0>();
+          if (signals) mbar_arrive(empty(held));
+        }
       }
       fence_regs(acc);
       int offset[BN / 64];
@@ -309,21 +385,25 @@ __global__ void __launch_bounds__(kThreads, 1)
 // [9*cin, cout] (64 x 64 boxes), both 128-byte swizzled.
 struct Conv3x3 {
   CUtensorMap in, w;
-  const float* masks;   // [g*g, 9] f32 0/1
-  const int* order;     // [g*g] pixels, 9 taps first
-  int M, g, gy, cin, cout, in_fine, out_fine;
+  const float* masks;   // [gy*g, 9] f32 0/1
+  const int* order;     // [n_walk] pixels, 9 taps first
+  int M, g, gy, n_walk, cin, cout, in_fine, out_fine;
 };
 
 // in: [M, g*g*cin] (fine order where in_fine); w: [9*cin, cout]. gy: the
 // grid's rows where they are not g (0: a square grid; an interleave needs
-// one). Returns cudaErrorInvalidValue on widths the kernel does not take
-// or a map that cuTensorMapEncodeTiled refuses.
+// one). n_walk: the pixels of `order` the conv writes (0: all gy*g).
+// Returns cudaErrorInvalidValue on widths the kernel does not take or a
+// map that cuTensorMapEncodeTiled refuses.
 inline cudaError_t make_conv3x3(Conv3x3* c, const bf16* in, const bf16* w,
                                 const float* masks, const int* order, int M,
                                 int g, int cin, int cout, int in_fine = 0,
-                                int out_fine = 0, int gy = 0) {
+                                int out_fine = 0, int gy = 0,
+                                int n_walk = 0) {
   if (gy == 0) gy = g;
-  if (M < 1 || g < 1 || gy < 1 || cin % 64 || cout % 64 || in_fine % 64 ||
+  if (n_walk == 0) n_walk = gy * g;
+  if (M < 1 || g < 1 || gy < 1 || n_walk < 1 || n_walk > gy * g ||
+      cin % 64 || cout % 64 || in_fine % 64 ||
       out_fine % 64 || (in_fine && 4 * in_fine != cin) ||
       (out_fine && 4 * out_fine != cout) ||
       ((in_fine || out_fine) && gy != g))
@@ -334,6 +414,7 @@ inline cudaError_t make_conv3x3(Conv3x3* c, const bf16* in, const bf16* w,
   c->M = M;
   c->g = g;
   c->gy = gy;
+  c->n_walk = n_walk;
   c->cin = cin;
   c->cout = cout;
   c->in_fine = in_fine;
@@ -343,7 +424,8 @@ inline cudaError_t make_conv3x3(Conv3x3* c, const bf16* in, const bf16* w,
   return encode_map(&c->w, w, 2, 9 * cin, cout, sm90::kBK);
 }
 
-template <int BN, TapSum kSum, bool kBackward, typename Epi>
+template <int BN, TapSum kSum, bool kBackward, typename Epi, Sched kSched,
+          Probe kProbe>
 inline cudaError_t launch_conv3x3_bn(const Conv3x3& c, Epi epi,
                                      cudaStream_t stream) {
   using R = sm90::Ring<BN>;
@@ -351,29 +433,33 @@ inline cudaError_t launch_conv3x3_bn(const Conv3x3& c, Epi epi,
   // object per process (a static local of an inline function), shared by
   // the v3 and v4 libraries, each of which registers its own kernel
   cudaError_t e = cudaFuncSetAttribute(
-      sm90::conv3x3_sm90<BN, kSum, kBackward, Epi>,
+      sm90::conv3x3_sm90<BN, kSum, kBackward, Epi, kSched, kProbe>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
   if (e != cudaSuccess) return e;
   const int tiles =
-      ((c.M + sm90::kBM - 1) / sm90::kBM) * c.gy * c.g * (c.cout / BN);
+      ((c.M + sm90::kBM - 1) / sm90::kBM) * c.n_walk * (c.cout / BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  sm90::conv3x3_sm90<BN, kSum, kBackward, Epi>
+  sm90::conv3x3_sm90<BN, kSum, kBackward, Epi, kSched, kProbe>
       <<<grid, sm90::kThreads, R::kSmem, stream>>>(
-          c.in, c.w, c.masks, c.order, c.M, c.g, c.gy, c.cin, c.cout,
+          c.in, c.w, c.masks, c.order, c.M, c.g, c.n_walk, c.cin, c.cout,
           c.in_fine, c.out_fine, epi);
   return cudaGetLastError();
 }
 
 // kSum: how the taps are summed; a backward conv (kBackward) rounds each
-// tap (kPerTapBf16) or sums them in one chain (kChain).
-template <TapSum kSum, bool kBackward, typename Epi>
+// tap (kPerTapBf16) or sums them in one chain (kChain). kSched: how the
+// consumers share the tensor cores; kProbe: what a probe launch keeps.
+template <TapSum kSum, bool kBackward, Sched kSched = kCoop,
+          Probe kProbe = kWhole, typename Epi>
 inline cudaError_t launch_conv3x3(const Conv3x3& c, Epi epi,
                                   cudaStream_t stream) {
   static_assert(!kBackward || kSum != kPerTap,
                 "a backward conv rounds each tap or sums them in one chain");
   return c.cout % 128 == 0
-             ? launch_conv3x3_bn<128, kSum, kBackward, Epi>(c, epi, stream)
-             : launch_conv3x3_bn<64, kSum, kBackward, Epi>(c, epi, stream);
+             ? launch_conv3x3_bn<128, kSum, kBackward, Epi, kSched, kProbe>(
+                   c, epi, stream)
+             : launch_conv3x3_bn<64, kSum, kBackward, Epi, kSched, kProbe>(
+                   c, epi, stream);
 }
 
 // ---- epilogues: channels c, c + 1 of a row, from the f32 sums. One that

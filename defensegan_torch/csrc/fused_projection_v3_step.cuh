@@ -6,17 +6,18 @@
 //
 // A chain is one row range's step: seven launches (eight with the split-K
 // sum) over its own buffers, its products' tensor maps encoded once per
-// call. `run` builds one chain (two with kTwoChains: the rows in two
-// halves, the second on a stream of its own, forked from and joined to the
-// caller's by events) and issues the L steps, the chains' launches in
-// turns. The switches:
+// call. `run` builds the chain and issues the L steps. The switches:
 //   kPadded         the v3p grid: g rows of g + 1 pixels, the last column a
-//                   zero pad; every tap issued (masks all 1), the fc's
-//                   product rounded to bf16 before the bias, h1 and do
-//                   multiplied by the pad mask;
+//                   zero pad. Conv A walks the g*g real pixels and counts a
+//                   tap only where its source is a real pixel (v3's taps,
+//                   from the caller's masks and order); the fc's product is
+//                   rounded to bf16 before the bias; do is multiplied by
+//                   the pad mask; h1 is zeroed once per call (see `run`);
 //   kChainBackward  conv A's backward sums its taps in one chain and rounds
 //                   once (v3 rounds each tap);
-//   kTwoChains      two independent chains (ilp).
+//   kPingPong       conv A, both ways, on the ping-pong schedule of
+//                   conv3x3_sm90.cuh (ilp): the same products, the two
+//                   consumer warpgroups out of phase.
 // With all three off it is v3's loop, launch for launch. `step` takes two
 // more, for v3_diag2.cu alone: kF32ConvB (conv B's packed product stored
 // in float32, tanh_grad_pack reading it so) and the cut (`upto`: the step
@@ -122,23 +123,6 @@ struct EpiRoundBiasRelu {
   }
 };
 
-// v3p's conv A forward: h1 = relu(acc + bias[c]) * padm[pixel] -> bf16 at
-// out[r, pixel, c] (zero on the pad column).
-struct EpiConvBiasReluPad {
-  const float* bias;
-  const float* padm;
-  bf16* out;
-  int ld, cout;
-  static constexpr bool kReads = false;
-  __device__ __forceinline__ void operator()(int r, int c, int pix_off,
-                                             float a0, float a1) const {
-    const float m = padm[pix_off / cout];
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * ld + pix_off + c) =
-        __floats2bfloat162_rn(fmaxf(a0 + bias[c], 0.0f) * m,
-                              fmaxf(a1 + bias[c + 1], 0.0f) * m);
-  }
-};
-
 // One step chain over rows [0, M) of its buffers: the products' tensor maps
 // (encoded once) and the buffers they read and write.
 // obf, osec, dosec: v3_diag2.cu's float32 conv B product and its o and do
@@ -154,29 +138,29 @@ struct Chain {
   float lr, momentum, scale;
 };
 
-// The chain on rows [r0, r0 + M) of the call's buffers (row strides: K for
-// z, v and zb; P*cb for x; P*c0 for h0; P*ca for h1; P*npk, P*kpk for obb
-// and dop; splits*K for ws).
+// The chain on rows [0, M) of the call's buffers (row strides: K for z,
+// v and zb; P*cb for x; P*c0 for h0; P*ca for h1; P*npk, P*kpk for obb and
+// dop; splits*K for ws). n_walk: the pixels of `order` conv A writes (0:
+// all P).
 inline cudaError_t make_chain(
-    Chain* ch, int r0, int M, float* z, float* v, const bf16* x,
-    const bf16* w1, const bf16* w1t, const float* b1, const bf16* ka,
-    const bf16* kat, const float* ba, const bf16* kbp, const bf16* kbpt,
-    const float* bb, const float* masks, const int* order, const float* padm,
-    bf16* zb, bf16* h0, bf16* h1, bf16* obb, bf16* dop, float* ws, int K,
-    int c0, int ca, int cb, int gy, int gx, int npk, int kpk, int splits,
-    float lr, float momentum, float scale) {
+    Chain* ch, int M, float* z, float* v, const bf16* x, const bf16* w1,
+    const bf16* w1t, const float* b1, const bf16* ka, const bf16* kat,
+    const float* ba, const bf16* kbp, const bf16* kbpt, const float* bb,
+    const float* masks, const int* order, const float* padm, bf16* zb,
+    bf16* h0, bf16* h1, bf16* obb, bf16* dop, float* ws, int K, int c0,
+    int ca, int cb, int gy, int gx, int npk, int kpk, int splits, float lr,
+    float momentum, float scale, int n_walk = 0) {
   const int p2 = gy * gx;
-  const size_t r = static_cast<size_t>(r0);
   *ch = Chain{};
-  ch->z = z + r * K;
-  ch->v = v + r * K;
-  ch->ws = ws + r * splits * K;
-  ch->x = x + r * p2 * cb;
-  ch->zb = zb + r * K;
-  ch->h0 = h0 + r * p2 * c0;
-  ch->h1 = h1 + r * p2 * ca;
-  ch->obb = obb + r * p2 * npk;
-  ch->dop = dop + r * p2 * kpk;
+  ch->z = z;
+  ch->v = v;
+  ch->ws = ws;
+  ch->x = x;
+  ch->zb = zb;
+  ch->h0 = h0;
+  ch->h1 = h1;
+  ch->obb = obb;
+  ch->dop = dop;
   ch->b1 = b1;
   ch->ba = ba;
   ch->bb = bb;
@@ -195,10 +179,10 @@ inline cudaError_t make_chain(
   ch->momentum = momentum;
   ch->scale = scale;
   cudaError_t e = fpk::make_conv3x3(&ch->conv_a, ch->h0, ka, masks, order, M,
-                                    gx, c0, ca, 0, 0, gy);
+                                    gx, c0, ca, 0, 0, gy, n_walk);
   if (e == cudaSuccess)
     e = fpk::make_conv3x3(&ch->conv_at, ch->h1, kat, masks, order, M, gx, ca,
-                          c0, 0, 0, gy);
+                          c0, 0, 0, gy, n_walk);
   if (e == cudaSuccess)
     e = fpk::make_gemm<bf16>(&ch->fc, ch->zb, w1, M, ch->F, K);
   if (e == cudaSuccess)
@@ -226,9 +210,11 @@ enum Cut : int {
 // One projection step of a chain: fused_projection_v3.cu's seven launches
 // (eight with the split-K sum), with the variant's changes; cut after
 // section `upto`.
-template <bool kPadded, bool kChainBackward, bool kF32ConvB = false>
+template <bool kPadded, bool kChainBackward, bool kF32ConvB = false,
+          bool kPingPong = false>
 inline cudaError_t step(const Chain& ch, cudaStream_t st,
                         int upto = kCutFull) {
+  constexpr fpk::Sched kConvA = kPingPong ? fpk::kPingPong : fpk::kCoop;
   using Ob = typename std::conditional<kF32ConvB, float, bf16>::type;
   const int p2 = ch.gy * ch.gx;
   const size_t smem = p2 * ch.cb * sizeof(bf16);
@@ -242,15 +228,9 @@ inline cudaError_t step(const Chain& ch, cudaStream_t st,
                                nullptr, st);
   }
   if (e != cudaSuccess || upto == kCutFc) return e;
-  // conv A forward
-  if constexpr (kPadded) {
-    e = fpk::launch_conv3x3<fpk::kChain, false>(
-        ch.conv_a,
-        EpiConvBiasReluPad{ch.ba, ch.padm, ch.h1, p2 * ch.ca, ch.ca}, st);
-  } else {
-    e = fpk::launch_conv3x3<fpk::kChain, false>(
-        ch.conv_a, fpk::EpiConvBiasRelu{ch.ba, ch.h1, p2 * ch.ca}, st);
-  }
+  // conv A forward (v3p: the real pixels only)
+  e = fpk::launch_conv3x3<fpk::kChain, false, kConvA>(
+      ch.conv_a, fpk::EpiConvBiasRelu{ch.ba, ch.h1, p2 * ch.ca}, st);
   if (e != cudaSuccess || upto == kCutConvA) return e;
   // conv B forward, packed
   const Ob* ob;
@@ -285,8 +265,8 @@ inline cudaError_t step(const Chain& ch, cudaStream_t st,
   // conv A backward, masked by h0, over h0: each tap rounded, or (packed)
   // the taps in one chain, rounded once
   e = fpk::launch_conv3x3<kChainBackward ? fpk::kChain : fpk::kPerTapBf16,
-                          true>(ch.conv_at, fpk::EpiConvReluMask{ch.h0, ch.F},
-                                st);
+                          true, kConvA>(ch.conv_at,
+                                        fpk::EpiConvReluMask{ch.h0, ch.F}, st);
   if (e != cudaSuccess || upto == kCutConvABwd) return e;
   // fc backward + momentum update
   return fpk::launch_gemm<bf16>(
@@ -294,9 +274,14 @@ inline cudaError_t step(const Chain& ch, cudaStream_t st,
       ch.ws, st);
 }
 
-// The L loop. kTwoChains: the rows in two halves (the first a multiple of
-// 64 rows), the second on a stream of its own.
-template <bool kPadded, bool kChainBackward, bool kTwoChains>
+// The L loop over one chain of all M rows. kPadded: conv A writes only
+// the real pixels, so nothing else writes h1's pad column; it is zeroed
+// here once, and stays zero: conv B's backward writes dh1 = (dop KBT) *
+// [h1 > 0] over h1, which is 0 where h1 is, and conv A's backward reads
+// dh1 only at real pixels. h0's pad column is the fc's relu(bf16(0) + 0)
+// = 0 every step (W1 and b1 hold zero blocks there), and conv A's backward
+// leaves it so (its pad tiles are not issued).
+template <bool kPadded, bool kChainBackward, bool kPingPong>
 inline int run(float* z, float* v, const bf16* x, const bf16* w1,
                const bf16* w1t, const float* b1, const bf16* ka,
                const bf16* kat, const float* ba, const bf16* kbp,
@@ -308,42 +293,16 @@ inline int run(float* z, float* v, const bf16* x, const bf16* w1,
                void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   const int gy = g, gx = kPadded ? g + 1 : g;
-  const int m0 = kTwoChains && M > 64 ? (M / 2 + 63) / 64 * 64 : M;
-  Chain ch[2];
-  const int n_chains = m0 < M ? 2 : 1;
-  cudaError_t e = cudaSuccess;
-  for (int i = 0; i < n_chains && e == cudaSuccess; ++i)
-    e = make_chain(&ch[i], i ? m0 : 0, i ? M - m0 : m0, z, v, x, w1, w1t, b1,
-                   ka, kat, ba, kbp, kbpt, bb, masks, order, padm, zb, h0, h1,
-                   obb, dop, ws, K, c0, ca, cb, gy, gx, npk, kpk, splits, lr,
-                   momentum, scale);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t streams[2] = {st, nullptr};
-  cudaEvent_t fork = nullptr, join = nullptr;
-  if (n_chains == 2) {
-    e = cudaStreamCreateWithFlags(&streams[1], cudaStreamNonBlocking);
-    if (e == cudaSuccess)
-      e = cudaEventCreateWithFlags(&fork, cudaEventDisableTiming);
-    if (e == cudaSuccess)
-      e = cudaEventCreateWithFlags(&join, cudaEventDisableTiming);
-    if (e == cudaSuccess) e = cudaEventRecord(fork, st);
-    if (e == cudaSuccess) e = cudaStreamWaitEvent(streams[1], fork, 0);
-  }
-  for (int i = 0; i < n_chains && e == cudaSuccess; ++i)
-    e = fpk::launch_cast_bf16(ch[i].z, ch[i].zb, ch[i].M * K, streams[i]);
+  Chain ch;
+  cudaError_t e = make_chain(&ch, M, z, v, x, w1, w1t, b1, ka, kat, ba, kbp,
+                             kbpt, bb, masks, order, padm, zb, h0, h1, obb,
+                             dop, ws, K, c0, ca, cb, gy, gx, npk, kpk, splits,
+                             lr, momentum, scale, g * g);
+  if (e == cudaSuccess && kPadded)
+    e = cudaMemsetAsync(h1, 0, sizeof(bf16) * M * gy * gx * ca, st);
+  if (e == cudaSuccess) e = fpk::launch_cast_bf16(z, zb, M * K, st);
   for (int it = 0; it < iters && e == cudaSuccess; ++it)
-    for (int i = 0; i < n_chains && e == cudaSuccess; ++i)
-      e = step<kPadded, kChainBackward>(ch[i], streams[i]);
-  if (n_chains == 2) {
-    // the caller's stream waits for the second chain whatever happened
-    cudaError_t j = join ? cudaEventRecord(join, streams[1])
-                         : cudaErrorInvalidResourceHandle;
-    if (j == cudaSuccess) j = cudaStreamWaitEvent(st, join, 0);
-    if (e == cudaSuccess) e = j;
-    if (fork) cudaEventDestroy(fork);
-    if (join) cudaEventDestroy(join);
-    if (streams[1]) cudaStreamDestroy(streams[1]);
-  }
+    e = step<kPadded, kChainBackward, false, kPingPong>(ch, st);
   return (int)e;
 }
 

@@ -205,7 +205,7 @@ extern "C" int fp_v3_diag2_plan(
   if (n < 1 || n > M || k < 1 || k > K) return (int)cudaErrorInvalidValue;
   Plan* p = new Plan;
   cudaError_t e = fpk::v3::make_chain(
-      &p->ch, 0, M, z, v, x, w1, w1t, b1, ka, kat, ba, kbp, kbpt, bb, masks,
+      &p->ch, M, z, v, x, w1, w1t, b1, ka, kat, ba, kbp, kbpt, bb, masks,
       order, nullptr, zb, h0, h1, nullptr, dop, ws, K, c0, ca, cb, g, g, npk,
       kpk, splits, lr, momentum, scale);
   if (e != cudaSuccess) {

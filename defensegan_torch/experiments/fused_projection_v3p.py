@@ -1,4 +1,4 @@
-"""Experiment v3p: the deep loop v3 on a padded 7 x 8 grid, no tap masks.
+"""Experiment v3p: the deep loop v3 on a padded 7 x 8 grid.
 
 Port of scripts/fused_projection_v3p_exp.py, an experiment the JAX package
 keeps as a record (on a TPU v5e it was slower than v3: RESULTS.md). The
@@ -19,6 +19,15 @@ per-pixel blocks): v3 rounds once, after the relu. That is v3p's one
 rounding change; every other sum is v3's up to float32 order (a tap that
 reads zeros adds nothing).
 
+On the H100 the pad layout stays, but conv A issues only what can be
+nonzero: a tap that reads only zeros would cost a whole slab of products,
+while a tap mask costs the grid conv nothing. `padded_tap_masks` counts a
+tap where its source is a real pixel (v3's taps: 361 a direction), and
+`padded_pixel_order` walks only the 49 real pixels, so no pad pixel's
+tile is issued. A skipped tap's products are exact zeros, so this is the
+all-taps function bit for bit (`s2d_padded_loop_plain(counted_taps=
+False)` keeps the all-taps form to show it).
+
 `fused_projection_s2d_padded` takes v3's interface (x [N, 49*cb] in
 s2d-flat order, z0 [N, k]) and pads the grid itself: on a CUDA tensor it
 runs the hand-written kernel (csrc/fused_projection_v3_variants.cu,
@@ -35,8 +44,8 @@ import torch.nn.functional as F
 
 from defensegan_torch.kernels.fused_projection_v2 import run_loop
 from defensegan_torch.kernels.fused_projection_v3 import (
-    S2DPack, _bf16_round, _tap_offsets, check_targets, make_s2d_reconstructor,
-    padded_s2d)
+    S2DPack, _bf16_round, _tap_masks, _tap_offsets, check_targets,
+    make_s2d_reconstructor, padded_s2d)
 from defensegan_torch.kernels.gemm import split_k_for
 
 LIBRARY = "fused_projection_v3_variants"
@@ -54,6 +63,30 @@ def real_to_pad(g: int) -> np.ndarray:
     """[g*g] int64: each real pixel's index on the padded g x (g+1) grid."""
     return np.asarray([(p // g) * (g + 1) + p % g for p in range(g * g)],
                       np.int64)
+
+
+def padded_tap_masks(g: int) -> np.ndarray:
+    """[g*(g+1), 9] f32: tap k counts at padded pixel p where its source
+    p + off_k (off_k = dy*(g+1) + dx) is a real pixel: in [0, g*(g+1)) and
+    off the pad column. For a real pixel that is v3's mask at the same
+    (y, x); the backward reads [p, 8 - k], the same test for p - off_k."""
+    gx = g + 1
+    m = np.zeros((g * gx, 9), np.float32)
+    for p in range(g * gx):
+        for k, (dy, dx) in enumerate(_tap_offsets(g)):
+            q = p + dy * gx + dx
+            m[p, k] = float(0 <= q < g * gx and q % gx != g)
+    return m
+
+
+def padded_pixel_order(g: int) -> np.ndarray:
+    """[g*g] int32: the real pixels' indices on the padded grid, most taps
+    first as kernels/fused_projection_v3.py::pixel_order orders them (9
+    inside, 6 on an edge, 4 in a corner; pixel order within a count): the
+    grid conv's walk, which never reaches the pad column."""
+    real = real_to_pad(g)
+    return real[np.argsort(-_tap_masks(g).sum(1), kind="stable")] \
+        .astype(np.int32)
 
 
 def pad_pixels(t: torch.Tensor, g: int, c: int) -> torch.Tensor:
@@ -74,18 +107,22 @@ def b1_pad(pack: S2DPack) -> torch.Tensor:
 
 def s2d_padded_loop_plain(pack: S2DPack, x_s2d: torch.Tensor,
                           z0: torch.Tensor, *, rec_iters: int, rec_lr: float,
-                          momentum: float,
-                          round_fc: bool = True) -> torch.Tensor:
+                          momentum: float, round_fc: bool = True,
+                          counted_taps: bool = True) -> torch.Tensor:
     """Plain PyTorch version of the v3p loop; returns z_final [N, k].
 
     x_s2d: [N, 49*cb] tanh-space targets in s2d-flat order (v3's
     interface; padded here, rounded to bf16 as the kernel reads them).
     bf16 operands where the kernel rounds, float32 products; a tap is a
-    shift of the padded pixel axis with zeros shifted in (no mask). Takes
-    a pack padded by `padded_s2d` as well. On a CUDA device the caller
-    turns TF32 off. round_fc=False leaves out v3p's one rounding change
-    (the fc product rounded before the bias): v3's function on the padded
-    grid.
+    shift of the padded pixel axis with zeros shifted in. As the kernel,
+    conv A sums a tap only where `padded_tap_masks` counts it (both ways)
+    and writes only the real pixels; counted_taps=False sums every tap at
+    every pixel, the TPU kernel's form (the skipped taps read only zeros).
+    Conv B's tap sum takes every in-range tap, as the kernel's
+    tanh_grad_pack does. Takes a pack padded by `padded_s2d` as well. On
+    a CUDA device the caller turns TF32 off. round_fc=False leaves out
+    v3p's one rounding change (the fc product rounded before the bias):
+    v3's function on the padded grid.
     """
     rnd = _bf16_round
     g, c0, ca, cb = pack.grid_hw, pack.c0, pack.ca, pack.cb
@@ -96,6 +133,7 @@ def s2d_padded_loop_plain(pack: S2DPack, x_s2d: torch.Tensor,
     offs = [dy * gx + dx for dy, dx in _tap_offsets(g)]
     real = torch.from_numpy(real_to_pad(g)).to(dev)
     padm = torch.from_numpy(_pad_row_mask(g, gx)).to(dev)     # [P, 1]
+    counts = torch.from_numpy(padded_tap_masks(g)).to(dev) > 0  # [P, 9]
 
     def mm(a, w):
         return (a @ w.float()).float()
@@ -116,6 +154,14 @@ def s2d_padded_loop_plain(pack: S2DPack, x_s2d: torch.Tensor,
         ap = F.pad(a, (0, 0, gx + 1, gx + 1))
         return ap[:, gx + 1 + s:gx + 1 + s + npix]
 
+    def tap_a(prod, k, sign=1):
+        """One tap's term of conv A (sign -1: its backward, which reads
+        masks[p, 8 - k]), dropped where the kernel does not issue it."""
+        if not counted_taps:
+            return prod
+        kk = k if sign == 1 else 8 - k
+        return torch.where(counts[:, kk, None], prod, 0.0)
+
     z = z0.float().clone()
     v = torch.zeros_like(z)
     for _ in range(rec_iters):
@@ -124,7 +170,7 @@ def s2d_padded_loop_plain(pack: S2DPack, x_s2d: torch.Tensor,
         fc[:, real] = (rnd(prod) if round_fc else prod).reshape(n, g * g, c0)
         h0 = torch.relu(fc + b1)
         h0b = rnd(h0)
-        h1 = sum(mm(read(h0b, k), ka[k]) for k in range(9))
+        h1 = sum(tap_a(mm(read(h0b, k), ka[k]), k) for k in range(9))
         h1 = torch.relu(h1 + pack.ba) * padm
         obb = rnd(mm(rnd(h1), kbp))                      # [N, P, 9*cb]
         o = pack.bb + torch.zeros_like(x)
@@ -134,7 +180,8 @@ def s2d_padded_loop_plain(pack: S2DPack, x_s2d: torch.Tensor,
         do = rnd((t - x) * (1.0 - t * t) * scale) * padm
         dop = torch.cat([read(do, k, -1) for k in range(9)], dim=2)
         dh1 = rnd(torch.where(h1 > 0.0, mm(dop, kbpt), 0.0))
-        dh0 = sum(read(rnd(mm(dh1, kat[k])), k, -1) for k in range(9))
+        dh0 = sum(tap_a(read(rnd(mm(dh1, kat[k])), k, -1), k, -1)
+                  for k in range(9))
         dh0 = rnd(torch.where(h0 > 0.0, dh0, 0.0))
         v = momentum * v + mm(dh0[:, real].reshape(n, g * g * c0), w1t)
         z = z - rec_lr * v
@@ -158,7 +205,18 @@ def fused_projection_s2d_padded(pack: S2DPack, x_s2d: torch.Tensor,
         return s2d_padded_loop_plain(pack, x_s2d, z0_flat,
                                      rec_iters=rec_iters, rec_lr=rec_lr,
                                      momentum=momentum)
-    dev, bf = z0_flat.device, torch.bfloat16
+    x_pad, weights, scratch, dims = kernel_args(pack, x_s2d)
+    return run_loop(
+        LIBRARY, x_pad, z0_flat, weights, scratch, dims,
+        out_dim=g * g * pack.cb, rec_iters=rec_iters, rec_lr=rec_lr,
+        momentum=momentum, chunk=chunk, entry="fp_v3p_run", counter=COUNTER)
+
+
+def kernel_args(pack: S2DPack, x_s2d: torch.Tensor):
+    """fp_v3p_run's inputs on x_s2d's device, as run_loop takes them:
+    (x on the padded grid [N, P*cb] bf16, the weights in argument order,
+    (columns, dtype) of each per-row scratch buffer, the widths)."""
+    g, dev, bf = pack.grid_hw, x_s2d.device, torch.bfloat16
     pp = padded_s2d(pack)
     kp, c0, ca, cb = pp.z_dim, pp.c0, pp.ca, pp.cb
     npix = g * (g + 1)
@@ -166,19 +224,16 @@ def fused_projection_s2d_padded(pack: S2DPack, x_s2d: torch.Tensor,
     w1 = pad_pixels(pp.w1, g, c0)                          # [kp, P*c0]
     w1t = pad_pixels(pp.w1t.t(), g, c0).t().contiguous()   # [P*c0, kp]
     b1 = b1_pad(pp).reshape(-1).contiguous()
-    masks = torch.ones((npix, 9), dtype=torch.float32, device=dev)
-    order = torch.arange(npix, dtype=torch.int32, device=dev)
+    masks = torch.from_numpy(padded_tap_masks(g)).to(dev)
+    order = torch.from_numpy(padded_pixel_order(g)).to(dev)
     padm = torch.from_numpy(_pad_row_mask(g, g + 1)).reshape(-1).to(dev)
     splits = split_k_for(npix * c0, kp)                    # the fc backward
-    return run_loop(
-        LIBRARY, pad_pixels(x_s2d.to(bf), g, cb), z0_flat,
-        [w1, w1t, b1, pp.ka, pp.kat, pp.ba, pp.kbp, pp.kbpt, pp.bb, masks,
-         order, padm],
-        [(kp, bf), (npix * c0, bf), (npix * ca, bf), (npix * npk, bf),
-         (npix * kpk, bf), (splits * kp, torch.float32)],
-        (kp, c0, ca, cb, g, npk, kpk, splits), out_dim=g * g * pack.cb,
-        rec_iters=rec_iters, rec_lr=rec_lr, momentum=momentum, chunk=chunk,
-        entry="fp_v3p_run", counter=COUNTER)
+    return (pad_pixels(x_s2d.to(bf), g, cb),
+            [w1, w1t, b1, pp.ka, pp.kat, pp.ba, pp.kbp, pp.kbpt, pp.bb,
+             masks, order, padm],
+            [(kp, bf), (npix * c0, bf), (npix * ca, bf), (npix * npk, bf),
+             (npix * kpk, bf), (splits * kp, torch.float32)],
+            (kp, c0, ca, cb, g, npk, kpk, splits))
 
 
 def make_s2d_padded_reconstructor(generator, image_shape, *, rec_rr: int,

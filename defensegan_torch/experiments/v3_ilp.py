@@ -4,35 +4,54 @@ Port of scripts/pallas_v3_ilp_exp.py, an experiment the JAX package keeps
 as a record (on a TPU v5e a tie with v3: RESULTS.md). The TPU kernel runs
 v3's step on two independent 32-latent subtiles per grid step, so that
 the compiler can overlap one subtile's vector stages with the other's
-matrix products. On the H100 the same lever is two step chains in flight:
-the chunk's rows in two halves, each on its own CUDA stream, their
-launches issued in turns step by step from the library's L loop
-(csrc/fused_projection_v3_variants.cu, fp_v3_ilp_run), so that one
-half's non-product launches (tanh_grad_pack, the split-K sum, a conv's
-tail) run beside the other half's wgmma products. Every row's arithmetic
-is v3's: z_final equals v3's bit for bit.
+matrix products. On the H100 that lever lives inside a block of the grid
+conv, which carries most of the step: a conv A tile is 128 latents, two
+consumer warpgroups of 64 rows each, already two independent row chains.
+The library's loop (csrc/fused_projection_v3_variants.cu, fp_v3_ilp_run)
+runs v3's step with conv A, both ways, on the ping-pong schedule
+(csrc/conv3x3_sm90.cuh, kPingPong): warpgroup 1 starts each tap once
+warpgroup 0 has issued it (an ordered pair of named barriers per tap), so
+the two run about a tap apart and one's fold and epilogue fall while the
+other's products are queued; both read the same ring stages, so the L2
+feed is v3's. Every output element sees v3's wgmma sequence: z_final
+equals v3's bit for bit.
 
 `fused_projection_ilp` runs the loop: on a CUDA tensor through the
-kernel, on a CPU tensor through `ilp_loop_plain`.
+kernel, on a CPU tensor through `ilp_loop_plain` (v3's plain loop on two
+halves of the rows: the same function, rows being independent).
+`conv_a` launches one conv A alone on either schedule, for holding the
+ping-pong schedule against v3's and for measuring the conv's ceilings
+(`probe`: the L2 feed alone, the products alone).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
+from defensegan_torch.kernels import build
+from defensegan_torch.kernels.conv3x3 import conv3x3_plain
 from defensegan_torch.kernels.fused_projection_v2 import ROW_TILE
 from defensegan_torch.kernels.fused_projection_v3 import (
-    S2DPack, check_targets, make_s2d_reconstructor, run_s2d, s2d_loop_plain)
+    S2DPack, _tap_masks, check_targets, make_s2d_reconstructor, pixel_order,
+    run_s2d, s2d_loop_plain)
 
 LIBRARY = "fused_projection_v3_variants"
 COUNTER = "fused_projection_v3_ilp"      # build.LAUNCHES key of this wrapper
+CONV_COUNTER = "v3_conv_a"               # build.LAUNCHES key of `conv_a`
+SCHEDULES = ("coop", "pingpong")         # v3's, ilp's
+PROBES = ("whole", "feed", "math")       # the conv, the feed, the products
+# fp_conv_a's parameters: in, w, bias, masks, order, out; M, g, cin, cout,
+# backward, pingpong, probe; the stream
+CONV_A_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
+    [ctypes.c_void_p]
 
 
 def halves(n: int) -> int:
-    """Rows of the first chain: half of n rounded up to the 64-row tile
-    (n itself up to 64 rows: one chain), as the kernel splits a chunk."""
+    """Rows of the plain version's first chain: half of n rounded up to the
+    64-row tile (n itself up to 64 rows: one chain)."""
     return n if n <= ROW_TILE else -(-(n // 2) // ROW_TILE) * ROW_TILE
 
 
@@ -63,6 +82,67 @@ def fused_projection_ilp(pack: S2DPack, x_s2d: torch.Tensor,
     return run_s2d(pack, x_s2d, z0_flat, rec_iters=rec_iters, rec_lr=rec_lr,
                    momentum=momentum, chunk=chunk, library=LIBRARY,
                    entry="fp_v3_ilp_run", counter=COUNTER)
+
+
+def conv_a(inp: torch.Tensor, w: torch.Tensor, g: int, mode: str, *,
+           bias: Optional[torch.Tensor] = None,
+           h: Optional[torch.Tensor] = None, schedule: str = "pingpong",
+           probe: str = "whole") -> torch.Tensor:
+    """One conv A launch of the loops alone, on v3's grid (masks and walk):
+    mode "chain" (the forward: bf16(relu(sum of the taps + bias)), one
+    chain) or "backward" (each tap rounded, masked by h > 0), as
+    kernels/conv3x3.py's modes of those names. On CUDA tensors it launches
+    the grid conv on `schedule` ("coop": v3's, "pingpong": ilp's), or
+    raises; `probe` "feed" keeps only the L2 feed (zeros stored), "math"
+    only the products (the output undefined): timings, not convs. A CPU
+    tensor runs conv3x3_plain (probe "whole" only)."""
+    if mode not in ("chain", "backward"):
+        raise ValueError(f"conv A runs 'chain' or 'backward', not {mode!r}")
+    if schedule not in SCHEDULES or probe not in PROBES:
+        raise ValueError(f"schedule {schedule!r} / probe {probe!r} not in "
+                         f"{SCHEDULES} / {PROBES}")
+    if inp.device.type == "cpu":
+        if probe != "whole":
+            raise ValueError("a probe launch runs on CUDA tensors only")
+        return conv3x3_plain(inp, w, g, mode, bias=bias, h=h)
+    dev, bf = inp.device, torch.bfloat16
+    cin, cout = w.shape[0] // 9, w.shape[1]
+    backward = mode == "backward"
+    if (backward and h is None) or (not backward and bias is None):
+        raise ValueError("the forward takes a bias, the backward h")
+    other = h if backward else bias
+    if inp.shape[1] != g * g * cin or w.shape[0] != 9 * cin or \
+            (backward and tuple(h.shape) != (inp.shape[0], g * g * cout)) \
+            or (not backward and bias.numel() != cout):
+        raise ValueError(f"in {tuple(inp.shape)}, w {tuple(w.shape)}: no "
+                         f"conv A on a {g}x{g} grid")
+    if any(t.device != dev or not t.is_contiguous()
+           for t in (inp, w, other)):
+        raise ValueError(f"every tensor must be contiguous on {dev}")
+    if inp.dtype != bf or w.dtype != bf or (backward and h.dtype != bf):
+        raise ValueError("conv A takes bf16 activations and weights")
+    if cin % 64 or cout % 64:
+        raise ValueError(f"cin {cin} and cout {cout} must be multiples of 64")
+    m = inp.shape[0]
+    out = h.clone() if backward else torch.empty(
+        (m, g * g * cout), dtype=bf, device=dev)
+    b = None if backward else bias.float().contiguous()
+    masks = torch.from_numpy(_tap_masks(g)).to(dev)
+    order = torch.from_numpy(pixel_order(g)).to(dev)
+    lib = build.load(LIBRARY)
+    fn = lib.fp_conv_a
+    fn.argtypes = CONV_A_ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):      # the library uses the current device
+        rc = fn(inp.data_ptr(), w.data_ptr(),
+                None if b is None else b.data_ptr(), masks.data_ptr(),
+                order.data_ptr(), out.data_ptr(), m, g, cin, cout,
+                int(backward), SCHEDULES.index(schedule),
+                PROBES.index(probe),
+                torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, rc, "conv_a")
+    build.LAUNCHES[CONV_COUNTER] += 1
+    return out
 
 
 def make_ilp_reconstructor(generator, image_shape, *, rec_rr: int,

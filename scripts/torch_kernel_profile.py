@@ -20,10 +20,19 @@ border taps left out) and its share of the peak of their type (bf16
 989 TFLOP/s, int8 1979 TOP/s);
 --config runs v4 on another 64x64 config (celeba_wide, imagenet64) at the
 same rows. --chunks repeats this for each row-chunk size of the wrappers
-(0: their default, one chunk up to the scratch cap). Needs one CUDA device:
+(0: their default, one chunk up to the scratch cap). --kernel v3p and ilp
+profile two of v3's layout experiments the same way (v3p on its padded
+grid, conv A on v3's 361 taps; ilp with conv A on the ping-pong schedule).
+--kernel conva measures conv A's ceilings at the same rows, both ways, on
+each schedule (experiments/v3_ilp.py::conv_a): the conv, the L2 feed
+alone (the producer's copies, no wgmma) and the products alone (no
+copies), each launch's device time under the profiler, its issued
+operations' share of the bf16 peak and the bytes the copies bring from L2
+per second. Needs one CUDA device:
 
-    python3 scripts/torch_kernel_profile.py [--kernel all|v2|v2i|v3|v4] \
-        [--iters 20] [--chunks 0,4096] [--config celeba]
+    python3 scripts/torch_kernel_profile.py \
+        [--kernel all|v2|v2i|v3|v4|v3p|ilp|conva] [--iters 20] \
+        [--chunks 0,4096] [--config celeba]
 """
 
 from __future__ import annotations
@@ -74,13 +83,17 @@ def pack_width(pack) -> int:
     return base.grid_hw ** 2 * base.cb
 
 
+V3_LOOPS = ("fused_projection_v3", "fused_projection_v3p",
+            "fused_projection_v3_ilp")     # v3's step, launch for launch
+
+
 def step_labels(name: str, pack):
     """The launches of one step of the loop, in stream order."""
     if name.endswith("v2"):
         return V2_LAUNCHES
     if name.endswith("v2i"):
         return V2I_LAUNCHES
-    if name.endswith("v3"):
+    if name in V3_LOOPS:
         return V3_LAUNCHES
     lv = level_names(pack)
     return (("fc forward",) + tuple(f"{n} forward" for n in lv)
@@ -134,7 +147,9 @@ def issued(name: str, pack, rows: int, iters: int) -> dict:
             out[f"{lname} forward"] = out[f"{lname} backward"] = conv
         return out
     pp = padded_s2d(pack)
-    p2 = pp.grid_hw ** 2
+    # v3p's GEMMs run over its padded grid's g*(g+1) pixels; its conv A
+    # issues v3's taps
+    p2 = pp.grid_hw * (pp.grid_hw + (name == "fused_projection_v3p"))
     f = p2 * pp.c0
     conv_a = (2.0 * n * taps(pp.grid_hw) * pp.c0 * pp.ca, bf)
     return {"fc forward": (gemm_ops(n, pp.z_dim, f), bf),
@@ -184,10 +199,126 @@ def by_launch(prof, labels, iters: int, ops: dict):
     return rows
 
 
+def conv_a_bytes(rows: int, g: int, cin: int, cout: int) -> float:
+    """Bytes conv A's copies bring from L2 into shared memory: per tile
+    (128 rows, one pixel, BN channels) and counted tap, cin / 64 slabs of
+    A (128 x 64 bf16) and of B (64 x BN)."""
+    bn = 128 if cout % 128 == 0 else 64
+    slab = 128 * 64 * 2 + 64 * bn * 2
+    return float(_up(rows, 128) // 128 * taps(g) * (cout // bn)
+                 * (cin // 64) * slab)
+
+
+def conv_a_ceilings(pack, rows: int, reps: int = 10, seed: int = 0) -> list:
+    """Conv A at `rows` rows, forward (c0 -> ca, one chain) and backward
+    (ca -> c0, each tap rounded), on v3's and ilp's schedules: the conv,
+    the feed alone and the products alone (v3_ilp.conv_a's probes). Each
+    launch's device time is the median over `reps` launches under
+    torch.profiler; its share of the bf16 peak counts the operations the
+    conv issues (skipped border taps left out), its L2 rate the bytes
+    its copies bring (conv_a_bytes)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from defensegan_torch.experiments.v3_ilp import conv_a
+    from defensegan_torch.kernels.fused_projection_v3 import padded_s2d
+    pp = padded_s2d(pack)
+    g, c0, ca = pp.grid_hw, pp.c0, pp.ca
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h0 = torch.relu(torch.randn(rows, g * g * c0, device="cuda",
+                                generator=gen)).to(torch.bfloat16)
+    dh1 = torch.randn(rows, g * g * ca, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    # the backward reads dh1 and writes dh0 over h0, masked by h0 > 0
+    ways = {"forward": (h0, pp.ka, c0, ca, dict(mode="chain", bias=pp.ba)),
+            "backward": (dh1, pp.kat, ca, c0, dict(mode="backward", h=h0))}
+    out = []
+    for way, (inp, w, cin, cout, kw) in ways.items():
+        ops = 2.0 * rows * taps(g) * cin * cout
+        moved = conv_a_bytes(rows, g, cin, cout)
+        # the feed alone is the same launch on either schedule
+        for sched, probe in (("coop", "whole"), ("coop", "feed"),
+                             ("coop", "math"), ("pingpong", "whole"),
+                             ("pingpong", "math")):
+            def run():
+                return conv_a(inp, w, g, schedule=sched, probe=probe, **kw)
+            run()                                        # build + warm-up
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    run()
+                torch.cuda.synchronize()
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "conv3x3_sm90" in e.name]
+            if len(us) != reps:
+                raise RuntimeError(f"conv A {way} {sched} {probe}: {len(us)} "
+                                   f"launches profiled, not {reps}")
+            ms = statistics.median(us) / 1e3
+            out.append({
+                "way": way, "schedule": sched, "probe": probe, "rows": rows,
+                "ms": ms, "ms_all": [u / 1e3 for u in us],
+                "issued_tera_ops": ops / 1e12,
+                "peak_share": peak_share(ops, PEAK_BF16, ms),
+                "l2_gbytes": moved / 1e9,
+                "l2_tb_per_s": moved / (ms * 1e-3) / 1e12})
+    return out
+
+
+def profile_loop(name: str, loop, pack, x, cfg, iters: int,
+                 chunk: int = 0, seed: int = 0) -> dict:
+    """One loop's record: the median of 3 synchronized calls (after a
+    warm-up), then one call under torch.profiler: device time by kernel
+    and `by_launch` (the step's launches with their shares of the peak)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    kw = dict(rec_iters=iters, rec_lr=cfg.rec_lr, momentum=cfg.rec_momentum)
+    n = x.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z0 = torch.randn(n, cfg.latent_dim, device="cuda", generator=gen)
+
+    def run():
+        loop(pack, x, z0, **kw, **({"chunk": chunk} if chunk else {}))
+        torch.cuda.synchronize()
+    run()                                         # build + warm-up
+    calls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        calls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0.0))
+        if dev_us > 0 and e.self_cpu_time_total == 0:
+            rows.append((e.key, dev_us, e.count))
+    total = sum(r[1] for r in rows)
+    ops = issued(name, pack, n, iters)
+    return {
+        "loop": name, "rows": n, "iters": iters,
+        "chunk": chunk or "default", "p": pack_width(pack),
+        "call_ms": statistics.median(calls),
+        "wall_ms": wall * 1e3, "device_ms": total / 1e3,
+        "issued_tera_ops": {
+            kind: sum(o for o, pk in ops.values() if pk == peak) / 1e12
+            for kind, peak in (("bf16", PEAK_BF16), ("int8", PEAK_INT8))},
+        "by_launch": by_launch(prof, step_labels(name, pack), iters, ops),
+        "kernels": [dict(kernel=k[:120], ms=us / 1e3, count=c,
+                         share=us / total if total else None)
+                    for k, us, c in sorted(rows, key=lambda r: -r[1])]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", default="all",
-                    choices=("all", "v2", "v2i", "v3", "v4"))
+                    choices=("all", "v2", "v2i", "v3", "v4", "v3p", "ilp",
+                             "conva"))
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--config", default="celeba",
                     choices=("celeba", "celeba_wide", "imagenet64"),
@@ -201,8 +332,6 @@ def main(argv=None) -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from torch.profiler import ProfilerActivity, profile
-
     from chip_smoke import seeded_celeba_gan, seeded_deep_gan
     from defensegan_torch.configs import load_config
     from defensegan_torch.defense.fastgen import pack_generator
@@ -213,6 +342,9 @@ def main(argv=None) -> int:
                                           pack_dense_int8, pack_s2d, pack_v4)
     from defensegan_torch.kernels.fused_projection_v4 import (
         fused_projection_v4, x_rows)
+    from defensegan_torch.experiments.fused_projection_v3p import (
+        fused_projection_s2d_padded)
+    from defensegan_torch.experiments.v3_ilp import fused_projection_ilp
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
@@ -232,12 +364,20 @@ def main(argv=None) -> int:
             if tag in want:
                 loops.append(("fused_projection_" + tag, loop,
                               pack_fn(gan.generator), x, gan.cfg))
-    if "v3" in want:
+    deep_loops = {"v3": ("fused_projection_v3", fused_projection_s2d),
+                  "v3p": ("fused_projection_v3p",
+                          fused_projection_s2d_padded),
+                  "ilp": ("fused_projection_v3_ilp", fused_projection_ilp)}
+    if any(t in want for t in deep_loops) or "conva" in want:
         deep = seeded_deep_gan()
+        pack3 = pack_s2d(deep.generator)
         perm = pack_generator(deep.generator, "s2d").perm[0]
         x = (deep.generate(g, n).reshape(n, -1) * 2.0 - 1.0)[:, perm]
-        loops.append(("fused_projection_v3", fused_projection_s2d,
-                      pack_s2d(deep.generator), x, deep.cfg))
+        loops += [(*deep_loops[t], pack3, x, deep.cfg) for t in deep_loops
+                  if t in want]
+    if "conva" in want:
+        for rec in conv_a_ceilings(pack3, n):
+            print(json.dumps({"conv_a": rec}), flush=True)
     if "v4" in want:
         celeba = seeded_celeba_gan(args.config)
         p4 = pack_v4(celeba.generator)
@@ -247,49 +387,10 @@ def main(argv=None) -> int:
                       celeba.cfg))
     for (name, loop, pack, x, cfg), chunk in [
             (lp, int(c)) for lp in loops for c in args.chunks.split(",")]:
-        kw = dict(rec_iters=args.iters, rec_lr=cfg.rec_lr,
-                  momentum=cfg.rec_momentum)
-        n = x.shape[0]
-        z0 = torch.randn(n, cfg.latent_dim, device="cuda", generator=g)
-
-        def run():
-            loop(pack, x, z0, **kw, **({"chunk": chunk} if chunk else {}))
-            torch.cuda.synchronize()
-        run()                                         # build + warm-up
-        calls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            run()
-            calls.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            wall = time.perf_counter() - t0
-        rows = []
-        for e in prof.key_averages():
-            dev_us = getattr(e, "device_time_total",
-                             getattr(e, "cuda_time_total", 0.0))
-            if dev_us > 0 and e.self_cpu_time_total == 0:
-                rows.append((e.key, dev_us, e.count))
-        total = sum(r[1] for r in rows)
-        ops = issued(name, pack, n, args.iters)
-        launches = by_launch(prof, step_labels(name, pack), args.iters, ops)
-        extra = {"config": args.config} if name.endswith("v4") else {}
-        print(json.dumps({
-            "loop": name, "rows": n, "iters": args.iters,
-            "chunk": chunk or "default", "p": pack_width(pack),
-            "call_ms": statistics.median(calls),
-            "wall_ms": wall * 1e3, "device_ms": total / 1e3,
-            "issued_tera_ops": {
-                kind: sum(o for o, pk in ops.values() if pk == peak) / 1e12
-                for kind, peak in (("bf16", PEAK_BF16),
-                                   ("int8", PEAK_INT8))},
-            "by_launch": launches,
-            "kernels": [dict(kernel=k[:120], ms=us / 1e3, count=c,
-                             share=us / total if total else None)
-                        for k, us, c in sorted(rows, key=lambda r: -r[1])],
-            **extra}), flush=True)
+        rec = profile_loop(name, loop, pack, x, cfg, args.iters, chunk)
+        if name.endswith("v4"):
+            rec["config"] = args.config
+        print(json.dumps(rec), flush=True)
     return 0
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""z_final of the v3 kernel on seeded inputs, as a digest and a time: the
-check that a change to v3's step (csrc/fused_projection_v3_step.cuh) left
-its output bit for bit as it was.
+"""z_final of the v3 kernel (or of its layout experiment v3p) on seeded
+inputs, as a digest and a time: the check that a change to v3's step
+(csrc/fused_projection_v3_step.cuh) or to the grid conv left its output
+bit for bit as it was.
 
 The deep mnist.yml model with chip_smoke.py's seeded weights, G(z) of
 seeded latents as targets, seeded z0; `--root` takes the port (and
@@ -10,13 +11,15 @@ call on one card, in turns:
 
     python3 scripts/torch_v3_zfinal.py --rows 512 --iters 5
     python3 scripts/torch_v3_zfinal.py --root /path/to/parent --rows 10240
+    python3 scripts/torch_v3_zfinal.py --variant v3p --rows 512 --iters 5
 
-Prints one JSON line: the root, rows, iters, the sha256 of z_final's
-bytes, the loop's median ms of 3 (host clock around synchronized calls
-after a warm-up), the card, and whether the digest is REFERENCE's (null
-where no reference was recorded for this card and torch build). Needs one
-CUDA device. chip_smoke.py phase 11 runs `zfinal` at both shapes and fails
-unless both digests are the reference's.
+Prints one JSON line: the root, the variant, rows, iters, the sha256 of
+z_final's bytes, the loop's median ms of 3 (host clock around
+synchronized calls after a warm-up), the card, and whether the digest is
+REFERENCE's (null where no reference was recorded for this card and
+torch build). Needs one CUDA device. chip_smoke.py runs `zfinal` at both
+shapes, v3's in phase 11 and v3p's in phase 10, and fails unless every
+digest is the reference's.
 """
 
 import argparse
@@ -27,26 +30,34 @@ import statistics
 import sys
 import time
 
-# z_final's sha256 as the v3 kernel gives it on these inputs, by the card
-# and torch build that gave it: (card, torch) -> {(rows, iters): digest}.
-# The seeded inputs go through torch's generators and cuDNN, so another
-# card or build has no reference until one is recorded: run this script
-# for the parent checkout (--root) and the change in one call, and add
-# the digests here when the two agree.
+# z_final's sha256 as the kernel gives it on these inputs, by the card and
+# torch build that gave it: (card, torch) -> {(variant, rows, iters):
+# digest}. The seeded inputs go through torch's generators and cuDNN, so
+# another card or build has no reference until one is recorded: run this
+# script for the parent checkout (--root) and the change in one call, and
+# add the digests here when the two agree.
 REFERENCE = {
     ("NVIDIA H100 80GB HBM3", "2.11.0+cu128"): {
-        (512, 5):
+        ("v3", 512, 5):
             "c99c0f18f8321533acb91c0642f3a89dbc3d23bbfd549802de507e4bb4b4e232",
-        (10240, 200):
-            "ecbd49630d795926ea841919273a280df15bbd9a6c988e72e01f2d6f232d469e"}}
+        ("v3", 10240, 200):
+            "ecbd49630d795926ea841919273a280df15bbd9a6c988e72e01f2d6f232d469e",
+        # v3p's, recorded from the design that issued all 9 x 56 taps of
+        # conv A a direction (the all-taps layout), which the design that
+        # issues 361 reproduces
+        ("v3p", 512, 5):
+            "9e4219a73cac52a1dfc4cc48c19907c1458fd919f38d91ec3dce1f633d93e32c",
+        ("v3p", 10240, 200):
+            "7c49501d100ec81fb4b7156910d580810ee9b843547ffc8d43582548a97203e2"}}
+VARIANTS = ("v3", "v3p")
 
 
 def zfinal(rows: int = 512, iters: int = 5, seed: int = 0,
-           seeded_deep_gan=None) -> dict:
-    """z_final of the v3 kernel on the seeded inputs: its digest, the
-    loop's time and the comparison with REFERENCE (`same`: True, False,
-    or None where no reference applies). seeded_deep_gan: the model's
-    maker (default chip_smoke.py's)."""
+           seeded_deep_gan=None, variant: str = "v3") -> dict:
+    """z_final of the v3 kernel (variant "v3") or of v3p's ("v3p") on the
+    seeded inputs: its digest, the loop's time and the comparison with
+    REFERENCE (`same`: True, False, or None where no reference applies).
+    seeded_deep_gan: the model's maker (default chip_smoke.py's)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_v3_zfinal: needs a CUDA device")
@@ -57,6 +68,12 @@ def zfinal(rows: int = 512, iters: int = 5, seed: int = 0,
     from defensegan_torch.defense.fastgen import pack_generator
     from defensegan_torch.kernels.fused_projection_v3 import (
         fused_projection_s2d, pack_s2d)
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r} is not one of {VARIANTS}")
+    loop = fused_projection_s2d
+    if variant == "v3p":
+        from defensegan_torch.experiments.fused_projection_v3p import (
+            fused_projection_s2d_padded as loop)
     from defensegan_torch.models.generator import from_image_space
     gan = seeded_deep_gan()
     cfg, dev = gan.cfg, gan.device
@@ -67,9 +84,8 @@ def zfinal(rows: int = 512, iters: int = 5, seed: int = 0,
     pack = pack_s2d(gan.generator)
 
     def run():
-        return fused_projection_s2d(pack, x, z0, rec_iters=iters,
-                                    rec_lr=cfg.rec_lr,
-                                    momentum=cfg.rec_momentum)
+        return loop(pack, x, z0, rec_iters=iters, rec_lr=cfg.rec_lr,
+                    momentum=cfg.rec_momentum)
 
     z = run()
     torch.cuda.synchronize()
@@ -82,8 +98,8 @@ def zfinal(rows: int = 512, iters: int = 5, seed: int = 0,
     digest = hashlib.sha256(z.cpu().numpy().tobytes()).hexdigest()
     device = torch.cuda.get_device_name(dev)
     ref = REFERENCE.get((device, torch.__version__), {}).get(
-        (rows, iters)) if seed == 0 else None
-    return {"rows": rows, "iters": iters, "sha256": digest,
+        (variant, rows, iters)) if seed == 0 else None
+    return {"variant": variant, "rows": rows, "iters": iters, "sha256": digest,
             "ms": statistics.median(times), "ms_all": times,
             "device": device, "torch": torch.__version__,
             "same": None if ref is None else digest == ref}
@@ -96,11 +112,13 @@ def main(argv=None):
     ap.add_argument("--rows", type=int, default=512)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--variant", choices=VARIANTS, default="v3")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    print(json.dumps({"root": root, **zfinal(args.rows, args.iters,
-                                               args.seed)}), flush=True)
+    print(json.dumps({"root": root, **zfinal(
+        args.rows, args.iters, args.seed, variant=args.variant)}),
+        flush=True)
 
 
 if __name__ == "__main__":

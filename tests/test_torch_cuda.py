@@ -17,21 +17,27 @@ published widths and at the edges of its design (CONV_EDGES), and so does
 the GEMM that carries every other product (kernels/gemm.py, GEMM_EDGES).
 The experiments' kernels (defensegan_torch/experiments/) close the file:
 the stream64 level at its published widths, the three v3 variants at the
-narrow deep model's, the ten construct probes at their script's shapes and
-the cut steps at the narrow deep model's widths.
+narrow deep model's (v3p's pad column of h1 kept at zero; ilp's ping-pong
+conv A alone against v3's schedule at conv A's published widths), the ten
+construct probes at their script's shapes and the cut steps at the narrow
+deep model's widths.
 Tolerances are chip_smoke.py's elementwise bounds: kernel and plain
 version differ only in float32 summation order, which flips a bf16
 rounding (2^-8 relative) of an intermediate now and then, carried forward
 by the lr = 10 momentum steps.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
+from defensegan_torch.experiments import fused_projection_v3p as v3p
 from defensegan_torch.experiments import stream64_probe as sp
 from defensegan_torch.experiments import v3_diag, v3_diag2
-from defensegan_torch.experiments.v3_ilp import fused_projection_ilp
+from defensegan_torch.experiments.v3_ilp import (CONV_COUNTER, conv_a,
+                                                 fused_projection_ilp)
 from defensegan_torch.experiments.v3_variants import VARIANTS
 from defensegan_torch.kernels import build
 from defensegan_torch.kernels.conv3x3 import (COUNTER, conv3x3, conv3x3_plain,
@@ -458,6 +464,74 @@ def test_v3_ilp_equals_v3_bit_for_bit(cuda_device, n):
     got = fused_projection_ilp(pack, x, z0, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, fused_projection_s2d(pack, x, z0, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [200, 328])
+@pytest.mark.parametrize("mode", ["chain", "backward"])
+def test_conv_a_pingpong_equals_coop_bit_for_bit(cuda_device, mode, rows):
+    """ilp's ping-pong schedule computes v3's conv A bit for bit, forward
+    (one chain) and backward (each tap rounded), at conv A's widths (c0
+    128, ca 256): ragged M (200 rows), and tile counts that the grid does
+    not divide (328 rows: 294 and 147 tiles on 132 SMs); both within the
+    rounding band of the plain conv."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    g, c0, ca = 7, 128, 256
+    cin, cout = (c0, ca) if mode == "chain" else (ca, c0)
+
+    def draw(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=cuda_device,
+                                    generator=gen)).to(torch.bfloat16)
+    inp = torch.relu(draw(rows, g * g * cin)) if mode == "chain" \
+        else draw(rows, g * g * cin)
+    w = draw(9 * cin, cout, scale=0.05)
+    kw = dict(bias=torch.randn(cout, device=cuda_device, generator=gen)) \
+        if mode == "chain" else dict(h=draw(rows, g * g * cout))
+    before = build.LAUNCHES[CONV_COUNTER]
+    coop = conv_a(inp, w, g, mode, schedule="coop", **kw)
+    ping = conv_a(inp, w, g, mode, schedule="pingpong", **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[CONV_COUNTER] == before + 2
+    assert torch.equal(coop, ping)
+    ref = conv3x3_plain(inp, w, g, mode, **kw)
+    assert rounding_excess(ping, ref, inp, w, g, mode) <= 0.0
+
+
+@pytest.mark.cuda
+def test_v3p_keeps_h1s_pad_column_at_zero(cuda_device):
+    """fp_v3p_run on scratch filled with ones: z_final equals the
+    wrapper's bit for bit, and h1's pad column is zero after the call
+    (zeroed once, never written: conv A walks the real pixels only)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tg, x, z0 = _case(cuda_device, n=128, arch="deep")
+    pack = pack_s2d(tg)
+    kw = dict(rec_iters=3, rec_lr=LR, momentum=MOM)
+    ref = v3p.fused_projection_s2d_padded(pack, x, z0, **kw)
+    x_pad, weights, scratch, dims = v3p.kernel_args(pack, x)
+    m, kp = x_pad.shape[0], dims[0]
+    z = torch.zeros((m, kp), dtype=torch.float32, device=cuda_device)
+    z[:, :z0.shape[1]] = z0
+    v = torch.zeros_like(z)
+    bufs = [torch.ones((m, c), dtype=dt, device=cuda_device)
+            for c, dt in scratch]
+    ptrs = [t.data_ptr() for t in weights + bufs]
+    lib = build.load(v3p.LIBRARY)
+    fn = lib.fp_v3p_run
+    fn.argtypes = [ctypes.c_void_p] * (3 + len(ptrs)) + \
+        [ctypes.c_int] * (2 + len(dims)) + [ctypes.c_float] * 3 + \
+        [ctypes.c_void_p]
+    rc = fn(z.data_ptr(), v.data_ptr(), x_pad.data_ptr(), *ptrs, m, *dims,
+            kw["rec_iters"], LR, MOM, 2.0 / x.shape[1],
+            torch.cuda.current_stream(cuda_device).cuda_stream)
+    torch.cuda.synchronize()
+    build.check(lib, rc, "fp_v3p_run")
+    assert torch.equal(z[:, :z0.shape[1]], ref)
+    g = pack.grid_hw
+    h1 = bufs[2].reshape(m, g, g + 1, -1)
+    assert torch.equal(h1[:, :, g], torch.zeros_like(h1[:, :, g]))
+    assert (h1[:, :, :g] != 0).any()
 
 
 # ---- the two compile probes (defensegan_torch/experiments/v3_diag.py,

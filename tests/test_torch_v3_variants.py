@@ -10,6 +10,12 @@ imported from scripts/), at tests/test_torch_fused_v3.py's sizes: gen_dim
 and differ in float32 summation order: z_final within 1e-5 (v3 measured
 1.2e-7 there; a misplaced tap, mask or pad pixel moves z by ~1e-2).
 
+v3p's conv A issues only the taps whose source is a real pixel and only
+the real pixels' tiles (`padded_tap_masks`, `padded_pixel_order`): v3's
+361 taps a direction. Its plain version, restricted the same way, equals
+the all-taps form (the TPU kernel's) bit for bit, since a skipped tap
+reads only zeros; both match the Pallas kernel in interpret mode.
+
 Against v3's own plain loop: the two-chain loop computes v3's rows, so
 its plain version equals v3's bit for bit. v3p and packed each change one
 rounding. v3p rounds the fc product to bf16 before the bias: where the
@@ -23,6 +29,7 @@ within one bf16 ulp (2^-8) of the step z took. A misplaced tap or pad
 pixel moves the step by tens of percent.
 """
 
+import ctypes
 import os
 import sys
 
@@ -35,6 +42,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(1, os.path.join(ROOT, "scripts"))
+sys.path.insert(2, os.path.join(ROOT, "tests"))
 
 from defensegan_tpu.configs import Config as JaxConfig  # noqa: E402
 from defensegan_tpu.defense.project import sample_z0  # noqa: E402
@@ -42,6 +50,7 @@ from defensegan_tpu.gan import DefenseGAN as JaxGAN  # noqa: E402
 from defensegan_tpu.kernels.fused_projection_v3 import (  # noqa: E402
     pack_s2d as jax_pack)
 import fused_projection_v3p_exp as jax_v3p  # noqa: E402
+import torch_kernel_profile as kprof  # noqa: E402
 import pallas_v3_ilp_exp as jax_ilp  # noqa: E402
 import pallas_v3_packed_exp as jax_packed  # noqa: E402
 from defensegan_torch.ckpt.bridge import load_flax_tree  # noqa: E402
@@ -53,9 +62,11 @@ from defensegan_torch.experiments.v3_variants import (  # noqa: E402
     VARIANTS, ab_variant)
 from defensegan_torch.gan import DefenseGAN  # noqa: E402
 from defensegan_torch.kernels import build  # noqa: E402
+from defensegan_torch.kernels.conv3x3 import conv3x3_plain  # noqa: E402
 from defensegan_torch.kernels.fused_projection_v3 import (  # noqa: E402
-    pack_s2d, padded_s2d, s2d_loop_plain)
+    _tap_masks, pack_s2d, padded_s2d, pixel_order, s2d_loop_plain)
 from defensegan_torch.models.generator import generator_for  # noqa: E402
+from torch_csrc_signatures import c_signatures  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -139,6 +150,136 @@ def test_v3p_plain_loop_matches_pallas_interpret(pair, steps):
     assert build.LAUNCHES[v3p.COUNTER] == before     # the plain version ran
     assert np.abs(got - z0).max() > 5e-3              # the loop moved z
     np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("steps", [1, L])
+def test_v3p_all_taps_plain_loop_matches_pallas_interpret(pair, steps):
+    """The all-taps form (the TPU kernel's: every tap at every padded
+    pixel) against the same Pallas kernel, within the same 1e-5."""
+    jgan, tg = pair
+    x, z0 = _inputs()
+    ref = np.asarray(jax_v3p.fused_projection_s2d_padded(
+        jax_pack(jgan), jnp.asarray(_pixel_major(_padded(x), 56)),
+        jnp.asarray(z0), rec_iters=steps, rec_lr=LR, momentum=MOM,
+        tile=TILE, interpret=True))
+    got = v3p.s2d_padded_loop_plain(
+        pack_s2d(tg), torch.from_numpy(x), torch.from_numpy(z0),
+        rec_iters=steps, rec_lr=LR, momentum=MOM, counted_taps=False).numpy()
+    assert np.abs(got - z0).max() > 5e-3
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("g", [3, 7])
+def test_padded_masks_count_v3s_taps_at_the_real_pixels(g):
+    """Each real pixel's counted taps are v3's at the same (y, x), both
+    ways (the backward reads [p, 8 - k] for source p - off_k); the walk is
+    the real pixels in v3's order, no pad pixel; 361 taps on 7 x 7."""
+    m, order = v3p.padded_tap_masks(g), v3p.padded_pixel_order(g)
+    real, gx = v3p.real_to_pad(g), g + 1
+    assert m.shape == (g * gx, 9) and order.dtype == np.int32
+    np.testing.assert_array_equal(m[real], _tap_masks(g))
+    np.testing.assert_array_equal(order, real[pixel_order(g)])
+    assert not np.isin(order, np.arange(g, g * gx, gx)).any()
+    assert m[order].sum() == _tap_masks(g).sum()
+    if g == 7:
+        assert m[order].sum() == 361
+    for p in range(g * gx):
+        for k in range(9):
+            q = p - ((k // 3 - 1) * gx + k % 3 - 1)
+            assert m[p, 8 - k] == float(0 <= q < g * gx and q % gx != g)
+
+
+@pytest.mark.parametrize("steps", [1, 5])
+def test_v3p_counted_taps_equal_all_taps_bit_for_bit(pair, steps):
+    """Zero taps add nothing: the plain loop restricted to the counted
+    taps (the kernel's) equals the all-taps form bit for bit."""
+    _, tg = pair
+    x, z0 = _inputs(64, seed=7)
+    kw = dict(rec_iters=steps, rec_lr=LR, momentum=MOM)
+    pack = pack_s2d(tg)
+    xt, zt = torch.from_numpy(x), torch.from_numpy(z0)
+    got = v3p.s2d_padded_loop_plain(pack, xt, zt, **kw)
+    ref = v3p.s2d_padded_loop_plain(pack, xt, zt, counted_taps=False, **kw)
+    assert (got - zt).abs().max().item() > 5e-3
+    assert torch.equal(got, ref)
+
+
+def test_v3p_kernel_args_on_the_padded_grid(pair):
+    """fp_v3p_run's inputs: x and the fc padded to 56 pixels, v3p's masks
+    and walk, scratch per row on the padded grid; what run_loop passes
+    matches the C entry's parameters."""
+    _, tg = pair
+    pack = pack_s2d(tg)
+    x, _ = _inputs()
+    x_pad, weights, scratch, dims = v3p.kernel_args(pack, torch.from_numpy(x))
+    pp = padded_s2d(pack)
+    assert tuple(x_pad.shape) == (16, 56 * pp.cb)
+    assert x_pad.dtype == torch.bfloat16
+    np.testing.assert_array_equal(weights[9].numpy(), v3p.padded_tap_masks(7))
+    np.testing.assert_array_equal(weights[10].numpy(),
+                                  v3p.padded_pixel_order(7))
+    assert [c for c, _ in scratch[1:3]] == [56 * pp.c0, 56 * pp.ca]
+    restype, params = c_signatures("fused_projection_v3_variants.cu")[
+        "fp_v3p_run"]
+    n_ptr = 3 + len(weights) + len(scratch)
+    assert restype is ctypes.c_int
+    assert params == [ctypes.c_void_p] * n_ptr + \
+        [ctypes.c_int] * (2 + len(dims)) + [ctypes.c_float] * 3 + \
+        [ctypes.c_void_p]
+
+
+def test_conv_a_binding_matches_the_c_signature():
+    entries = c_signatures("fused_projection_v3_variants.cu")
+    assert entries["fp_conv_a"] == (ctypes.c_int, v3_ilp.CONV_A_ARGTYPES)
+    # the loops: fp_v3_ilp_run and fp_v3_packed_run take v3's parameters
+    v3 = c_signatures("fused_projection_v3.cu")["fp_v3_run"]
+    assert entries["fp_v3_ilp_run"] == entries["fp_v3_packed_run"] == v3
+
+
+@pytest.mark.parametrize("mode", ["chain", "backward"])
+def test_conv_a_on_the_cpu_is_the_plain_conv(mode):
+    """On CPU tensors conv_a runs conv3x3_plain on v3's grid, launching
+    nothing; probes and other modes are refused."""
+    rng = np.random.RandomState(8)
+    g, cin, cout = 7, 64, 128
+    inp = torch.from_numpy(rng.randn(5, g * g * cin).astype(np.float32)) \
+        .to(torch.bfloat16)
+    w = torch.from_numpy(0.1 * rng.randn(9 * cin, cout).astype(np.float32)) \
+        .to(torch.bfloat16)
+    kw = dict(bias=torch.from_numpy(rng.randn(cout).astype(np.float32))) \
+        if mode == "chain" else dict(h=torch.from_numpy(rng.randn(
+            5, g * g * cout).astype(np.float32)).to(torch.bfloat16))
+    before = build.LAUNCHES[v3_ilp.CONV_COUNTER]
+    for schedule in v3_ilp.SCHEDULES:
+        got = v3_ilp.conv_a(inp, w, g, mode, schedule=schedule, **kw)
+        assert torch.equal(got, conv3x3_plain(inp, w, g, mode, **kw))
+    assert build.LAUNCHES[v3_ilp.CONV_COUNTER] == before
+    with pytest.raises(ValueError, match="CUDA"):
+        v3_ilp.conv_a(inp, w, g, mode, probe="feed", **kw)
+    with pytest.raises(ValueError, match="schedule"):
+        v3_ilp.conv_a(inp, w, g, mode, schedule="ilp", **kw)
+    with pytest.raises(ValueError, match="conv A runs"):
+        v3_ilp.conv_a(inp, w, g, "per_tap", **kw)
+
+
+def test_profile_counts_v3p_conv_a_as_v3s(pair):
+    """scripts/torch_kernel_profile.py: v3p's conv A issues v3's 361-tap
+    operations, its GEMMs run over 56 pixels; ilp issues v3's launches;
+    conv A's copies bring 80 m-tiles x 361 taps x 4 slabs of 32 KB per
+    128 x 256 output (forward) or 128 x 128 (backward) at 10240 rows."""
+    _, tg = pair
+    pack = pack_s2d(tg)
+    v3 = kprof.issued("fused_projection_v3", pack, 128, 2)
+    pad = kprof.issued("fused_projection_v3p", pack, 128, 2)
+    assert kprof.issued("fused_projection_v3_ilp", pack, 128, 2) == v3
+    assert pad["conv A forward"] == pad["conv A backward"] == \
+        v3["conv A forward"]
+    back = kprof.FC_BACKWARD[0]          # K = the pixels' channels
+    assert pad[back][0] * 49 == v3[back][0] * 56
+    assert kprof.step_labels("fused_projection_v3p", pack) == \
+        kprof.V3_LAUNCHES
+    assert kprof.conv_a_bytes(10240, 7, 128, 256) == \
+        kprof.conv_a_bytes(10240, 7, 256, 128) == 80 * 361 * 4 * 32768
 
 
 @pytest.mark.parametrize("steps", [1, L])
