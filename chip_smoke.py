@@ -147,13 +147,15 @@ and its two compile probes (phase 11):
           v2 and v2i must have run
  10. the experiments' kernels (chip_smoke.experiments_phase):
        a. the stream64 level (the 64x64 generator's deconv levels 0-2 at
-          batch 512) against its plain version, half by half
+          batch 512) against its plain version, half by half, and the
+          zero-block skip bit for bit against every block issued
        b. each v3 variant (v3p, packed, ilp) on mnist.yml against its plain
           version at L = 1 and 5 on 512 rows as 3a; the ilp loop also bit
-          for bit against the v3 kernel; v3p's z_final at 512 rows x L 5
-          and 10240 x L 200 against the digests of
+          for bit against the v3 kernel; v3p's and packed's z_final at 512
+          rows x L 5 and 10240 x L 200 against the digests of
           scripts/torch_v3_zfinal.py (recorded from the design that issued
-          every tap: skipping the zero taps must change no bit)
+          every tap, and from the three-launch conv B section: skipping
+          the zero taps and fusing the section must change no bit)
        c. counters set to 0, then the experiments' entry points:
           stream64_probe.run_probe at each level (batch 512, the JAX
           probe's tiles, 50 steps, median of 3: kernel, cuDNN, plain;
@@ -161,11 +163,12 @@ and its two compile probes (phase 11):
           and v3_variants.ab_variant for each variant (1024 images x R 10
           x L 200: the gate against the v3 kernel, ilp bit for bit; loop
           and recon times in turns with v3's, median of 3); every
-          experiment's counter must have risen; then (not counted) v3's
-          and ilp's L-20 profiles at 10240 rows (torch_kernel_profile.py
-          `by_launch`: conv A's device ms and share of the bf16 peak each
-          way) and conv A's ceilings on both schedules (the feed alone,
-          the products alone)
+          experiment's counter must have risen; then (not counted) v3's,
+          ilp's and packed's L-20 profiles at 10240 rows
+          (torch_kernel_profile.py `by_launch`: the convs' device ms and
+          share of the bf16 peak each way, packed's conv B section one
+          launch) and conv A's ceilings on both schedules (the feed alone,
+          the products alone; the backward's taps also in one chain)
        d. the variants' plain versions at that shape, one run each
  11. the compile probes (chip_smoke.probes_phase):
        a. the ten cases of scripts/pallas_v3_diag.py at its shapes, each
@@ -1559,7 +1562,9 @@ def parallel_phase(build, gan, tmp: str) -> None:
 # an h within 1e-4 of its summed absolute products of 0 took the other
 # side, dx within one bf16 ulp of the output plus one of every rounded tap
 # of the plain backward of the kernel's own dh (conv3x3.rounding_excess, as
-# 3a'' holds the grid convs). The probe's own numerics check (dx against
+# 3a'' holds the grid convs); and the kernel that skips the zero weight
+# blocks bit for bit against the one that issues every block (a skipped
+# product was an exact zero). The probe's own numerics check (dx against
 # the library's float32-output form within 2e-2 of its largest element,
 # the JAX probe's bound) runs inside run_probe.
 # 10b holds each variant against its plain version at L 1 and 5 on 512
@@ -1570,6 +1575,9 @@ def parallel_phase(build, gan, tmp: str) -> None:
 # conv A issues only the taps that can be nonzero; a skipped tap's
 # products were exact zeros, so its z_final must equal the digests recorded
 # from the design that issued all 504 taps a direction (as 11d holds v3's).
+# packed's conv B section is one kernel computing the three launches'
+# function rounding for rounding: its z_final must equal the digests
+# recorded from the three-launch design.
 # The variants compute v3's function, so their bound and library yardstick
 # are v3's (phase 5).
 S64_BATCH = 512
@@ -1617,10 +1625,15 @@ def experiments_phase(build, deep, v3_timing: dict) -> list:
         cot = sp.to_phase_blocked(torch.as_tensor(a["cot"]).to(dev)) \
             .to(torch.bfloat16)
         dx, dh = sp.fused_level(x, cot, pack, return_dh=True)
+        dx0, dh0 = sp.fused_level(x, cot, pack, return_dh=True, skip=False)
         torch.cuda.synchronize()
-        s64[f"L{lvl}"] = dict(g=g, ci=ci, co=co, batch=S64_BATCH,
-                              **sp.check_against_plain(x, cot, pack, dx, dh))
-        del a, pack, x, cot, dx, dh
+        rec = sp.check_against_plain(x, cot, pack, dx, dh)
+        rec["skip_bit_equal"] = bool(torch.equal(dx, dx0)
+                                     and torch.equal(dh, dh0))
+        rec["ok"] = rec["ok"] and rec["skip_bit_equal"]
+        s64[f"L{lvl}"] = dict(g=g, ci=ci, co=co, batch=S64_BATCH, bn=pack.bn,
+                              **rec)
+        del a, pack, x, cot, dx, dh, dx0, dh0
     emit("stream64_level_vs_plain", **s64)
     if not all(r["ok"] for r in s64.values()):
         fail(f"the stream64 level left its band: {s64}")
@@ -1662,12 +1675,13 @@ def experiments_phase(build, deep, v3_timing: dict) -> list:
             fail(f"variant {name} against its plain version: {rec}")
     del xr, z0
     zmod = _script_module("torch_v3_zfinal")
-    v3p_digests = [zmod.zfinal(r, it, seeded_deep_gan=seeded_deep_gan,
-                               variant="v3p") for r, it in ZFINAL_SHAPES]
-    emit("v3p_zfinal", runs=v3p_digests)
-    if not all(z["same"] for z in v3p_digests):
-        fail(f"v3p's z_final is not its recorded digest (None: none "
-             f"recorded for this card and torch build): {v3p_digests}")
+    for variant in ("v3p", "packed"):
+        digests = [zmod.zfinal(r, it, seeded_deep_gan=seeded_deep_gan,
+                               variant=variant) for r, it in ZFINAL_SHAPES]
+        emit(f"{variant}_zfinal", runs=digests)
+        if not all(z["same"] for z in digests):
+            fail(f"{variant}'s z_final is not its recorded digest (None: "
+                 f"none recorded for this card and torch build): {digests}")
 
     # ---- 10c. the experiments' entry points, counters from 0: the probe
     # at each level (batch 512, the JAX probe's tiles, 50 steps, median of
@@ -1696,21 +1710,23 @@ def experiments_phase(build, deep, v3_timing: dict) -> list:
     if not all(launches[c] > 0 for c in counters):
         fail(f"an experiment's kernel never launched: {launches}")
 
-    # conv A of v3 and of ilp in their loops' profiles, and its ceilings
+    # conv A of v3 and of ilp, and packed's conv B section, in their
+    # loops' profiles, and conv A's ceilings
     prof = _script_module("torch_kernel_profile")
     n_prof = VARIANT_IMAGES * rr
     x_prof = rows_s2d(deep.generate(gd, n_prof), 1)
     conv_a = {}
     for name, key, loop in (
             ("v3", "fused_projection_v3", fused_projection_s2d),
-            ("ilp", VARIANTS["ilp"].counter, VARIANTS["ilp"].loop)):
+            ("ilp", VARIANTS["ilp"].counter, VARIANTS["ilp"].loop),
+            ("packed", VARIANTS["packed"].counter, VARIANTS["packed"].loop)):
         rec = prof.profile_loop(key, loop, pack3, x_prof, cfg, PROFILE_ITERS)
         if not isinstance(rec["by_launch"], list):
             fail(f"{name}'s profile: {rec['by_launch']}")
         conv_a[name] = {r["launch"]: dict(ms=r["ms"],
                                           peak_share=r["peak_share"])
                         for r in rec["by_launch"]
-                        if r["launch"].startswith("conv A")}
+                        if r["launch"].startswith("conv")}
         conv_a[name]["device_ms"] = rec["device_ms"]
     ceilings = prof.conv_a_ceilings(pack3, n_prof)
     emit("conv_a_profile", rows=n_prof, iters=PROFILE_ITERS, loops=conv_a,

@@ -99,6 +99,21 @@
 //              Measured (PERF.md), conv A is bound by the L2 feed forward
 //              and by its issue backward, not by these stalls: kPingPong
 //              ties kCoop.
+// kBlockSkip (the stream64 level's phase-major weights, stream64_level.cu;
+// off everywhere else): zero[k] marks the 64-lane blocks of tap k's
+// weights that are all zero -- columns of W_k forward, K rows of W_k^T
+// backward (bit b: lanes 64b .. 64b + 63 of the level's cout forward, of
+// its cin backward). The forward skips a tap, copies and products, where
+// every block of the tile's n-range is zero (as a masked tap); the
+// backward skips a tap's zero K slabs, its partial sum starting at the
+// first slab it issues. A skipped product was an exact zero. Tiles then
+// carry unequal work (a pixel's taps; a forward tile's phase), so the
+// walk goes pixel first, `order` ranking the pixels by issued slabs,
+// heaviest first, and within a pixel n-tile, then m-tile, fastest: the
+// shortest tiles go last, a pixel's tiles run side by side (its inputs
+// read once from L2), and a block's tiles, gridDim.x apart, cycle through
+// the n-tiles (the phases) rather than keep drawing one. Not with
+// interleaved activations or kPingPong.
 // Probe (a launch's what-is-kept, for measuring the kernel's ceilings):
 // kWhole the conv; kFeedOnly the producer's copies and the ring's
 // barriers, no wgmma (the L2 feed alone: the epilogue stores zeros);
@@ -145,11 +160,19 @@ struct Ring {
 };
 
 // The tile at position t of the walk: (m-tile, pixel rank, n-tile), the
-// n-tile fastest; order[rank] is the pixel, rank < n_walk.
+// n-tile fastest; order[rank] is the pixel, rank < n_walk. n_m > 0: the
+// block-skip walk (pixel rank, n-tile, m-tile) over n_m m-tiles.
 struct TileAt {
   int p, m0, n0;
   __device__ __forceinline__ TileAt(int t, int n_n, int n_walk, int bn,
-                                    const int* order) {
+                                    const int* order, int n_m = 0) {
+    if (n_m > 0) {
+      const int rest = t / n_m;
+      m0 = (t - rest * n_m) * kBM;
+      n0 = (rest % n_n) * bn;
+      p = order[rest / n_n];
+      return;
+    }
     const int nt = t % n_n;
     const int rest = t / n_n;
     p = order[rest % n_walk];
@@ -157,6 +180,20 @@ struct TileAt {
     n0 = nt * bn;
   }
 };
+
+// Block skip: whether tap k is issued at all by a tile whose n-range
+// starts at n0: forward, unless every block of the range is zero;
+// backward, always (its zero K slabs are skipped one by one).
+template <int BN, bool kBackward>
+__device__ __forceinline__ bool tap_issued(const unsigned* zero, int k,
+                                           int n0) {
+  if constexpr (kBackward) {
+    return true;
+  } else {
+    constexpr unsigned kAll = (1u << (BN / 64)) - 1u;
+    return ((zero[k] >> (n0 / 64)) & kAll) != kAll;
+  }
+}
 
 // The ping-pong schedule's gate: warpgroup 0 arrives on named barrier id
 // without waiting; warpgroup 1's bar.sync on it completes the barrier.
@@ -166,13 +203,16 @@ __device__ __forceinline__ void gate_arrive(int id) {
 }
 
 template <int BN, TapSum kSum, bool kBackward, typename Epi,
-          Sched kSched = kCoop, Probe kProbe = kWhole>
+          Sched kSched = kCoop, Probe kProbe = kWhole, bool kBlockSkip = false>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_sm90(const __grid_constant__ CUtensorMap map_in,
                  const __grid_constant__ CUtensorMap map_w,
                  const float* __restrict__ masks,
                  const int* __restrict__ order, int M, int g, int n_walk,
-                 int cin, int cout, int in_fine, int out_fine, Epi epi) {
+                 int cin, int cout, int in_fine, int out_fine, Epi epi,
+                 const unsigned* __restrict__ zero) {
+  static_assert(!kBlockSkip || kSched == kCoop,
+                "block skip runs on the cooperative schedule");
   using R = Ring<BN>;
   constexpr int kRegs = BN / 2;        // f32 sums per thread of 64 x BN
   extern __shared__ unsigned char smem_raw[];
@@ -181,8 +221,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto full = [&](uint32_t s) { return bars + 8 * s; };
   auto empty = [&](uint32_t s) { return bars + 8 * (R::kStages + s); };
   const int n_n = cout / BN;
-  const int n_tiles = ((M + kBM - 1) / kBM) * n_walk * n_n;
+  const int n_m = (M + kBM - 1) / kBM;
+  const int n_tiles = n_m * n_walk * n_n;
   const int spt = cin / kBK;           // slabs per tap
+  const int walk_m = kBlockSkip ? n_m : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < R::kStages; ++s) {
@@ -202,12 +244,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x != kConsumers * 128) return;
     uint32_t stage = 0, phase = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const TileAt tile(t, n_n, n_walk, BN, order);
+      const TileAt tile(t, n_n, n_walk, BN, order, walk_m);
       for (int k = 0; k < 9; ++k) {
         if (masks[tile.p * 9 + (kBackward ? 8 - k : k)] == 0.0f) continue;
+        unsigned zk = 0;
+        if constexpr (kBlockSkip) {
+          if (!tap_issued<BN, kBackward>(zero, k, tile.n0)) continue;
+          if constexpr (kBackward) zk = zero[k];
+        }
         const int off = (k / 3 - 1) * g + (k % 3 - 1);
         const int src = kBackward ? tile.p - off : tile.p + off;
         for (int s = 0; s < spt; ++s) {
+          if (kBlockSkip && ((zk >> s) & 1u)) continue;
           const int k0 = s * kBK;
           mbar_wait(empty(stage), phase ^ 1);
           if constexpr (kProbe == kMathOnly) {
@@ -255,9 +303,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int lag = spt < R::kStages - 1 ? spt : R::kStages - 1;
     int gate = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const TileAt tile(t, n_n, n_walk, BN, order);
+      const TileAt tile(t, n_n, n_walk, BN, order, walk_m);
       int n_taps = 0;
-      for (int k = 0; k < 9; ++k) n_taps += masks[tile.p * 9 + k] != 0.0f;
+      if constexpr (kBlockSkip) {
+        for (int k = 0; k < 9; ++k)
+          n_taps += masks[tile.p * 9 + (kBackward ? 8 - k : k)] != 0.0f &&
+                    tap_issued<BN, kBackward>(zero, k, tile.n0);
+      } else {
+        for (int k = 0; k < 9; ++k) n_taps += masks[tile.p * 9 + k] != 0.0f;
+      }
       n_taps = __shfl_sync(0xffffffffu, n_taps, 0);
       // where channels c0 .. c0 + 63 of the tile sit in the output row, less
       // c0 (a 128-wide tile may straddle two runs of an interleave)
@@ -285,6 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < kRegs; ++i) acc[i] = 0.0f;
       if constexpr (kProbe == kFeedOnly) {
         // the feed alone: take each stage as it lands and release it
+        static_assert(!kBlockSkip, "a probe counts every slab");
         for (int i = 0; i < n_taps * spt; ++i) {
           mbar_wait(full(stage), phase);
           if (signals) mbar_arrive(empty(stage));
@@ -296,11 +351,22 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       } else {
         int held = -1;         // a stage whose wgmma may still be reading it
+        int k = -1;            // block skip: the tap's index
         for (int tap = 0; tap < n_taps; ++tap) {
           if constexpr (kSched == kPingPong) {
             if (wg == 1) named_barrier(1 + gate % kGates, kConsumers * 128);
           }
-          for (int s = 0; s < spt; ++s) {
+          // the slabs the tap issues, in the producer's order
+          int ns = spt;
+          if constexpr (kBlockSkip) {
+            do {
+              ++k;
+            } while (masks[tile.p * 9 + (kBackward ? 8 - k : k)] == 0.0f ||
+                     !tap_issued<BN, kBackward>(zero, k, tile.n0));
+            if constexpr (kBackward) ns -= __popc(zero[k]);
+            ns = __shfl_sync(0xffffffffu, ns, 0);
+          }
+          for (int s = 0; s < ns; ++s) {
             mbar_wait(full(stage), phase);
             const uint32_t sa = ring + stage * R::kStage;
             if constexpr (kSum == kChain) fence_regs(acc);
@@ -322,7 +388,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             if constexpr (kSched == kPingPong) {
               if (wg == 0 && s == lag - 1) gate_arrive(1 + gate % kGates);
             }
-            if (kSum != kChain && s == spt - 1) {
+            if (kSum != kChain && s == ns - 1) {
               // the tap is complete: fold its sum, release its stages
               wgmma_wait<0>();
               fence_regs(part);
@@ -386,7 +452,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 struct Conv3x3 {
   CUtensorMap in, w;
   const float* masks;   // [gy*g, 9] f32 0/1
-  const int* order;     // [n_walk] pixels, 9 taps first
+  const int* order;     // [n_walk] pixels, 9 taps first (block skip:
+                        // by issued slabs)
+  const unsigned* zero; // [9] block skip's zero weight blocks (else null)
   int M, g, gy, n_walk, cin, cout, in_fine, out_fine;
 };
 
@@ -425,7 +493,7 @@ inline cudaError_t make_conv3x3(Conv3x3* c, const bf16* in, const bf16* w,
 }
 
 template <int BN, TapSum kSum, bool kBackward, typename Epi, Sched kSched,
-          Probe kProbe>
+          Probe kProbe, bool kBlockSkip>
 inline cudaError_t launch_conv3x3_bn(const Conv3x3& c, Epi epi,
                                      cudaStream_t stream) {
   using R = sm90::Ring<BN>;
@@ -433,33 +501,37 @@ inline cudaError_t launch_conv3x3_bn(const Conv3x3& c, Epi epi,
   // object per process (a static local of an inline function), shared by
   // the v3 and v4 libraries, each of which registers its own kernel
   cudaError_t e = cudaFuncSetAttribute(
-      sm90::conv3x3_sm90<BN, kSum, kBackward, Epi, kSched, kProbe>,
+      sm90::conv3x3_sm90<BN, kSum, kBackward, Epi, kSched, kProbe,
+                         kBlockSkip>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
   if (e != cudaSuccess) return e;
   const int tiles =
       ((c.M + sm90::kBM - 1) / sm90::kBM) * c.n_walk * (c.cout / BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  sm90::conv3x3_sm90<BN, kSum, kBackward, Epi, kSched, kProbe>
+  sm90::conv3x3_sm90<BN, kSum, kBackward, Epi, kSched, kProbe, kBlockSkip>
       <<<grid, sm90::kThreads, R::kSmem, stream>>>(
           c.in, c.w, c.masks, c.order, c.M, c.g, c.n_walk, c.cin, c.cout,
-          c.in_fine, c.out_fine, epi);
+          c.in_fine, c.out_fine, epi, c.zero);
   return cudaGetLastError();
 }
 
 // kSum: how the taps are summed; a backward conv (kBackward) rounds each
 // tap (kPerTapBf16) or sums them in one chain (kChain). kSched: how the
-// consumers share the tensor cores; kProbe: what a probe launch keeps.
+// consumers share the tensor cores; kProbe: what a probe launch keeps;
+// kBlockSkip: skip the zero weight blocks of c.zero.
 template <TapSum kSum, bool kBackward, Sched kSched = kCoop,
-          Probe kProbe = kWhole, typename Epi>
+          Probe kProbe = kWhole, bool kBlockSkip = false, typename Epi>
 inline cudaError_t launch_conv3x3(const Conv3x3& c, Epi epi,
                                   cudaStream_t stream) {
   static_assert(!kBackward || kSum != kPerTap,
                 "a backward conv rounds each tap or sums them in one chain");
+  if (kBlockSkip && (c.zero == nullptr || c.in_fine || c.out_fine))
+    return cudaErrorInvalidValue;
   return c.cout % 128 == 0
-             ? launch_conv3x3_bn<128, kSum, kBackward, Epi, kSched, kProbe>(
-                   c, epi, stream)
-             : launch_conv3x3_bn<64, kSum, kBackward, Epi, kSched, kProbe>(
-                   c, epi, stream);
+             ? launch_conv3x3_bn<128, kSum, kBackward, Epi, kSched, kProbe,
+                                 kBlockSkip>(c, epi, stream)
+             : launch_conv3x3_bn<64, kSum, kBackward, Epi, kSched, kProbe,
+                                 kBlockSkip>(c, epi, stream);
 }
 
 // ---- epilogues: channels c, c + 1 of a row, from the f32 sums. One that

@@ -62,7 +62,9 @@
 // Seven launches per step (eight with the split reduction); the tensor
 // maps are encoded once per call and the L loop runs here, so one call
 // from Python runs all L steps of a row chunk. The weights (4.6 MB) stay
-// in L2. A fused conv B is later work.
+// in L2. v3 keeps conv B as these three launches; the packed experiment
+// (fused_projection_v3_variants.cu) runs the section as one kernel
+// (fused_projection_v3_step.cuh, convb::section), a candidate for v3.
 
 #include "fused_projection_v3_step.cuh"
 

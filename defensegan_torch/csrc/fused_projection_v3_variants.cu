@@ -33,7 +33,15 @@
 //    tanh_grad_pack (later work: a tile mask in the GEMM).
 //  * packed. Conv A's backward sums its nine taps in one chain (one
 //    K = 9*ca product on the TPU) and rounds once, by the epilogue; v3
-//    rounds each tap. The forward is v3's: already one chain.
+//    rounds each tap. The forward is v3's: already one chain. Its conv B
+//    section (conv B forward, tanh_grad_pack, conv B backward: three
+//    launches passing obb and dop through device memory in v3) is one
+//    kernel, fused_projection_v3_step.cuh's convb::section: a consumer
+//    warpgroup takes a latent whole, both products against KBT resident
+//    in shared memory, obb and dop only in shared memory and registers;
+//    the same function with the same rounding points and summation
+//    orders, so z_final is the three launches' bit for bit. Five launches
+//    a step (six with the split-K sum).
 //  * ilp. The TPU kernel runs two independent 32-latent subtiles per grid
 //    step, so that one's vector stages hide under the other's matrix
 //    products. On the H100 that lever lives inside a block: conv A, both
@@ -62,7 +70,8 @@ using fpk::bf16;
 // [P*c0, K], ka [9*c0, ca], kat [9*ca, c0], kbp [ca, npk], kbpt [kpk, ca]
 // bf16; b1 [P*c0], ba [ca], bb [cb], masks [P, 9] f32; order [P] int32;
 // scratch zb [M, K], h0 [M, P*c0], h1 [M, P*ca], obb [M, P*npk], dop
-// [M, P*kpk] bf16, ws [M, splits*K] f32. P = g*g, except in fp_v3p_run:
+// [M, P*kpk] bf16, ws [M, splits*K] f32 (fp_v3_packed_run reads neither
+// obb nor dop: they may be null). P = g*g, except in fp_v3p_run:
 // P = g*(g+1), the padded grid (x, w1, w1t and b1 hold its zero pad
 // pixels), masks [P, 9] counting a tap where its source is a real pixel,
 // order [g*g] the real pixels, and padm [P] f32 (0 on the pad column).
@@ -95,6 +104,23 @@ extern "C" int fp_v3_packed_run(float* z, float* v, const bf16* x,
                                 int npk, int kpk, int splits, int iters,
                                 float lr, float momentum, float scale,
                                 void* stream) {
+  return fpk::v3::run<false, true, false, true>(
+      z, v, x, w1, w1t, b1, ka, kat, ba, kbp, kbpt, bb, masks, order, nullptr,
+      zb, h0, h1, obb, dop, ws, M, K, c0, ca, cb, g, npk, kpk, splits, iters,
+      lr, momentum, scale, stream);
+}
+
+// The packed loop with conv B's section as v3's three launches (conv B
+// forward, tanh_grad_pack, conv B backward: the design before the fused
+// section), for holding the fused section against it bit for bit.
+extern "C" int fp_v3_packed_launches_run(
+    float* z, float* v, const bf16* x, const bf16* w1, const bf16* w1t,
+    const float* b1, const bf16* ka, const bf16* kat, const float* ba,
+    const bf16* kbp, const bf16* kbpt, const float* bb, const float* masks,
+    const int* order, bf16* zb, bf16* h0, bf16* h1, bf16* obb, bf16* dop,
+    float* ws, int M, int K, int c0, int ca, int cb, int g, int npk, int kpk,
+    int splits, int iters, float lr, float momentum, float scale,
+    void* stream) {
   return fpk::v3::run<false, true, false>(
       z, v, x, w1, w1t, b1, ka, kat, ba, kbp, kbpt, bb, masks, order, nullptr,
       zb, h0, h1, obb, dop, ws, M, K, c0, ca, cb, g, npk, kpk, splits, iters,
@@ -121,7 +147,8 @@ extern "C" int fp_v3_ilp_run(float* z, float* v, const bf16* x,
 // against v3's and for measuring the conv's ceilings. in [M, g*g*cin], w
 // [9*cin, cout] bf16; masks [g*g, 9], order [g*g]: v3's. backward 0: out
 // = bf16(relu(in * w + bias)), one chain; 1: each tap rounded, out =
-// bf16(acc) where out > 0, else 0, written over out. pingpong 0: v3's
+// bf16(acc) where out > 0, else 0, written over out; 2: as 1 with the taps
+// in one chain, rounded once (packed's). pingpong 0: v3's
 // schedule; 1: ilp's. probe 0: the conv; 1: the feed alone (no wgmma,
 // zeros stored); 2: the products alone (no copies, out undefined).
 // Returns the CUDA error, else 0.
@@ -129,6 +156,9 @@ template <fpk::Sched kSched, fpk::Probe kProbe>
 static cudaError_t conv_a(const fpk::Conv3x3& c, const float* bias,
                           bf16* out, int backward, cudaStream_t st) {
   const int ld = c.g * c.g * c.cout;
+  if (backward == 2)
+    return fpk::launch_conv3x3<fpk::kChain, true, kSched, kProbe>(
+        c, fpk::EpiConvReluMask{out, ld}, st);
   if (backward)
     return fpk::launch_conv3x3<fpk::kPerTapBf16, true, kSched, kProbe>(
         c, fpk::EpiConvReluMask{out, ld}, st);
@@ -145,7 +175,8 @@ extern "C" int fp_conv_a(const bf16* in, const bf16* w, const float* bias,
   cudaError_t e = fpk::make_conv3x3(&c, in, w, masks, order, M, g, cin,
                                     cout);
   if (e != cudaSuccess) return (int)e;
-  if (pingpong < 0 || pingpong > 1 || probe < 0 || probe > 2)
+  if (backward < 0 || backward > 2 || pingpong < 0 || pingpong > 1 ||
+      probe < 0 || probe > 2)
     return (int)cudaErrorInvalidValue;
   using Fn = cudaError_t (*)(const fpk::Conv3x3&, const float*, bf16*, int,
                              cudaStream_t);

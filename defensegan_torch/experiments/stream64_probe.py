@@ -21,8 +21,13 @@ lanes hold the four output phases (p, q):
 
 with taps k = (dy+1)*3 + (dx+1), off_k = dy*g + dx, a tap whose source
 pixel leaves the grid contributing nothing. Taps a phase does not use stay
-zero in W: the phase-major form issues 36/25 = 1.44x the level's
-multiply-adds (less the border taps the CUDA kernel skips).
+zero in W: 11 of the 36 (tap, phase) blocks at every level (a phase uses
+3 x 3, 3 x 2, 2 x 3 or 2 x 2 taps), 36/25 = 1.44x the level's
+multiply-adds if issued. `zero_blocks` reads them off the packed weights
+as a table of 64-lane blocks, and the CUDA kernel skips them: forward a
+tap wherever a tile's output lanes of it are all zero, backward a tap's
+zero 64-row K slabs (`tile_slabs` counts what is left), each walking its
+pixels heaviest first (`level_walk`).
 
 Layouts are the function's: x [N, g, g, ci] (NHWC), the cotangent
 phase-blocked [N, g, g, 4*co] (`to_phase_blocked` of the standard
@@ -46,11 +51,13 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from defensegan_torch.defense.fastgen import phase_decompose
 from defensegan_torch.kernels import build
 from defensegan_torch.kernels.fused_projection_v3 import (_bf16_round,
                                                           _tap_masks,
+                                                          _tap_offsets,
                                                           pixel_order)
 from defensegan_torch.kernels.fused_projection_v4 import (grid_conv,
                                                           grid_conv_t)
@@ -73,6 +80,9 @@ PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 
+BLOCK = 64                           # lanes of a zero block, a K slab
+
+
 class LevelPack(NamedTuple):
     """A folded level packed for the kernel, on its device."""
 
@@ -80,10 +90,18 @@ class LevelPack(NamedTuple):
     wt: torch.Tensor     # [9*4*co, ci] bf16, the per-tap transposes
     bias: torch.Tensor   # [4*co] f32
     masks: torch.Tensor  # [g*g, 9] f32 0/1: valid(pixel + off_k in grid)
-    order: torch.Tensor  # [g*g] int32: the pixels, 9 taps first
+    order: torch.Tensor  # [g*g] int32: the forward's walk (level_walk)
     g: int
     ci: int
     co: int
+    zero: torch.Tensor   # [9] int32: bit b of tap k = W_k's lanes 64b.. zero
+    order_t: torch.Tensor  # [g*g] int32: the backward's walk
+
+    @property
+    def bn(self) -> int:
+        """The forward's tile lanes, the kernel's rule: 128 where 4*co
+        takes them."""
+        return 128 if 4 * self.co % 128 == 0 else 64
 
 
 def fold(w, b, scale, shift):
@@ -123,17 +141,66 @@ def pack_level(w, b, scale, shift):
     return wcat, wcat_t, bias
 
 
+def zero_blocks(w: torch.Tensor, ci: int) -> np.ndarray:
+    """The zero weight blocks of a packed level, from its weights as the
+    kernel reads them (w [9*ci, 4*co], bf16): [9] int64, bit b of entry k
+    set where lanes 64b .. 64b + 63 of W_k are all zero -- W_k's columns
+    forward, the same K rows of W_k^T backward."""
+    blocks = w.reshape(9, ci, -1, BLOCK).ne(0).any(dim=(1, 3)).cpu().numpy()
+    return np.array([sum(1 << b for b in np.flatnonzero(~row))
+                     for row in blocks], np.int64)
+
+
+def tile_slabs(zero: Optional[np.ndarray], g: int, ci: int, co4: int,
+               bn: int, backward: bool) -> np.ndarray:
+    """64-deep K slabs the kernel issues per tile of one 128-row m-tile:
+    [g*g, n_n] by output pixel and n-tile (n_n = co4 / bn forward, ci / 128
+    backward). Forward: a tap counts on a bn-lane tile unless all its
+    blocks there are zero, and issues ci / 64 slabs; backward: a tap issues
+    its nonzero slabs of co4. zero=None: every block."""
+    masks = _tap_masks(g)
+    nz = np.ones((9, co4 // BLOCK), bool) if zero is None else np.array(
+        [[not (int(z) >> b) & 1 for b in range(co4 // BLOCK)]
+         for z in zero])
+    if backward:
+        per_tap = nz.sum(1)
+        per_pixel = (masks[:, ::-1] * per_tap[None, :]).sum(1)
+        return np.repeat(per_pixel[:, None], ci // 128, 1).astype(np.int64)
+    tiles = nz.reshape(9, co4 // bn, bn // BLOCK).any(2)     # [9, n_n]
+    return (masks @ tiles * (ci // BLOCK)).astype(np.int64)
+
+
+def issued_slabs(zero: Optional[np.ndarray], g: int, ci: int, co4: int,
+                 bn: int, backward: bool) -> np.ndarray:
+    """tile_slabs summed over a pixel's n-tiles: [g*g]."""
+    return tile_slabs(zero, g, ci, co4, bn, backward).sum(1)
+
+
+def level_walk(zero: np.ndarray, g: int, ci: int, co4: int, bn: int,
+               backward: bool, device) -> torch.Tensor:
+    """The block-skip walk of one direction of a level on `device`: [g*g]
+    int32, the pixels by issued slabs, most first, in pixel order within
+    a count."""
+    slabs = issued_slabs(zero, g, ci, co4, bn, backward)
+    return torch.from_numpy(np.argsort(-slabs, kind="stable")
+                            .astype(np.int32)).to(device)
+
+
 def level_tensors(wcat, wcat_t, bias, g: int, device) -> LevelPack:
-    """The packed level on `device`, the weights rounded to bf16."""
+    """The packed level on `device`, the weights rounded to bf16, its zero
+    blocks and its walks."""
     ci, co4 = wcat.shape[1], wcat.shape[2]
     bf = torch.bfloat16
+    bn = 128 if co4 % 128 == 0 else 64
+    w = torch.as_tensor(wcat.reshape(9 * ci, co4)).to(device, bf)
+    zero = zero_blocks(w, ci)
     return LevelPack(
-        w=torch.as_tensor(wcat.reshape(9 * ci, co4)).to(device, bf),
-        wt=torch.as_tensor(wcat_t.reshape(9 * co4, ci)).to(device, bf),
+        w=w, wt=torch.as_tensor(wcat_t.reshape(9 * co4, ci)).to(device, bf),
         bias=torch.as_tensor(bias).to(device, torch.float32),
         masks=torch.from_numpy(_tap_masks(g)).to(device),
-        order=torch.from_numpy(pixel_order(g)).to(device),
-        g=g, ci=ci, co=co4 // 4)
+        order=level_walk(zero, g, ci, co4, bn, False, device), g=g, ci=ci,
+        co=co4 // 4, zero=torch.from_numpy(zero.astype(np.int32)).to(device),
+        order_t=level_walk(zero, g, ci, co4, bn, True, device))
 
 
 def phase_perm(h: int, co: int) -> np.ndarray:
@@ -186,19 +253,58 @@ def from_rows(r, n: int, h: int, tile: int):
     return _swap12(r.reshape(n // tile, h * h, tile, c)).reshape(n, h, h, c)
 
 
+def _blocks_conv(a: torch.Tensor, w: torch.Tensor, g: int,
+                 keep: np.ndarray) -> torch.Tensor:
+    """grid_conv, each tap's product added only to the 64-lane blocks
+    `keep[k]` holds (all of them: grid_conv's sums exactly)."""
+    ap = F.pad(a, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(a.shape[:-1] + w.shape[2:], device=a.device)
+    for k, (dy, dx) in enumerate(_tap_offsets(g)):
+        prod = ap[:, 1 + dy:1 + dy + g, 1 + dx:1 + dx + g] @ w[k]
+        lanes = torch.as_tensor(np.repeat(keep[k], BLOCK), device=a.device)
+        acc = torch.where(lanes, acc + prod, acc)
+    return acc
+
+
+def _blocks_conv_t(d: torch.Tensor, wt: torch.Tensor, g: int,
+                   keep: np.ndarray) -> torch.Tensor:
+    """grid_conv_t with each tap's product summed 64-row K slab by slab,
+    in slab order, over the slabs `keep[k]` holds (the tap's sum, then
+    rounded to bf16, before the float32 sum of the taps)."""
+    acc = 0.0
+    for k, (dy, dx) in enumerate(_tap_offsets(g)):
+        part = torch.zeros(d.shape[:-1] + wt.shape[2:], device=d.device)
+        for b in np.flatnonzero(keep[k]):
+            sl = slice(BLOCK * b, BLOCK * (b + 1))
+            part = part + d[..., sl] @ wt[k][sl]
+        t = F.pad(_bf16_round(part), (0, 0, 1, 1, 1, 1))
+        acc = acc + t[:, 1 - dy:1 - dy + g, 1 - dx:1 - dx + g]
+    return acc
+
+
 def fused_level_plain(x: torch.Tensor, cot: torch.Tensor, pack: LevelPack,
-                      return_dh: bool = False):
+                      return_dh: bool = False, skip_zero: bool = False):
     """Plain PyTorch version of the level: the TPU kernel's body, its
     rounding points included (x and the weights bf16, h float32 until the
     relu test, dh bf16, each backward tap rounded to bf16, float32 sums).
     x: [N, g, g, ci], cot: [N, g, g, 4*co] phase-blocked; returns dx
     [N, g, g, ci] float32 (and dh [N, g, g, 4*co] bf16 with return_dh).
-    On a CUDA device the caller turns TF32 off."""
+    Each backward tap is summed 64-row slab by slab, as the kernel issues
+    it. skip_zero: leave out the blocks of pack.zero (the forward's taps
+    into them, the backward's slabs of them), as the kernel does: they add
+    exact zeros, so the result is the same bit for bit. On a CUDA device
+    the caller turns TF32 off."""
     g, ci, co4 = pack.g, pack.ci, 4 * pack.co
+    nb = co4 // BLOCK
+    zero = pack.zero.cpu().numpy() if skip_zero else np.zeros(9, np.int64)
+    keep = np.array([[not (int(z) >> b) & 1 for b in range(nb)]
+                     for z in zero])
     a = _bf16_round(x.float())
-    h = grid_conv(a, pack.w.float().reshape(9, ci, co4), g) + pack.bias
+    h = _blocks_conv(a, pack.w.float().reshape(9, ci, co4), g, keep) + \
+        pack.bias
     dh = torch.where(h > 0.0, cot.float(), 0.0).to(torch.bfloat16)
-    dx = grid_conv_t(dh.float(), pack.wt.float().reshape(9, co4, ci), g)
+    dx = _blocks_conv_t(dh.float(), pack.wt.float().reshape(9, co4, ci), g,
+                        keep)
     return (dx, dh) if return_dh else dx
 
 
@@ -211,17 +317,26 @@ def _check(x, cot, pack):
                          f"{pack.co})")
 
 
+# fp_stream64_level's parameters: x, cot, w, wt, bias, masks, order,
+# order_t, zero, dh, dx; M, g, ci, co4, skip; the stream
+LEVEL_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + \
+    [ctypes.c_void_p]
+
+
 def fused_level(x: torch.Tensor, cot: torch.Tensor, pack: LevelPack,
-                return_dh: bool = False):
+                return_dh: bool = False, skip: bool = True):
     """The level's forward and input gradient: dx [N, g, g, ci] float32
     (and dh [N, g, g, 4*co] bf16 with return_dh). A CPU tensor runs the
     plain version; a CUDA tensor launches the kernel or raises. x in any
-    float type (rounded to bf16, as the kernel reads it), cot bf16."""
+    float type (rounded to bf16, as the kernel reads it), cot bf16.
+    skip=False: the kernel issues every weight block (its walk 9 taps
+    first, as the other grid convs'), for holding the skip against it."""
     _check(x, cot, pack)
     if x.device.type == "cpu":
-        return fused_level_plain(x, cot, pack, return_dh)
+        return fused_level_plain(x, cot, pack, return_dh, skip_zero=skip)
     dev, bf = x.device, torch.bfloat16
-    if any(t.device != dev for t in (cot, pack.w, pack.wt, pack.bias)):
+    if any(t.device != dev for t in (cot, pack.w, pack.wt, pack.bias,
+                                     pack.zero, pack.order_t)):
         raise ValueError(f"x, cot and the pack must all be on {dev}")
     if cot.dtype != bf or pack.w.dtype != bf or pack.wt.dtype != bf:
         raise ValueError("the level takes a bf16 cotangent and weights")
@@ -232,17 +347,21 @@ def fused_level(x: torch.Tensor, cot: torch.Tensor, pack: LevelPack,
     cb = cot.contiguous()
     dh = torch.empty((n, g, g, co4), dtype=bf, device=dev)
     dx = torch.empty((n, g, g, ci), dtype=torch.float32, device=dev)
+    if skip:
+        order, order_t = pack.order, pack.order_t
+    else:
+        order = order_t = torch.from_numpy(pixel_order(g)).to(dev)
     lib = build.load(LIBRARY)
     fn = lib.fp_stream64_level
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p]
+    fn.argtypes = LEVEL_ARGTYPES
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):      # the library uses the current device
         rc = fn(xb.data_ptr(), cb.data_ptr(), pack.w.data_ptr(),
                 pack.wt.data_ptr(), pack.bias.data_ptr(),
-                pack.masks.data_ptr(), pack.order.data_ptr(),
-                dh.data_ptr(), dx.data_ptr(), n, g, ci,
-                co4, torch.cuda.current_stream(dev).cuda_stream)
+                pack.masks.data_ptr(), order.data_ptr(), order_t.data_ptr(),
+                pack.zero.data_ptr(), dh.data_ptr(), dx.data_ptr(), n, g, ci,
+                co4, int(skip),
+                torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, "stream64_level")
     build.LAUNCHES[COUNTER] += 1
     return (dx, dh) if return_dh else dx

@@ -21,7 +21,8 @@ kernel, on a CPU tensor through `ilp_loop_plain` (v3's plain loop on two
 halves of the rows: the same function, rows being independent).
 `conv_a` launches one conv A alone on either schedule, for holding the
 ping-pong schedule against v3's and for measuring the conv's ceilings
-(`probe`: the L2 feed alone, the products alone).
+(`probe`: the L2 feed alone, the products alone), its backward also with
+the taps in one chain (packed's: no per-tap fold).
 """
 
 from __future__ import annotations
@@ -30,19 +31,23 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from defensegan_torch.kernels import build
 from defensegan_torch.kernels.conv3x3 import conv3x3_plain
 from defensegan_torch.kernels.fused_projection_v2 import ROW_TILE
 from defensegan_torch.kernels.fused_projection_v3 import (
-    S2DPack, _tap_masks, check_targets, make_s2d_reconstructor, pixel_order,
-    run_s2d, s2d_loop_plain)
+    S2DPack, _tap_masks, _tap_offsets, check_targets, make_s2d_reconstructor,
+    pixel_order, run_s2d, s2d_loop_plain)
 
 LIBRARY = "fused_projection_v3_variants"
 COUNTER = "fused_projection_v3_ilp"      # build.LAUNCHES key of this wrapper
 CONV_COUNTER = "v3_conv_a"               # build.LAUNCHES key of `conv_a`
 SCHEDULES = ("coop", "pingpong")         # v3's, ilp's
 PROBES = ("whole", "feed", "math")       # the conv, the feed, the products
+# conv A's modes: the forward (one chain), the backward with each tap
+# rounded (v3's), and with the taps in one chain, rounded once (packed's)
+CONV_A_MODES = ("chain", "backward", "backward_chain")
 # fp_conv_a's parameters: in, w, bias, masks, order, out; M, g, cin, cout,
 # backward, pingpong, probe; the stream
 CONV_A_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
@@ -91,23 +96,27 @@ def conv_a(inp: torch.Tensor, w: torch.Tensor, g: int, mode: str, *,
     """One conv A launch of the loops alone, on v3's grid (masks and walk):
     mode "chain" (the forward: bf16(relu(sum of the taps + bias)), one
     chain) or "backward" (each tap rounded, masked by h > 0), as
-    kernels/conv3x3.py's modes of those names. On CUDA tensors it launches
+    kernels/conv3x3.py's modes of those names, or "backward_chain" (the
+    backward's taps in one chain, rounded once). On CUDA tensors it launches
     the grid conv on `schedule` ("coop": v3's, "pingpong": ilp's), or
     raises; `probe` "feed" keeps only the L2 feed (zeros stored), "math"
     only the products (the output undefined): timings, not convs. A CPU
-    tensor runs conv3x3_plain (probe "whole" only)."""
-    if mode not in ("chain", "backward"):
-        raise ValueError(f"conv A runs 'chain' or 'backward', not {mode!r}")
+    tensor runs conv3x3_plain (probe "whole" only; backward_chain: the
+    taps' float32 sum, rounded once)."""
+    if mode not in CONV_A_MODES:
+        raise ValueError(f"conv A runs one of {CONV_A_MODES}, not {mode!r}")
     if schedule not in SCHEDULES or probe not in PROBES:
         raise ValueError(f"schedule {schedule!r} / probe {probe!r} not in "
                          f"{SCHEDULES} / {PROBES}")
     if inp.device.type == "cpu":
         if probe != "whole":
             raise ValueError("a probe launch runs on CUDA tensors only")
+        if mode == "backward_chain":
+            return _backward_chain_plain(inp, w, g, h)
         return conv3x3_plain(inp, w, g, mode, bias=bias, h=h)
     dev, bf = inp.device, torch.bfloat16
     cin, cout = w.shape[0] // 9, w.shape[1]
-    backward = mode == "backward"
+    backward = mode != "chain"
     if (backward and h is None) or (not backward and bias is None):
         raise ValueError("the forward takes a bias, the backward h")
     other = h if backward else bias
@@ -137,12 +146,27 @@ def conv_a(inp: torch.Tensor, w: torch.Tensor, g: int, mode: str, *,
         rc = fn(inp.data_ptr(), w.data_ptr(),
                 None if b is None else b.data_ptr(), masks.data_ptr(),
                 order.data_ptr(), out.data_ptr(), m, g, cin, cout,
-                int(backward), SCHEDULES.index(schedule),
+                CONV_A_MODES.index(mode), SCHEDULES.index(schedule),
                 PROBES.index(probe),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, "conv_a")
     build.LAUNCHES[CONV_COUNTER] += 1
     return out
+
+
+def _backward_chain_plain(inp: torch.Tensor, w: torch.Tensor, g: int,
+                          h: torch.Tensor) -> torch.Tensor:
+    """conv A's backward with its taps in one float32 sum, rounded once,
+    masked by h > 0 (packed's; plain PyTorch)."""
+    m, cin, cout = inp.shape[0], w.shape[0] // 9, w.shape[1]
+    a = inp.float().reshape(m, g, g, cin)
+    wk = w.float().reshape(9, cin, cout)
+    acc = 0.0
+    for k, (dy, dx) in enumerate(_tap_offsets(g)):
+        t = F.pad(a @ wk[k], (0, 0, 1, 1, 1, 1))
+        acc = acc + t[:, 1 - dy:1 - dy + g, 1 - dx:1 - dx + g]
+    out = torch.where(h.float() > 0.0, acc.reshape(m, -1), 0.0)
+    return out.to(torch.bfloat16)
 
 
 def make_ilp_reconstructor(generator, image_shape, *, rec_rr: int,

@@ -10,7 +10,11 @@ fused_projection_v3.cu), so what changes is the backward: one chain over
 K = 9*ca, rounded to bf16 once, after the sum, where v3 rounds each tap's
 product (the TPU kernel's layout artefact that v3 keeps). In the kernel
 that is the grid conv's tap-sum mode (TapSum kChain under kBackward,
-csrc/conv3x3_sm90.cuh) and nothing else.
+csrc/conv3x3_sm90.cuh). Its conv B section runs as one kernel
+(csrc/fused_projection_v3_step.cuh, convb::section), where v3 passes
+the packed product and the packed do through device memory between
+three launches: the same function, rounding for rounding, so the packed
+loop's z_final is what those three launches give, bit for bit.
 
 `run_packed` runs the loop: on a CUDA tensor through the hand-written
 kernel (csrc/fused_projection_v3_variants.cu, fp_v3_packed_run), on a CPU
@@ -28,6 +32,7 @@ from defensegan_torch.kernels.fused_projection_v3 import (
 
 LIBRARY = "fused_projection_v3_variants"
 COUNTER = "fused_projection_v3_packed"   # build.LAUNCHES key of this wrapper
+FUSED_CONV_B = True                      # conv B's section: one launch
 
 
 def packed_loop_plain(pack: S2DPack, x_s2d: torch.Tensor, z0: torch.Tensor,
@@ -41,15 +46,19 @@ def packed_loop_plain(pack: S2DPack, x_s2d: torch.Tensor, z0: torch.Tensor,
 
 def run_packed(pack: S2DPack, x_s2d: torch.Tensor, z0_flat: torch.Tensor, *,
                rec_iters: int, rec_lr: float, momentum: float,
-               chunk: Optional[int] = None) -> torch.Tensor:
+               chunk: Optional[int] = None,
+               fused: bool = FUSED_CONV_B) -> torch.Tensor:
     """Run the loop for all N latents; returns z_final [N, k]. v3's
     interface (x_s2d [N, 49*cb] in s2d-flat order, z0_flat [N, k]); a CPU
     tensor runs the plain version, a CUDA tensor launches the kernel or
-    raises."""
+    raises. fused=False: conv B's section as v3's three launches
+    (fp_v3_packed_launches_run, the design before the fused kernel)."""
     check_targets(pack, x_s2d, z0_flat)
     if z0_flat.device.type == "cpu":
         return packed_loop_plain(pack, x_s2d, z0_flat, rec_iters=rec_iters,
                                  rec_lr=rec_lr, momentum=momentum)
     return run_s2d(pack, x_s2d, z0_flat, rec_iters=rec_iters, rec_lr=rec_lr,
                    momentum=momentum, chunk=chunk, library=LIBRARY,
-                   entry="fp_v3_packed_run", counter=COUNTER)
+                   entry="fp_v3_packed_run" if fused
+                   else "fp_v3_packed_launches_run",
+                   counter=COUNTER, fused_conv_b=fused)

@@ -338,11 +338,14 @@ def run_s2d(pack: S2DPack, x_s2d: torch.Tensor, z0_flat: torch.Tensor, *,
             chunk: Optional[int] = None,
             library: str = "fused_projection_v3",
             entry: Optional[str] = None,
-            counter: Optional[str] = None) -> torch.Tensor:
+            counter: Optional[str] = None,
+            fused_conv_b: bool = False) -> torch.Tensor:
     """The loop on CUDA tensors through a library entry with fp_v3_run's
     arguments: v3's own, or one of the layout experiments that keep them
     (defensegan_torch/experiments/: `library`, `entry`, `counter` as in
-    run_loop)."""
+    run_loop). fused_conv_b: the entry runs conv B's section as one kernel
+    and reads neither scratch of it (the packed product, the packed do),
+    which are then not allocated."""
     p2 = pack.grid_hw ** 2
     pp = padded_s2d(pack)
     npk, kpk = pp.kbp.shape[1], pp.kbpt.shape[0]
@@ -357,8 +360,10 @@ def run_s2d(pack: S2DPack, x_s2d: torch.Tensor, z0_flat: torch.Tensor, *,
         library, x_s2d.to(bf), z0_flat,
         [pp.w1, pp.w1t, pp.b1, pp.ka, pp.kat, pp.ba, pp.kbp, pp.kbpt, pp.bb,
          pp.masks, order],
-        [(pp.z_dim, bf), (p2 * pp.c0, bf), (p2 * pp.ca, bf), (p2 * npk, bf),
-         (p2 * kpk, bf), (splits * pp.z_dim, torch.float32)],
+        [(pp.z_dim, bf), (p2 * pp.c0, bf), (p2 * pp.ca, bf),
+         (0 if fused_conv_b else p2 * npk, bf),
+         (0 if fused_conv_b else p2 * kpk, bf),
+         (splits * pp.z_dim, torch.float32)],
         (pp.z_dim, pp.c0, pp.ca, pp.cb, pp.grid_hw, npk, kpk, splits),
         out_dim=p2 * pack.cb, rec_iters=rec_iters, rec_lr=rec_lr,
         momentum=momentum, chunk=chunk, entry=entry, counter=counter)

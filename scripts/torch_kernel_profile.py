@@ -23,16 +23,26 @@ same rows. --chunks repeats this for each row-chunk size of the wrappers
 (0: their default, one chunk up to the scratch cap). --kernel v3p and ilp
 profile two of v3's layout experiments the same way (v3p on its padded
 grid, conv A on v3's 361 taps; ilp with conv A on the ping-pong schedule).
+--kernel packed profiles the tap-packed experiment the same way (its conv
+B section one launch, where the parent's loop has v3's three).
 --kernel conva measures conv A's ceilings at the same rows, both ways, on
 each schedule (experiments/v3_ilp.py::conv_a): the conv, the L2 feed
 alone (the producer's copies, no wgmma) and the products alone (no
 copies), each launch's device time under the profiler, its issued
 operations' share of the bf16 peak and the bytes the copies bring from L2
-per second. Needs one CUDA device:
+per second; and the backward with its taps in one chain (packed's, no
+per-tap fold), the conv and its products alone.
+--kernel stream64 times the stream64 level (experiments/stream64_probe.py,
+batch 512, the probe's draws) per level and per direction: each launch's
+device time, the 64-deep K slabs it issues and their share of the bf16
+peak; with the zero blocks skipped and with every block issued.
+--root takes the port (and chip_smoke.py) from another checkout, e.g. the
+parent unpacked by `git archive`, so that two versions are profiled in
+one call. Needs one CUDA device:
 
     python3 scripts/torch_kernel_profile.py \
-        [--kernel all|v2|v2i|v3|v4|v3p|ilp|conva] [--iters 20] \
-        [--chunks 0,4096] [--config celeba]
+        [--kernel all|v2|v2i|v3|v4|v3p|ilp|packed|conva|stream64] \
+        [--iters 20] [--chunks 0,4096] [--config celeba] [--root DIR]
 """
 
 from __future__ import annotations
@@ -68,6 +78,10 @@ V3_LAUNCHES = ("fc forward", "conv A forward",
                "conv B forward (packed product)",
                "conv B tap sum + tanh gradient + pack", "conv B backward",
                "conv A backward") + FC_BACKWARD
+# the packed loop's step: conv B's section is one launch
+PACKED_LAUNCHES = ("fc forward", "conv A forward",
+                   "conv B section (forward, tap sum, tanh gradient, "
+                   "backward)", "conv A backward") + FC_BACKWARD
 # kernels of the libraries (C++ namespace fpk, and the loops' own)
 LIBRARY_KERNELS = ("fpk::", "quant_rows", "tanh_grad_pack")
 
@@ -85,6 +99,14 @@ def pack_width(pack) -> int:
 
 V3_LOOPS = ("fused_projection_v3", "fused_projection_v3p",
             "fused_projection_v3_ilp")     # v3's step, launch for launch
+PACKED = "fused_projection_v3_packed"
+
+
+def packed_is_fused() -> bool:
+    """Whether the imported port's packed loop runs conv B's section as
+    one launch (a parent checkout's may run v3's three)."""
+    from defensegan_torch.experiments import v3_packed
+    return getattr(v3_packed, "FUSED_CONV_B", False)
 
 
 def step_labels(name: str, pack):
@@ -93,6 +115,8 @@ def step_labels(name: str, pack):
         return V2_LAUNCHES
     if name.endswith("v2i"):
         return V2I_LAUNCHES
+    if name == PACKED:
+        return PACKED_LAUNCHES if packed_is_fused() else V3_LAUNCHES
     if name in V3_LOOPS:
         return V3_LAUNCHES
     lv = level_names(pack)
@@ -152,13 +176,17 @@ def issued(name: str, pack, rows: int, iters: int) -> dict:
     p2 = pp.grid_hw * (pp.grid_hw + (name == "fused_projection_v3p"))
     f = p2 * pp.c0
     conv_a = (2.0 * n * taps(pp.grid_hw) * pp.c0 * pp.ca, bf)
-    return {"fc forward": (gemm_ops(n, pp.z_dim, f), bf),
-            FC_BACKWARD[0]: (gemm_ops(n, f, pp.z_dim), bf),
-            "conv A forward": conv_a, "conv A backward": conv_a,
-            "conv B forward (packed product)":
-                (gemm_ops(n * p2, pp.ca, pp.kbp.shape[1]), bf),
-            "conv B backward": (gemm_ops(n * p2, pp.kbpt.shape[0], pp.ca),
-                                bf)}
+    out = {"fc forward": (gemm_ops(n, pp.z_dim, f), bf),
+           FC_BACKWARD[0]: (gemm_ops(n, f, pp.z_dim), bf),
+           "conv A forward": conv_a, "conv A backward": conv_a,
+           "conv B forward (packed product)":
+               (gemm_ops(n * p2, pp.ca, pp.kbp.shape[1]), bf),
+           "conv B backward": (gemm_ops(n * p2, pp.kbpt.shape[0], pp.ca),
+                               bf)}
+    # the fused section: a latent's 64-row tile, N 144 forward, K 144
+    # backward (9 taps of cb 16)
+    out[PACKED_LAUNCHES[2]] = (2.0 * 2 * n * 64 * pp.ca * 9 * pp.cb, bf)
+    return out
 
 
 def peak_share(ops, peak, ms):
@@ -221,6 +249,7 @@ def conv_a_ceilings(pack, rows: int, reps: int = 10, seed: int = 0) -> list:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from defensegan_torch.experiments import v3_ilp
     from defensegan_torch.experiments.v3_ilp import conv_a
     from defensegan_torch.kernels.fused_projection_v3 import padded_s2d
     pp = padded_s2d(pack)
@@ -233,14 +262,20 @@ def conv_a_ceilings(pack, rows: int, reps: int = 10, seed: int = 0) -> list:
     # the backward reads dh1 and writes dh0 over h0, masked by h0 > 0
     ways = {"forward": (h0, pp.ka, c0, ca, dict(mode="chain", bias=pp.ba)),
             "backward": (dh1, pp.kat, ca, c0, dict(mode="backward", h=h0))}
+    # the feed alone is the same launch on either schedule
+    runs = {way: (("coop", "whole"), ("coop", "feed"), ("coop", "math"),
+                  ("pingpong", "whole"), ("pingpong", "math"))
+            for way in ways}
+    if "backward_chain" in getattr(v3_ilp, "CONV_A_MODES", ()):
+        # the backward's taps in one chain: what the per-tap fold costs
+        ways["backward_chain"] = (dh1, pp.kat, ca, c0,
+                                  dict(mode="backward_chain", h=h0))
+        runs["backward_chain"] = (("coop", "whole"), ("coop", "math"))
     out = []
     for way, (inp, w, cin, cout, kw) in ways.items():
         ops = 2.0 * rows * taps(g) * cin * cout
         moved = conv_a_bytes(rows, g, cin, cout)
-        # the feed alone is the same launch on either schedule
-        for sched, probe in (("coop", "whole"), ("coop", "feed"),
-                             ("coop", "math"), ("pingpong", "whole"),
-                             ("pingpong", "math")):
+        for sched, probe in runs[way]:
             def run():
                 return conv_a(inp, w, g, schedule=sched, probe=probe, **kw)
             run()                                        # build + warm-up
@@ -263,6 +298,90 @@ def conv_a_ceilings(pack, rows: int, reps: int = 10, seed: int = 0) -> list:
                 "peak_share": peak_share(ops, PEAK_BF16, ms),
                 "l2_gbytes": moved / 1e9,
                 "l2_tb_per_s": moved / (ms * 1e-3) / 1e12})
+    return out
+
+
+def _launch_ms(run, reps: int, pick) -> dict:
+    """{label: device ms of each launch, over `reps` calls of run()} for
+    the device kernels that pick(name) labels (None: not counted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()                                            # build + warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        label = pick(e.name) if e.device_type == DeviceType.CUDA else None
+        if label is not None:
+            out.setdefault(label, []).append(e.time_range.elapsed_us() / 1e3)
+    return out
+
+
+def stream64_slabs(sp, pack, batch: int, bn: int, skip: bool) -> dict:
+    """64-deep K slabs each direction of the level issues at `batch`
+    images, and their multiply-adds: every block (skip False) or the
+    zero blocks left out (the port's stream64_probe.issued_slabs)."""
+    g, ci, co4 = pack.g, pack.ci, 4 * pack.co
+    m_tiles = _up(batch, 128) // 128
+    if skip:
+        zero = pack.zero.cpu().numpy()
+        fwd = int(sp.issued_slabs(zero, g, ci, co4, bn, False).sum())
+        bwd = int(sp.issued_slabs(zero, g, ci, co4, bn, True).sum())
+    else:
+        fwd = taps(g) * (co4 // bn) * (ci // 64)
+        bwd = taps(g) * (co4 // 64) * (ci // 128)
+    return {"forward": (m_tiles * fwd, 128 * 64 * bn),
+            "backward": (m_tiles * bwd, 128 * 64 * 128)}
+
+
+def stream64_levels(batch: int = 512, reps: int = 10, seed: int = 0) -> list:
+    """The stream64 level per level and direction: each launch's device
+    time (median of `reps` calls under torch.profiler), the K slabs it
+    issues and their share of the bf16 peak; for the port's kernel with
+    the zero blocks skipped and with every block issued, for a parent's
+    as it is."""
+    import torch
+    from defensegan_torch.experiments import stream64_probe as sp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    skips = hasattr(sp, "zero_blocks")
+    out = []
+    for lvl, (g, ci, co) in sp.LEVELS.items():
+        a = sp.draw_arrays(lvl, batch, seed=seed)
+        pack = sp.level_tensors(*sp.pack_level(a["w"], a["b"], a["scale"],
+                                               a["shift"]), g, "cuda")
+        x = torch.as_tensor(a["x0"]).cuda()
+        cot = sp.to_phase_blocked(torch.as_tensor(a["cot"]).cuda()) \
+            .to(torch.bfloat16)
+        bn = 128 if 4 * co % 128 == 0 else 64       # the kernel's tiles
+        configs = [("skip", True), ("all", False)] if skips \
+            else [("all", False)]
+
+        def pick(name):
+            if "conv3x3_sm90" not in name:
+                return None
+            return "forward" if "EpiReluCot" in name else "backward"
+        for label, skip in configs:
+            kw = dict(skip=skip) if skips else {}
+            times = _launch_ms(lambda: sp.fused_level(x, cot, pack, **kw),
+                               reps, pick)
+            slabs = stream64_slabs(sp, pack, batch, bn, skip)
+            rec = {"level": lvl, "config": label, "batch": batch, "bn": bn}
+            for way, (n, macs) in slabs.items():
+                ms_all = times.get(way, [])
+                if len(ms_all) != reps:
+                    raise RuntimeError(f"stream64 L{lvl} {label} {way}: "
+                                       f"{len(ms_all)} launches, not {reps}")
+                ms = statistics.median(ms_all)
+                rec[way] = {"ms": ms, "ms_all": ms_all, "issued_slabs": n,
+                            "peak_share": peak_share(2.0 * n * macs,
+                                                     PEAK_BF16, ms)}
+            rec["ms"] = rec["forward"]["ms"] + rec["backward"]["ms"]
+            out.append(rec)
+        del pack, x, cot
     return out
 
 
@@ -318,7 +437,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", default="all",
                     choices=("all", "v2", "v2i", "v3", "v4", "v3p", "ilp",
-                             "conva"))
+                             "packed", "conva", "stream64"))
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--config", default="celeba",
                     choices=("celeba", "celeba_wide", "imagenet64"),
@@ -326,12 +445,14 @@ def main(argv=None) -> int:
     ap.add_argument("--chunks", default="0",
                     help="comma-separated rows per library call; 0 = the "
                          "wrapper's default")
+    ap.add_argument("--root", default=ROOT,
+                    help="the checkout whose port is profiled")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     from chip_smoke import seeded_celeba_gan, seeded_deep_gan
     from defensegan_torch.configs import load_config
     from defensegan_torch.defense.fastgen import pack_generator
@@ -345,9 +466,15 @@ def main(argv=None) -> int:
     from defensegan_torch.experiments.fused_projection_v3p import (
         fused_projection_s2d_padded)
     from defensegan_torch.experiments.v3_ilp import fused_projection_ilp
+    from defensegan_torch.experiments.v3_packed import run_packed
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    print(json.dumps({"root": os.path.abspath(args.root)}), flush=True)
+    if args.kernel == "stream64":
+        for rec in stream64_levels():
+            print(json.dumps({"stream64": rec}), flush=True)
+        return 0
     g = torch.Generator(device="cuda").manual_seed(0)
     n = 10240                  # rows of the v2, v2i and v3 loops
     want = ("v2", "v2i", "v3", "v4") if args.kernel == "all" \
@@ -367,7 +494,8 @@ def main(argv=None) -> int:
     deep_loops = {"v3": ("fused_projection_v3", fused_projection_s2d),
                   "v3p": ("fused_projection_v3p",
                           fused_projection_s2d_padded),
-                  "ilp": ("fused_projection_v3_ilp", fused_projection_ilp)}
+                  "ilp": ("fused_projection_v3_ilp", fused_projection_ilp),
+                  "packed": (PACKED, run_packed)}
     if any(t in want for t in deep_loops) or "conva" in want:
         deep = seeded_deep_gan()
         pack3 = pack_s2d(deep.generator)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""z_final of the v3 kernel (or of its layout experiment v3p) on seeded
-inputs, as a digest and a time: the check that a change to v3's step
-(csrc/fused_projection_v3_step.cuh) or to the grid conv left its output
-bit for bit as it was.
+"""z_final of the v3 kernel (or of its layout experiments v3p and packed)
+on seeded inputs, as a digest and a time: the check that a change to v3's
+step (csrc/fused_projection_v3_step.cuh) or to the grid conv left its
+output bit for bit as it was.
 
 The deep mnist.yml model with chip_smoke.py's seeded weights, G(z) of
 seeded latents as targets, seeded z0; `--root` takes the port (and
@@ -12,14 +12,16 @@ call on one card, in turns:
     python3 scripts/torch_v3_zfinal.py --rows 512 --iters 5
     python3 scripts/torch_v3_zfinal.py --root /path/to/parent --rows 10240
     python3 scripts/torch_v3_zfinal.py --variant v3p --rows 512 --iters 5
+    python3 scripts/torch_v3_zfinal.py --variant packed --rows 10240 \
+        --iters 200
 
 Prints one JSON line: the root, the variant, rows, iters, the sha256 of
 z_final's bytes, the loop's median ms of 3 (host clock around
 synchronized calls after a warm-up), the card, and whether the digest is
 REFERENCE's (null where no reference was recorded for this card and
 torch build). Needs one CUDA device. chip_smoke.py runs `zfinal` at both
-shapes, v3's in phase 11 and v3p's in phase 10, and fails unless every
-digest is the reference's.
+shapes, v3's in phase 11 and v3p's and packed's in phase 10, and fails
+unless every digest is the reference's.
 """
 
 import argparse
@@ -48,14 +50,22 @@ REFERENCE = {
         ("v3p", 512, 5):
             "9e4219a73cac52a1dfc4cc48c19907c1458fd919f38d91ec3dce1f633d93e32c",
         ("v3p", 10240, 200):
-            "7c49501d100ec81fb4b7156910d580810ee9b843547ffc8d43582548a97203e2"}}
-VARIANTS = ("v3", "v3p")
+            "7c49501d100ec81fb4b7156910d580810ee9b843547ffc8d43582548a97203e2",
+        # packed's, recorded from the design that ran conv B's section as
+        # three launches (conv B forward, tanh_grad_pack, conv B
+        # backward), which the one-kernel section reproduces
+        ("packed", 512, 5):
+            "a73ceaf58ef75a09d166b222ebd7b917f1958d127153ec0bd46dd2b296601d35",
+        ("packed", 10240, 200):
+            "7c236402adf9469d79a04357862912c03b4eb0630f7d405d5f68a3af76d11669"}}
+VARIANTS = ("v3", "v3p", "packed")
 
 
 def zfinal(rows: int = 512, iters: int = 5, seed: int = 0,
            seeded_deep_gan=None, variant: str = "v3") -> dict:
-    """z_final of the v3 kernel (variant "v3") or of v3p's ("v3p") on the
-    seeded inputs: its digest, the loop's time and the comparison with
+    """z_final of the v3 kernel (variant "v3") or of an experiment's
+    ("v3p", "packed") on the seeded inputs: its digest, the loop's time
+    and the comparison with
     REFERENCE (`same`: True, False, or None where no reference applies).
     seeded_deep_gan: the model's maker (default chip_smoke.py's)."""
     import torch
@@ -74,6 +84,8 @@ def zfinal(rows: int = 512, iters: int = 5, seed: int = 0,
     if variant == "v3p":
         from defensegan_torch.experiments.fused_projection_v3p import (
             fused_projection_s2d_padded as loop)
+    elif variant == "packed":
+        from defensegan_torch.experiments.v3_packed import run_packed as loop
     from defensegan_torch.models.generator import from_image_space
     gan = seeded_deep_gan()
     cfg, dev = gan.cfg, gan.device

@@ -38,6 +38,7 @@ from defensegan_torch.experiments import stream64_probe as sp
 from defensegan_torch.experiments import v3_diag, v3_diag2
 from defensegan_torch.experiments.v3_ilp import (CONV_COUNTER, conv_a,
                                                  fused_projection_ilp)
+from defensegan_torch.experiments.v3_packed import run_packed
 from defensegan_torch.experiments.v3_variants import VARIANTS
 from defensegan_torch.kernels import build
 from defensegan_torch.kernels.conv3x3 import (COUNTER, conv3x3, conv3x3_plain,
@@ -409,8 +410,11 @@ def test_training_checkpoint_round_trip_on_card(cuda_device, tmp_path):
 
 
 # ---- the experiments' kernels (defensegan_torch/experiments/): the
-# stream64 level at its published widths, the three v3 variants at the
-# narrow deep model's (their plain versions as tolerances as v3's)
+# stream64 level at its published widths (the zero-block skip bit for bit
+# against every block issued, and against v4's grid conv), the three v3
+# variants at the narrow deep model's (their plain versions as tolerances
+# as v3's; packed's fused conv B section bit for bit against v3's three
+# launches, also at mnist.yml's widths)
 @pytest.mark.cuda
 @pytest.mark.parametrize("level", [0, 1, 2])
 def test_stream64_level_matches_plain(cuda_device, level):
@@ -433,6 +437,89 @@ def test_stream64_level_matches_plain(cuda_device, level):
     assert build.LAUNCHES[sp.COUNTER] == before + 1
     r = sp.check_against_plain(x, cot, pack, dx, dh)
     assert r["ok"], r
+
+
+def _level(level, batch, device, seed=0, cot_ones=False):
+    """A stream64 level's pack, x and phase-blocked bf16 cotangent."""
+    g = sp.LEVELS[level][0]
+    a = sp.draw_arrays(level, batch, seed=seed)
+    pack = sp.level_tensors(*sp.pack_level(a["w"], a["b"], a["scale"],
+                                           a["shift"]), g, device)
+    x = torch.as_tensor(a["x0"]).to(device)
+    cot = sp.to_phase_blocked(torch.as_tensor(a["cot"]).to(device))
+    if cot_ones:
+        cot = torch.ones_like(cot)
+    return pack, x, cot.to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_stream64_skip_equals_every_block_bit_for_bit(cuda_device, level):
+    """The zero blocks skipped (forward taps, backward K slabs; the walks
+    heaviest first) against the kernel that issues every block: a skipped
+    product was an exact zero, so dh and dx are equal bit for bit; 200
+    images leave a part m-tile."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pack, x, cot = _level(level, 200, cuda_device, seed=level)
+    before = build.LAUNCHES[sp.COUNTER]
+    dx, dh = sp.fused_level(x, cot, pack, return_dh=True)
+    dx0, dh0 = sp.fused_level(x, cot, pack, return_dh=True, skip=False)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[sp.COUNTER] == before + 2
+    assert torch.equal(dh, dh0) and torch.equal(dx, dx0)
+    assert (dx != 0).float().mean() > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_v4_conv_equals_the_skipping_level_bit_for_bit(cuda_device, level):
+    """v4's grid conv (kernels/conv3x3.py, no block skip) on the level's
+    weights: its forward's relu decisions are the level's (cot = 1, so dh
+    = [h > 0]) and its backward (h > 0 everywhere, the taps rounded) is
+    the level's dx rounded to bf16, bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pack, x, cot = _level(level, 256, cuda_device, seed=10 + level,
+                          cot_ones=True)
+    g, n = pack.g, x.shape[0]
+    dx, dh = sp.fused_level(x, cot, pack, return_dh=True)
+    fwd = conv3x3(x.to(torch.bfloat16).reshape(n, -1), pack.w, g, "chain",
+                  bias=pack.bias)
+    ones = torch.ones((n, g * g * pack.ci), dtype=torch.bfloat16,
+                      device=cuda_device)
+    bwd = conv3x3(dh.reshape(n, -1), pack.wt, g, "backward", h=ones)
+    torch.cuda.synchronize()
+    assert torch.equal(fwd > 0, dh.reshape(n, -1) > 0)
+    assert torch.equal(bwd, dx.reshape(n, -1).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gen_dim, n", [(4, 200), (64, 200), (64, 333)])
+def test_packed_fused_section_equals_three_launches_bit_for_bit(
+        cuda_device, gen_dim, n):
+    """The packed loop with conv B's section as one kernel against the
+    same loop with v3's three launches (fp_v3_packed_launches_run): the
+    same roundings and orders, so z_final is equal bit for bit; ca 64 and
+    256 (gen_dim 4, 64), rows that leave the persistent grid a part wave
+    (200 and 333 latents, padded to 256 and 384, on 132 blocks of two
+    warpgroups)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tg = generator_for("mnist", gen_dim, torch.bfloat16, "deep", 128,
+                       gen=torch.Generator().manual_seed(gen_dim))
+    tg = tg.to(cuda_device).requires_grad_(False)
+    rng = np.random.RandomState(n)
+    x = torch.from_numpy(np.tanh(rng.randn(n, 784)).astype(np.float32)) \
+        .to(cuda_device)
+    z0 = torch.from_numpy(rng.randn(n, 128).astype(np.float32)) \
+        .to(cuda_device)
+    pack = pack_s2d(tg)
+    kw = dict(rec_iters=5, rec_lr=LR, momentum=MOM)
+    before = build.LAUNCHES[VARIANTS["packed"].counter]
+    fused = run_packed(pack, x, z0, **kw)
+    three = run_packed(pack, x, z0, fused=False, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[VARIANTS["packed"].counter] == before + 2
+    assert (fused - z0).abs().max().item() > 1e-3
+    assert torch.equal(fused, three)
 
 
 @pytest.mark.cuda
@@ -497,6 +584,32 @@ def test_conv_a_pingpong_equals_coop_bit_for_bit(cuda_device, mode, rows):
     assert torch.equal(coop, ping)
     ref = conv3x3_plain(inp, w, g, mode, **kw)
     assert rounding_excess(ping, ref, inp, w, g, mode) <= 0.0
+
+
+@pytest.mark.cuda
+def test_conv_a_chained_backward_matches_plain(cuda_device):
+    """conv A's backward with its taps in one chain (packed's, the
+    ceilings' no-fold launch), both schedules bit for bit, within one bf16
+    ulp of the output plus 1e-4 of the summed absolute products of the
+    plain float32 sum, rounded once."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    g, cin, cout, rows = 7, 256, 128, 200
+
+    def draw(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=cuda_device,
+                                    generator=gen)).to(torch.bfloat16)
+    inp, w = draw(rows, g * g * cin), draw(9 * cin, cout, scale=0.05)
+    h = draw(rows, g * g * cout)
+    coop = conv_a(inp, w, g, "backward_chain", h=h, schedule="coop")
+    ping = conv_a(inp, w, g, "backward_chain", h=h, schedule="pingpong")
+    torch.cuda.synchronize()
+    assert torch.equal(coop, ping)
+    ref = conv_a(inp.cpu(), w.cpu(), g, "backward_chain", h=h.cpu())
+    mag = conv_a(inp.abs().cpu(), w.abs().cpu(), g, "backward_chain",
+                 h=torch.ones_like(h.cpu())).float()
+    err = (coop.cpu().float() - ref.float()).abs()
+    assert (err <= 2.0 ** -7 * ref.float().abs() + 1e-4 * mag).all()
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ the plain version on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
 
+import ctypes
 import os
 import sys
 
@@ -30,12 +31,16 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(1, os.path.join(ROOT, "scripts"))
+sys.path.insert(2, os.path.join(ROOT, "tests"))
 
 import chip_smoke  # noqa: E402
 import stream64_probe as jax_probe  # noqa: E402
 from defensegan_torch.experiments import stream64_probe as sp  # noqa: E402
 from defensegan_torch.kernels import build  # noqa: E402
 from defensegan_torch.kernels.conv3x3 import _tap_magnitudes  # noqa: E402
+from defensegan_torch.kernels.fused_projection_v3 import (  # noqa: E402
+    _tap_masks)
+from torch_csrc_signatures import c_signatures  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -192,3 +197,105 @@ def test_check_against_library_catches_a_wrong_dx(level):
     assert not sp.check_against_library(*args, wrong, dh)["numerics_ok"]
     np.testing.assert_array_equal(
         sp.from_phase_blocked(sp.to_phase_blocked(cot)).numpy(), a["cot"])
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_zero_blocks_are_the_phase_structure(level):
+    """The table the kernel skips by is the phase-major form's own: 11 of
+    the 36 (tap, phase) blocks zero at every level, whatever the draws (a
+    phase uses 3 x 3, 3 x 2, 2 x 3 or 2 x 2 of the 9 taps), the 64-lane
+    bits those phases' lanes; and the backward's K slabs of W_k^T zero
+    exactly where W_k's columns are."""
+    g, ci, co = sp.LEVELS[level]
+    tables = []
+    for seed in (0, 5):
+        pack = _pack(_arrays(level, seed), level)
+        zero = pack.zero.numpy()
+        bits = np.array([[(int(z) >> b) & 1 for b in range(4 * co // 64)]
+                         for z in zero], bool)
+        phases = bits.reshape(9, 4, -1)
+        assert (phases.all(2) == phases.any(2)).all()   # whole phases
+        assert phases.all(2).sum() == 11
+        assert sorted((~phases.all(2)).sum(0).tolist()) == [4, 6, 6, 9]
+        w = pack.w.float().reshape(9, ci, 4 * co // 64, 64)
+        np.testing.assert_array_equal(bits, ~w.ne(0).any(dim=(1, 3)).numpy())
+        wt = pack.wt.float().reshape(9, 4 * co // 64, 64, ci)
+        np.testing.assert_array_equal(bits,
+                                      ~wt.ne(0).any(dim=(2, 3)).numpy())
+        tables.append(zero)
+    np.testing.assert_array_equal(*tables)
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_plain_level_without_the_zero_blocks_is_bit_for_bit(level):
+    """Leaving out the table's blocks (the forward's taps into them, the
+    backward's K slabs of them), as the kernel does, changes no bit of dh
+    or dx: they added exact zeros."""
+    a = _arrays(level, seed=3)
+    pack = _pack(a, level)
+    x = torch.from_numpy(a["x0"])
+    cot = sp.to_phase_blocked(torch.from_numpy(a["cot"])).to(torch.bfloat16)
+    dx, dh = sp.fused_level_plain(x, cot, pack, return_dh=True)
+    dx_s, dh_s = sp.fused_level_plain(x, cot, pack, return_dh=True,
+                                      skip_zero=True)
+    assert torch.equal(dh, dh_s) and torch.equal(dx, dx_s)
+    assert (dx != 0).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_issued_slabs_and_walks(level):
+    """What the skip leaves to issue at the pack's 128-lane forward tiles:
+    27.75%, 29.29% and 23.13% fewer multiply-adds than every block at
+    levels 0, 1, 2 (the border taps, already skipped, hold more of the
+    zero blocks on the smaller grids; at level 2 a 128-lane tile spans two
+    phases and skips 3 of its 18 (tap, n-tile) pairs, 64-lane tiles all 11
+    zero blocks: 29.95%); each walk ranks the pixels by their issued
+    slabs, most first."""
+    g, ci, co = sp.LEVELS[level]
+    pack = _pack(_arrays(level), level)
+    zero = pack.zero.numpy()
+    assert pack.bn == 128
+    total = {}
+    for skip in (True, False):
+        z = zero if skip else None
+        fwd = sp.tile_slabs(z, g, ci, 4 * co, pack.bn, False)
+        bwd = sp.tile_slabs(z, g, ci, 4 * co, pack.bn, True)
+        assert fwd.shape == (g * g, 4 * co // 128)
+        assert bwd.shape == (g * g, ci // 128)
+        total[skip] = fwd.sum() * pack.bn + bwd.sum() * 128
+        if skip:
+            np.testing.assert_array_equal(
+                pack.order.numpy(), np.argsort(-fwd.sum(1), kind="stable"))
+            np.testing.assert_array_equal(
+                pack.order_t.numpy(), np.argsort(-bwd.sum(1), kind="stable"))
+            assert (np.diff(fwd.sum(1)[pack.order.numpy()]) <= 0).all()
+    assert round(1.0 - total[True] / total[False], 4) == \
+        {0: 0.2775, 1: 0.2929, 2: 0.2313}[level]
+    # every block: the 9-tap count times every slab
+    all_fwd = sp.issued_slabs(None, g, ci, 4 * co, 128, False)
+    np.testing.assert_array_equal(
+        all_fwd, _tap_masks(g).sum(1) * (4 * co // 128) * (ci // 64))
+    if level == 2:
+        narrow = sp.issued_slabs(zero, g, ci, 4 * co, 64, False).sum()
+        wide = sp.issued_slabs(zero, g, ci, 4 * co, 128, False).sum()
+        every = sp.issued_slabs(None, g, ci, 4 * co, 128, False).sum()
+        assert round(1.0 - narrow * 64 / (every * 128), 4) == 0.2995
+        assert round(1.0 - wide / every, 4) == 0.163
+
+
+def test_level_binding_matches_the_c_signature():
+    restype, params = c_signatures("stream64_level.cu")["fp_stream64_level"]
+    assert restype is ctypes.c_int and params == sp.LEVEL_ARGTYPES
+
+
+def test_skip_needs_the_card_for_the_kernel_and_keeps_the_cpu_plain():
+    """On CPU tensors fused_level runs the plain version either way and
+    counts no launch; skip=False and skip=True agree bit for bit."""
+    a = _arrays(1, seed=4)
+    pack = _pack(a, 1)
+    x = torch.from_numpy(a["x0"])
+    cot = sp.to_phase_blocked(torch.from_numpy(a["cot"])).to(torch.bfloat16)
+    before = build.LAUNCHES[sp.COUNTER]
+    assert torch.equal(sp.fused_level(x, cot, pack),
+                       sp.fused_level(x, cot, pack, skip=False))
+    assert build.LAUNCHES[sp.COUNTER] == before

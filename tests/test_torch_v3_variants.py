@@ -62,7 +62,8 @@ from defensegan_torch.experiments.v3_variants import (  # noqa: E402
     VARIANTS, ab_variant)
 from defensegan_torch.gan import DefenseGAN  # noqa: E402
 from defensegan_torch.kernels import build  # noqa: E402
-from defensegan_torch.kernels.conv3x3 import conv3x3_plain  # noqa: E402
+from defensegan_torch.kernels.conv3x3 import (  # noqa: E402
+    conv3x3_plain, rounding_excess)
 from defensegan_torch.kernels.fused_projection_v3 import (  # noqa: E402
     _tap_masks, pack_s2d, padded_s2d, pixel_order, s2d_loop_plain)
 from defensegan_torch.models.generator import generator_for  # noqa: E402
@@ -425,3 +426,91 @@ def test_ab_harness_on_the_cpu(variant):
         assert rec["gate"]["z_final_bit_equal"]
     assert rec["v3"]["recon_per_s"] > 0 and rec[variant]["recon_per_s"] > 0
     assert rec["rows"] == 16
+
+
+def test_packed_entries_take_v3s_parameters():
+    """fp_v3_packed_run (the fused conv B section) and the three-launch
+    form it is held against on the card take fp_v3_run's parameters;
+    the fused wrapper allocates no packed product or packed do."""
+    entries = c_signatures("fused_projection_v3_variants.cu")
+    v3 = c_signatures("fused_projection_v3.cu")["fp_v3_run"]
+    assert entries["fp_v3_packed_launches_run"] == \
+        entries["fp_v3_packed_run"] == v3
+    assert v3_packed.FUSED_CONV_B
+
+
+def test_packed_three_launch_form_on_the_cpu_is_the_plain_loop(pair):
+    """On CPU tensors both forms of the packed loop are its plain version,
+    launching nothing."""
+    _, tg = pair
+    x, z0 = _inputs(16, seed=7)
+    kw = dict(rec_iters=2, rec_lr=LR, momentum=MOM)
+    pack = pack_s2d(tg)
+    xt, zt = torch.from_numpy(x), torch.from_numpy(z0)
+    before = build.LAUNCHES[v3_packed.COUNTER]
+    fused = v3_packed.run_packed(pack, xt, zt, **kw)
+    three = v3_packed.run_packed(pack, xt, zt, fused=False, **kw)
+    assert build.LAUNCHES[v3_packed.COUNTER] == before
+    assert torch.equal(fused, three)
+    assert torch.equal(fused, v3_packed.packed_loop_plain(pack, xt, zt, **kw))
+
+
+def test_conv_a_chained_backward_on_the_cpu():
+    """conv_a's backward_chain on CPU tensors: the taps' float32 sum
+    rounded once, masked by h > 0; within one bf16 ulp of each rounded
+    tap of the per-tap backward, and not equal to it."""
+    rng = np.random.RandomState(9)
+    g, cin, cout = 7, 128, 64
+    inp = torch.from_numpy(rng.randn(6, g * g * cin).astype(np.float32)) \
+        .to(torch.bfloat16)
+    w = torch.from_numpy(0.1 * rng.randn(9 * cin, cout).astype(np.float32)) \
+        .to(torch.bfloat16)
+    h = torch.from_numpy(rng.randn(6, g * g * cout).astype(np.float32)) \
+        .to(torch.bfloat16)
+    before = build.LAUNCHES[v3_ilp.CONV_COUNTER]
+    got = v3_ilp.conv_a(inp, w, g, "backward_chain", h=h)
+    assert build.LAUNCHES[v3_ilp.CONV_COUNTER] == before
+    per_tap = conv3x3_plain(inp, w, g, "backward", h=h)
+    assert not torch.equal(got, per_tap)
+    assert (got[h.float() <= 0.0] == 0).all()         # masked by h > 0
+    assert rounding_excess(got, per_tap, inp, w, g, "backward") <= 0.0
+    assert v3_ilp.CONV_A_MODES.index("backward_chain") == 2
+
+
+def test_profile_counts_packed_as_one_section_launch(pair):
+    """scripts/torch_kernel_profile.py: the packed loop's step names its
+    fused conv B section as one launch issuing a latent's 64-row tile, N
+    144 forward and K 144 backward; the other launches as v3's."""
+    _, tg = pair
+    pack = pack_s2d(tg)
+    assert kprof.step_labels(kprof.PACKED, pack) == kprof.PACKED_LAUNCHES
+    ops = kprof.issued(kprof.PACKED, pack, 128, 2)
+    v3 = kprof.issued("fused_projection_v3", pack, 128, 2)
+    pp = padded_s2d(pack)
+    assert ops[kprof.PACKED_LAUNCHES[2]][0] == \
+        2.0 * 2 * 128 * 2 * 64 * pp.ca * 144
+    for label in kprof.PACKED_LAUNCHES:
+        if label != kprof.PACKED_LAUNCHES[2]:
+            assert ops.get(label) == v3.get(label)
+
+
+def test_profile_counts_stream64_slabs():
+    """--kernel stream64's issued slabs: every block by the closed form,
+    the skip by stream64_probe.issued_slabs, per 128-image m-tile; and
+    the script refuses to run without a card."""
+    from defensegan_torch.experiments import stream64_probe as sp
+    for level, (g, ci, co) in sp.LEVELS.items():
+        a = sp.draw_arrays(level, 2)
+        pack = sp.level_tensors(*sp.pack_level(a["w"], a["b"], a["scale"],
+                                               a["shift"]), g, "cpu")
+        every = kprof.stream64_slabs(sp, pack, 512, pack.bn, False)
+        skip = kprof.stream64_slabs(sp, pack, 512, pack.bn, True)
+        for way, backward in (("forward", False), ("backward", True)):
+            assert every[way][0] == 4 * sp.issued_slabs(
+                None, g, ci, 4 * co, pack.bn, backward).sum()
+            assert skip[way][0] == 4 * sp.issued_slabs(
+                pack.zero.numpy(), g, ci, 4 * co, pack.bn, backward).sum()
+            assert skip[way][1] == every[way][1]
+    if not torch.cuda.is_available():
+        assert kprof.main(["--kernel", "stream64"]) == 2
+        assert kprof.main(["--kernel", "packed", "--root", ROOT]) == 2
