@@ -6,8 +6,8 @@
 Drives the port's three served paths and holds every kernel of them
 against its plain PyTorch version, then the white-box evaluation path
 (phase 6), training (phase 7), the black-box path (phase 8), several
-devices (phase 9), the ported Pallas experiments of scripts/ (phase 10)
-and its two compile probes (phase 11):
+devices (phase 9), the ported Pallas experiments of scripts/ (phase 10),
+its two compile probes (phase 11) and the three operator tools (phase 12):
 
   - the flagship (configs/gans/mnist_fast.yml: wide generator, k 128,
     F 6272, 784 outputs padded to P 832; trained step-20000 weights from
@@ -197,7 +197,35 @@ and its two compile probes (phase 11):
        d. v3's z_final at 512 rows x L 5 and 10240 x L 200 against the
           digests of scripts/torch_v3_zfinal.py; a card or torch build
           with no recorded digest fails the phase
- 12. the `kernels` line (the four loops, the four experiments and the two
+ 12. the operator tools (chip_smoke.operator_tools_phase), from the
+     repository's root on the committed flagship at full width (R 10,
+     L 200 unless a cell says otherwise); classifier caches and result
+     rows in a temporary directory (classifier A copied from phase 6's
+     cache, else trained there by encoder_exp); counters set to 0 before,
+     v2 and v2i must have risen after; the sha256 of the committed
+     export/20000.npz and every file under output/results/ and
+     output/classifiers_torch/ unchanged:
+       a. scripts/int8_accuracy_gate_torch.py as the JAX script runs
+          (classifier A 5 epochs, seed 5; 256 test images; xla, pallas,
+          pallas_int8 on seed 9's draws): pallas and pallas_int8 within
+          GATE_GAP_MAX (2/256) of xla's clean- and FGSM(0.1)-defended
+          accuracy, clean-defended at least 0.98; JAX's 1.0 / 0.957 beside
+       b. scripts/pipeline_exp_torch.py --model A --detector combined
+          --calib_source test_tail --calib_n 256, three times: on
+          flagship_conf_l300, flagship_spsa_l300 and flagship_conf_enc2x50;
+          on conf_l300 with --detect_passes 4 --vote; on the three sets at
+          REC_RR 2, REC_ITERS 50, REC_INIT encoder: every row's keys the
+          JAX row's plus device, the clean flag rate at most 0.15, the SPSA
+          set's at least 0.90; JAX's flagship rows beside
+       c. scripts/encoder_exp_torch.py: the train leg (300 steps) on a
+          temporary copy of the flagship (its cfg.yml pointed at the copy),
+          its row's keys and a finite img_mse; then the frontier on the
+          committed export and encoder, 10x200 2x50 1x25 x random encoder
+          encoder_jitter, 256 test images, FGSM 0.3 through the defense
+          (the exact gradient, through the encoder for encoder*): every
+          cell clean-defended at least 0.98 and combined AUC at least
+          0.95; defended accuracy and recon/s beside JAX's row of the cell
+ 13. the `kernels` line (the four loops, the four experiments and the two
      probes), then {"ok": true, "device": {...}} last.
 
 Every phase prints one JSON line; any failed check exits nonzero. There is
@@ -376,6 +404,39 @@ BLACKBOX_KEYS = (
     "detection_tpr_at_fpr05_combined", "undetected_success_rate",
     "undetected_success_rate_two_sided", "undetected_success_rate_combined",
     "rec_err_clean_mean", "rec_err_adv_mean", "phases")
+
+# 12: the operator tools (defensegan_torch/cli/int8_accuracy_gate.py,
+# pipeline_exp.py, encoder_exp.py) on the committed flagship.
+# a. pallas (v2) and pallas_int8 (v2i) within 2 of 256 images of xla's
+# clean- and FGSM(0.1)-defended accuracy on the same draws (the JAX package
+# measured the three identical), and clean-defended at least 0.98 (JAX:
+# 1.0; RESULTS.md:1827-1833: 1.0 / 0.957 through all three)
+GATE_GAP_MAX = 2 / 256
+GATE_CLEAN_DEFENDED_MIN = 0.98
+JAX_GATE = {"clean_defended": 1.0, "fgsm01_defended": 0.957}
+# b. the combined detector calibrated on 256 clean test-tail images at FPR
+# 0.05: the clean flag rate at most 0.15, about 3 sigma of the calibration
+# noise the JAX script quotes for n = 200 (5.3% +/- 3.3%); the SPSA set
+# flagged at least 0.90 (JAX: 1.0)
+PIPE_CLEAN_FLAG_MAX = 0.15
+PIPE_SPSA_FLAG_MIN = 0.90
+ADVSET_ENC2X50 = os.path.join(ROOT, "output", "advsets",
+                              "flagship_conf_enc2x50.npz")
+# the JAX script's row (scripts/pipeline_exp.py `report`)
+PIPELINE_KEYS = (
+    "script", "dataset", "model", "set", "detector", "fpr", "calib_n",
+    "calib_source", "n", "detect_passes", "vote", "rec_rr", "rec_iters",
+    "rec_init", "flag_rate", "acc_all", "acc_unflagged",
+    "undetected_success_rate", "rec_err_mean", "margin_mean", "meta")
+# c. every frontier cell clean-defended at least 0.98 and its combined
+# detection AUC at least 0.95 (JAX: 1.0 and 1.0 in every MNIST cell)
+FRONTIER_CLEAN_DEFENDED_MIN = 0.98
+FRONTIER_AUC_MIN = 0.95
+FRONTIER_GRID = ("10x200", "2x50", "1x25")
+FRONTIER_INITS = ("random", "encoder", "encoder_jitter")
+ENCODER_LEG_ITERS = 300
+JAX_RESULTS = os.path.join(ROOT, "output", "results")
+FLAGSHIP_EXPORT = os.path.join(RUN_DIR, "export", "20000.npz")
 
 RECORD: dict = {}
 
@@ -1065,6 +1126,22 @@ def steps_per_s(cfg_path: str, steps: int = 20) -> float:
     return steps / (time.perf_counter() - t0)
 
 
+def _flagship_copy(tmp: str) -> str:
+    """A copy of the committed flagship's export under tmp/flagship_copy,
+    with a cfg.yml whose OUTPUT_DIR names the copy, so a leg that writes
+    into its run's export writes there and never into the committed one."""
+    import shutil
+
+    from defensegan_torch.configs import load_config, save_config
+    copy = os.path.join(tmp, "flagship_copy")
+    os.makedirs(os.path.join(copy, "export"))
+    for ext in ("npz", "json"):
+        shutil.copy(os.path.join(RUN_DIR, "export", f"20000.{ext}"),
+                    os.path.join(copy, "export"))
+    save_config(load_config(RUN_DIR).replace(output_dir=copy))
+    return copy
+
+
 def training_phase(build, tmp: str) -> dict:
     """Phase 7: WGAN-GP and encoder training on the card (train_torch.py).
 
@@ -1073,7 +1150,6 @@ def training_phase(build, tmp: str) -> dict:
     the export (v2 at R 10, L 200); 7c the encoder against a temporary
     copy of the committed flagship. Launch counters are set to 0 before
     7b and read after its test mode: v2 must have run."""
-    import shutil
     import statistics as stats
 
     import numpy as np
@@ -1155,12 +1231,7 @@ def training_phase(build, tmp: str) -> dict:
         fail(f"test mode on the trained export: {out_b}")
 
     # ---- 7c. the encoder against a copy of the committed flagship
-    copy = os.path.join(tmp, "flagship_copy")
-    os.makedirs(os.path.join(copy, "export"))
-    shutil.copy(os.path.join(RUN_DIR, "cfg.yml"), copy)
-    for ext in ("npz", "json"):
-        shutil.copy(os.path.join(RUN_DIR, "export", f"20000.{ext}"),
-                    os.path.join(copy, "export"))
+    copy = _flagship_copy(tmp)
     iters = 300
     enc = train_torch.main(["--cfg", copy, "--output_dir", copy,
                             "--train_encoder", "--override",
@@ -1553,6 +1624,210 @@ def parallel_phase(build, gan, tmp: str) -> None:
         tools_phase(build, tmp)
     finally:
         os.chdir(cwd)
+
+
+def _sha256(path: str) -> str:
+    import hashlib
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _tree(path: str) -> dict:
+    """Every file under `path`: its size and mtime."""
+    out = {}
+    for d, _, files in os.walk(path):
+        for name in files:
+            st = os.stat(os.path.join(d, name))
+            out[os.path.join(d, name)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def _jax_rows(name: str) -> list:
+    with open(os.path.join(JAX_RESULTS, name)) as f:
+        return [json.loads(line) for line in f]
+
+
+def operator_tools_phase(build, tmp: str) -> dict:
+    """Phase 12: the three operator tools on the committed flagship at full
+    width (R 10, L 200 unless a cell says otherwise), from the
+    repository's root: 12a the accuracy-level int8 gate, 12b the
+    DefendedPipeline's operator rows, 12c the encoder's train leg on a
+    temporary copy of the flagship and the frontier on the committed
+    export. Classifier caches and rows go to `tmp`; the committed export,
+    output/results/ and output/classifiers_torch/ must be unchanged after.
+    Launch counters are set to 0 before and read after: v2 and v2i must
+    have run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from defensegan_torch.cli import (encoder_exp, int8_accuracy_gate,
+                                      pipeline_exp)
+    from defensegan_torch.configs import load_config
+    from defensegan_torch.eval import classifier as clf_cache
+
+    watched = (JAX_RESULTS, os.path.join(ROOT, clf_cache.CACHE_ROOT))
+    before = (_sha256(FLAGSHIP_EXPORT), [_tree(p) for p in watched])
+    results = os.path.join(tmp, "results")
+    root_cache, gate_dir = clf_cache.CACHE_ROOT, int8_accuracy_gate.RESULTS_DIR
+    phase6 = os.path.join(root_cache, "mnist_modelA")
+    clf_cache.CACHE_ROOT = os.path.join(tmp, "classifiers_torch")
+    int8_accuracy_gate.RESULTS_DIR = results
+    if os.path.isdir(phase6):
+        shutil.copytree(phase6, clf_cache.cache_dir("mnist_modelA"))
+    out = {"classifier_A": "phase 6's cache" if os.path.isdir(phase6)
+           else "trained by encoder_exp into a temporary cache"}
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    try:
+        # ---- 12a. the accuracy-level int8 gate
+        t0 = time.perf_counter()
+        rows = int8_accuracy_gate.main([])
+        by = {r["kernel"]: r for r in rows[1:]}
+        gaps = {k: {m: abs(by[k][m] - by["xla"][m])
+                    for m in ("clean_defended", "fgsm01_defended")}
+                for k in ("pallas", "pallas_int8")}
+        out["gate"] = dict(s=time.perf_counter() - t0, bare=rows[0],
+                           rows=[{k: r[k] for k in ("kernel",
+                                                    "clean_defended",
+                                                    "fgsm01_defended")}
+                                 for r in rows[1:]],
+                           gap_vs_xla=gaps, jax=JAX_GATE,
+                           bounds=dict(gap_max=GATE_GAP_MAX,
+                                       clean_defended_min=(
+                                           GATE_CLEAN_DEFENDED_MIN)),
+                           device=rows[0]["device"])
+        emit("operator_gate", **out["gate"])
+        if any(g > GATE_GAP_MAX for k in gaps.values() for g in k.values()) \
+                or any(r["clean_defended"] < GATE_CLEAN_DEFENDED_MIN
+                       for r in rows[1:]):
+            fail(f"int8 accuracy gate: {out['gate']}")
+
+        # ---- 12b. the operator rows of the DefendedPipeline
+        cfg = load_config(RUN_DIR)
+        if not os.path.isdir(phase6):
+            from defensegan_torch.cli.common import load_data
+            x_tr, y_tr = load_data(cfg).load("train")
+            encoder_exp.get_or_train_classifier(cfg, "A", x_tr, y_tr,
+                                                torch.device("cuda"))
+        common = ["--cfg", RUN_DIR, "--model", "A", "--detector",
+                  "combined", "--calib_source", "test_tail", "--calib_n",
+                  "256", "--results_dir", results]
+        three = ["--sets", ADVSET, ADVSET_SPSA, ADVSET_ENC2X50]
+        runs = {}
+        for label, extra in (
+                ("three_sets", three),
+                ("vote4", ["--sets", ADVSET, "--detect_passes", "4",
+                           "--vote"]),
+                ("encoder_2x50", three + [
+                    "--override", "REC_RR=2", "--override", "REC_ITERS=50",
+                    "--override", "REC_INIT=encoder"])):
+            t0 = time.perf_counter()
+            got = pipeline_exp.main(common + extra)
+            runs[label] = dict(s=time.perf_counter() - t0, rows=[
+                {k: r[k] for k in ("set", "n", "rec_rr", "rec_iters",
+                                   "rec_init", "detect_passes", "vote",
+                                   "flag_rate", "acc_all", "acc_unflagged",
+                                   "undetected_success_rate",
+                                   "rec_err_mean", "margin_mean")}
+                for r in got])
+            bad_keys = [r["set"] for r in got
+                        if set(r) != set(PIPELINE_KEYS) | {"device"}]
+            flags = {r["set"]: r["flag_rate"] for r in got}
+            if bad_keys or flags["clean"] > PIPE_CLEAN_FLAG_MAX or (
+                    "flagship_spsa_l300" in flags
+                    and flags["flagship_spsa_l300"] < PIPE_SPSA_FLAG_MIN):
+                fail(f"pipeline_exp {label}: keys {bad_keys}, rows "
+                     f"{runs[label]}")
+        jax_rows = [{k: r.get(k) for k in ("set", "flag_rate", "acc_all",
+                                             "acc_unflagged",
+                                             "undetected_success_rate")}
+                    for r in _jax_rows("pipeline.jsonl")
+                    if r["dataset"] == "mnist"
+                    and r.get("detector") == "combined"]
+        out["pipeline"] = dict(runs=runs, jax_flagship_rows=jax_rows,
+                               bounds=dict(clean_flag_max=(
+                                   PIPE_CLEAN_FLAG_MAX),
+                                   spsa_flag_min=PIPE_SPSA_FLAG_MIN),
+                               note="conf sets depend on the classifier "
+                               "(phase 6's, one epoch on the stand-in "
+                               "data): reported, not gated")
+        emit("operator_pipeline", **out["pipeline"])
+
+        # ---- 12c. the encoder: the train leg on a temporary copy, then
+        # the frontier on the committed export
+        copy = _flagship_copy(tmp)
+        t0 = time.perf_counter()
+        train = encoder_exp.main(["--cfg", copy, "--legs", "train",
+                                  "--encoder_iters", str(ENCODER_LEG_ITERS),
+                                  "--results_dir", results])["train"]
+        train_s = time.perf_counter() - t0
+        jax_train = [r for r in _jax_rows("encoder_exp.jsonl")
+                     if r["leg"] == "train" and r["dataset"] == "mnist"][0]
+        if set(train) != set(jax_train) | {"device"} or \
+                not np.isfinite(train["img_mse"]):
+            fail(f"encoder_exp train leg: {train}")
+        t0 = time.perf_counter()
+        front = encoder_exp.main(
+            ["--cfg", RUN_DIR, "--model", "A", "--legs", "frontier",
+             "--grid", *FRONTIER_GRID, "--inits", *FRONTIER_INITS,
+             "--num_tests", "256", "--fgsm_eps", "0.3", "--results_dir",
+             results])["frontier"]
+        front_s = time.perf_counter() - t0
+        jax_cells = {(r["rec_rr"], r["rec_iters"], r["rec_init"]): r
+                     for r in _jax_rows("encoder_exp.jsonl")
+                     if r["leg"] == "frontier" and r["dataset"] == "mnist"}
+        cells = []
+        for r in front:
+            ref = jax_cells.get((r["rec_rr"], r["rec_iters"], r["rec_init"]),
+                                {})
+            cells.append(dict(
+                cell=f"{r['rec_rr']}x{r['rec_iters']} {r['rec_init']}",
+                **{k: r[k] for k in (
+                    "clean_defended_acc", "defended_acc",
+                    "adv_acc_no_defense", "detection_auc_two_sided",
+                    "detection_auc_combined", "undetected_success_combined",
+                    "recon_per_s", "craft_s")},
+                jax={k: ref.get(k) for k in ("clean_defended_acc",
+                                             "defended_acc",
+                                             "detection_auc_combined",
+                                             "recon_per_s", "craft_s")}))
+        out["encoder"] = dict(
+            train=dict(s=train_s, **{k: train[k] for k in (
+                "iters", "img_mse", "z_cycle", "wall_s", "gen_step")},
+                jax={k: jax_train[k] for k in ("iters", "img_mse",
+                                               "z_cycle")}),
+            frontier_s=front_s, cells=cells,
+            bounds=dict(clean_defended_min=FRONTIER_CLEAN_DEFENDED_MIN,
+                        auc_combined_min=FRONTIER_AUC_MIN),
+            note="JAX's recon_per_s and craft_s are TPU times, printed "
+            "beside for the row, not compared")
+        emit("operator_encoder", **out["encoder"])
+        if len(front) != len(FRONTIER_GRID) * len(FRONTIER_INITS) or any(
+                r["clean_defended_acc"] < FRONTIER_CLEAN_DEFENDED_MIN
+                or r["detection_auc_combined"] < FRONTIER_AUC_MIN
+                for r in front):
+            fail(f"encoder_exp frontier: {cells}")
+    finally:
+        clf_cache.CACHE_ROOT = root_cache
+        int8_accuracy_gate.RESULTS_DIR = gate_dir
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    after = (_sha256(FLAGSHIP_EXPORT), [_tree(p) for p in watched])
+    emit("operator_tools", s=time.perf_counter() - t_phase,
+         launches=launches, export_sha256=after[0],
+         export_unchanged=after[0] == before[0],
+         results_and_cache_unchanged=after[1] == before[1],
+         classifier_A=out["classifier_A"])
+    if launches["fused_projection_v2"] <= 0 or \
+            launches["fused_projection_v2i"] <= 0:
+        fail(f"the operator tools did not run v2 and v2i: {launches}")
+    if after != before:
+        fail("phase 12 changed the committed export, output/results/ or "
+             "output/classifiers_torch/")
+    out["launches"] = launches
+    return out
 
 
 # (10) the experiments' kernels (defensegan_torch/experiments/): the
@@ -2685,7 +2960,19 @@ def main() -> int:
     print(json.dumps({"phase": "phase_11", "s": time.perf_counter() - t0}),
           flush=True)
 
-    # ------------------------------------------------- 12. kernels line
+    # ------------------------------------------- 12. the operator tools
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            operator_tools_phase(build, tmp)
+    finally:
+        os.chdir(cwd)
+    print(json.dumps({"phase": "phase_12", "s": time.perf_counter() - t0}),
+          flush=True)
+
+    # ------------------------------------------------- 13. kernels line
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": kk["source"],
          "replaces": kk["replaces"], "launches": launches[name],

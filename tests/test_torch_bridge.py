@@ -61,6 +61,9 @@ def _port_sources():
                     ROOT / "multichip_torch.py",
                     ROOT / "scripts" / "int8_validate_torch.py",
                     ROOT / "scripts" / "serving_bench_torch.py",
+                    ROOT / "scripts" / "int8_accuracy_gate_torch.py",
+                    ROOT / "scripts" / "pipeline_exp_torch.py",
+                    ROOT / "scripts" / "encoder_exp_torch.py",
                     ROOT / "scripts" / "stream64_probe_torch.py",
                     ROOT / "scripts" / "pallas_v3_variants_torch.py",
                     ROOT / "scripts" / "pallas_v3_diag_torch.py",

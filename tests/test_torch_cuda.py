@@ -784,3 +784,51 @@ def test_v3_diag_into_a_given_output_equals_the_allocating_call(cuda_device,
     assert got is out and torch.equal(out, ref)
     lib = v3_diag.diag_case_library(name, *inputs)
     assert torch.equal(v3_diag.diag_case_library(name, *inputs, out=out), lib)
+
+
+@pytest.mark.cuda
+def test_int8_accuracy_gate_rows_on_card(cuda_device):
+    """The accuracy gate's rows (cli/int8_accuracy_gate.py::kernel_rows) on
+    the committed flagship at 256 test images: pallas runs v2 and
+    pallas_int8 v2i, and both stay within 2 of 256 images of xla's clean-
+    and FGSM(0.1)-defended accuracy on the same draws (chip_smoke.py
+    phase 12a's bound). Classifier A is trained one epoch (seed 5) on the
+    stand-in data, so the accuracies are a path check; clean-defended
+    must reach 0.9 all the same. It runs in the tool's exact_numerics(),
+    as main() does."""
+    import pathlib
+
+    from defensegan_torch.attacks.fgsm import fgsm
+    from defensegan_torch.cli import int8_accuracy_gate as gate
+    from defensegan_torch.configs import load_config
+    from defensegan_torch.data import get_dataset
+    from defensegan_torch.eval.classifier import train_classifier
+    from defensegan_torch.gan import DefenseGAN
+    from defensegan_torch.models import build_classifier
+
+    run = str(pathlib.Path(__file__).resolve().parents[1] / "output"
+              / "gans" / "mnist_fast")
+    gan = DefenseGAN(load_config(run).replace(output_dir=run),
+                     device=cuda_device).load()
+    ds = get_dataset("mnist")
+    x_tr, y_tr = ds.load("train")
+    x_te, y_te = (a[:256] for a in ds.load("test"))
+    before = dict(build.LAUNCHES)
+    with gate.exact_numerics():
+        clf = train_classifier(build_classifier(
+            "A", gen=torch.Generator().manual_seed(5)).to(cuda_device),
+            x_tr, y_tr, seed=5, epochs=1)
+        adv = fgsm(clf.logits_fn(), torch.as_tensor(x_te, device=cuda_device),
+                   torch.as_tensor(y_te, device=cuda_device),
+                   0.1).cpu().numpy()
+        rows = {r["kernel"]: r for r in gate.kernel_rows(
+            gan, clf.logits_fn(), x_te, y_te, adv)}
+    assert {k: r["path"] for k, r in rows.items()} == {
+        "xla": "xla", "pallas": "pallas", "pallas_int8": "pallas_int8"}
+    for name in ("fused_projection_v2", "fused_projection_v2i"):
+        assert build.LAUNCHES[name] > before[name]
+    for kernel in ("pallas", "pallas_int8"):
+        for metric in ("clean_defended", "fgsm01_defended"):
+            assert abs(rows[kernel][metric] - rows["xla"][metric]) \
+                <= 2 / 256, (kernel, metric, rows)
+    assert rows["xla"]["clean_defended"] >= 0.9
