@@ -7,7 +7,8 @@ Drives the port's three served paths and holds every kernel of them
 against its plain PyTorch version, then the white-box evaluation path
 (phase 6), training (phase 7), the black-box path (phase 8), several
 devices (phase 9), the ported Pallas experiments of scripts/ (phase 10),
-its two compile probes (phase 11) and the three operator tools (phase 12):
+its two compile probes (phase 11), the three operator tools (phase 12)
+and the north-star benchmark bench_torch.py (phase 13):
 
   - the flagship (configs/gans/mnist_fast.yml: wide generator, k 128,
     F 6272, 784 outputs padded to P 832; trained step-20000 weights from
@@ -225,7 +226,15 @@ its two compile probes (phase 11) and the three operator tools (phase 12):
           (the exact gradient, through the encoder for encoder*): every
           cell clean-defended at least 0.98 and combined AUC at least
           0.95; defended accuracy and recon/s beside JAX's row of the cell
- 13. the `kernels` line (the four loops, the four experiments and the two
+ 13. the north-star benchmark (chip_smoke.bench_phase): `python3
+     bench_torch.py` through its supervisor at its defaults (16384 images
+     on the flagship, 4096 on the deep model, R 10, L 200, min of 3) in a
+     process of its own: a whole last record (no partial, no diagnostic)
+     with bench.py's keys plus device, pallas_int8 when the committed card
+     stamp passes (else pallas) and a deep pallas, vs_baseline = value /
+     1000, the headline within 1.5x of phase 5's v2i recon/s, and every
+     leg's loop launched (the worker's stderr counts)
+ 14. the `kernels` line (the four loops, the four experiments and the two
      probes), then {"ok": true, "device": {...}} last.
 
 Every phase prints one JSON line; any failed check exits nonzero. There is
@@ -1830,6 +1839,74 @@ def operator_tools_phase(build, tmp: str) -> dict:
     return out
 
 
+# (13) the north-star benchmark (bench_torch.py), run as a user runs it:
+# through its supervisor, in a process of its own, at its defaults. Its
+# last record must be whole (no "partial", no diagnostic), carry bench.py's
+# keys plus "device", top out at pallas_int8 when the committed card stamp
+# passes (else pallas) with a deep pallas (v3) leg, recompute vs_baseline
+# from the rounded value, and put the headline within BENCH_RATIO_MAX
+# either way of phase 5's v2i recon/s at 1024 images (a median of 3 where
+# the bench takes the min of 3 at its batch). The worker's stderr names
+# each leg's launches: the loops of its legs must have run.
+BENCH_DEADLINE_S = 300
+BENCH_RATIO_MAX = 1.5
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "gen_arch",
+              "gen_dim", "kernel", "deep_value", "deep_kernel",
+              "deep_vs_baseline", "deep_unit", "device")
+
+
+def bench_phase(v2i_recon_per_s: float) -> dict:
+    from defensegan_torch.cli.bench import (LEG_LIBRARIES, int8_gate_stamp,
+                                            leg_launches)
+    stamp = int8_gate_stamp(RUN_DIR)
+    cmd = [sys.executable, os.path.join(ROOT, "bench_torch.py"),
+           "--deadline", str(BENCH_DEADLINE_S)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=BENCH_DEADLINE_S + 60)
+    s = time.perf_counter() - t0
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "bench_torch.err"), "w") as f:
+        f.write(proc.stderr)
+    records = [json.loads(ln) for ln in proc.stdout.splitlines()
+               if ln.strip()]
+    launches = leg_launches(proc.stderr)
+    rec = records[-1] if records else {}
+    ratio = rec.get("value", 0.0) / v2i_recon_per_s
+    print(json.dumps(rec), flush=True)
+    print(f"bench_torch.py (defaults): {s:.1f}s", flush=True)
+    out = dict(s=s, rc=proc.returncode, record=rec, records=len(records),
+               launches=launches,
+               stamp_passes=stamp is not None,
+               v2i_recon_per_s_phase5=v2i_recon_per_s,
+               headline_over_phase5_v2i=ratio)
+    emit("bench", **out)
+    want = "pallas_int8" if stamp is not None else "pallas"
+    legs = {leg: lib for leg, lib in LEG_LIBRARIES.items()
+            if leg != "headline_int8" or stamp is not None}
+    if proc.returncode != 0 or not rec or rec.get("partial") or \
+            "error" in rec or rec.get("value", 0.0) <= 0.0 or \
+            rec.get("deep_value", 0.0) <= 0.0:
+        fail(f"the bench printed no whole record: rc {proc.returncode}, "
+             f"{rec}")
+    if set(rec) != set(BENCH_KEYS) or rec["device"].get("type") != "cuda":
+        fail(f"the bench record's keys are not bench.py's plus device: "
+             f"{sorted(rec)}")
+    if rec["kernel"] != want or rec["deep_kernel"] != "pallas":
+        fail(f"the bench measured {rec['kernel']} / {rec['deep_kernel']}, "
+             f"not {want} / pallas")
+    if rec["vs_baseline"] != round(rec["value"] / 1000.0, 4):
+        fail(f"vs_baseline {rec['vs_baseline']} is not value / 1000")
+    if not 1 / BENCH_RATIO_MAX <= ratio <= BENCH_RATIO_MAX:
+        fail(f"the headline {rec['value']} recon/s is {ratio:.3f}x phase "
+             f"5's v2i {v2i_recon_per_s:.1f}")
+    if any(launches.get(leg, {}).get(lib, 0) <= 0
+           for leg, lib in legs.items()):
+        fail(f"a leg of the bench did not launch its kernel: {launches}")
+    return out
+
+
 # (10) the experiments' kernels (defensegan_torch/experiments/): the
 # stream64 level and the three layout experiments on v3.
 # 10a holds the level kernel against its plain version half by half
@@ -2972,7 +3049,14 @@ def main() -> int:
     print(json.dumps({"phase": "phase_12", "s": time.perf_counter() - t0}),
           flush=True)
 
-    # ------------------------------------------------- 13. kernels line
+    # --------------------------------------- 13. the north-star bench
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()   # the bench's process needs the card's memory
+    bench_phase(timing["fused_projection_v2i"]["recon_per_s"])
+    print(json.dumps({"phase": "phase_13", "s": time.perf_counter() - t0}),
+          flush=True)
+
+    # ------------------------------------------------- 14. kernels line
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": kk["source"],
          "replaces": kk["replaces"], "launches": launches[name],

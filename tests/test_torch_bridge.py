@@ -58,7 +58,7 @@ def _port_sources():
     files = sorted((ROOT / "defensegan_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "whitebox_torch.py",
                     ROOT / "train_torch.py", ROOT / "blackbox_torch.py",
-                    ROOT / "multichip_torch.py",
+                    ROOT / "multichip_torch.py", ROOT / "bench_torch.py",
                     ROOT / "scripts" / "int8_validate_torch.py",
                     ROOT / "scripts" / "serving_bench_torch.py",
                     ROOT / "scripts" / "int8_accuracy_gate_torch.py",

@@ -832,3 +832,71 @@ def test_int8_accuracy_gate_rows_on_card(cuda_device):
             assert abs(rows[kernel][metric] - rows["xla"][metric]) \
                 <= 2 / 256, (kernel, metric, rows)
     assert rows["xla"]["clean_defended"] >= 0.9
+
+
+def _bench_args(*extra):
+    import pathlib
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import bench_torch
+    return bench_torch.build_parser().parse_args(list(extra))
+
+
+@pytest.mark.cuda
+def test_bench_worker_labels_what_ran_on_card(cuda_device, tmp_path, capsys):
+    """bench_torch.py's worker at batch 64, R 2, L 5 on the committed
+    flagship: the ladder's records name the loop that ran (xla, then
+    pallas), the last headline is pallas_int8 when the committed card
+    stamp passes (else pallas), and the deep leg is a pallas (v3) leg;
+    each leg's library launched."""
+    import json
+    import pathlib
+
+    from defensegan_torch.cli.bench import (int8_gate_stamp, leg_launches,
+                                            run_worker)
+    from defensegan_torch.configs import load_config, save_config
+
+    run = str(pathlib.Path(__file__).resolve().parents[1] / "output"
+              / "gans" / "mnist_fast")
+    save_config(load_config(run).replace(output_dir=run), str(tmp_path))
+    want = "pallas_int8" if int8_gate_stamp(run) is not None else "pallas"
+    args = _bench_args("--cfg", str(tmp_path), "--batch", "64",
+                       "--deep_batch", "64", "--rec_rr", "2",
+                       "--rec_iters", "5", "--repeats", "1", "--deadline",
+                       "0")
+    assert run_worker(args) == 0
+    out, err = capsys.readouterr()
+    recs = [json.loads(ln) for ln in out.splitlines() if ln.strip()]
+    launches = leg_launches(err)
+    assert [r["kernel"] for r in recs[:2]] == ["xla", "pallas"]
+    assert all(r.get("partial") for r in recs[:-1])
+    assert "partial" not in recs[-1]
+    assert recs[-1]["kernel"] == want
+    assert recs[-1]["deep_kernel"] == "pallas"
+    assert recs[-1]["device"]["type"] == "cuda"
+    assert recs[-1]["value"] > 0 and recs[-1]["deep_value"] > 0
+    assert launches["headline_xla"] == {}
+    assert launches["headline_pallas"]["fused_projection_v2"] > 0
+    assert launches["deep_pallas"]["fused_projection_v3"] > 0
+    if want == "pallas_int8":
+        assert launches["headline_int8"]["fused_projection_v2i"] > 0
+
+
+@pytest.mark.cuda
+def test_bench_deep_int8_request_never_labelled_int8(cuda_device):
+    """A pallas_int8 request on the deep generator runs the bf16 v3: with
+    fallback_to_auto the leg is measured and labelled pallas, without it
+    the leg refuses ("not runnable")."""
+    import os
+
+    from defensegan_torch.cli.bench import CFG_DIR, measure
+
+    deep = os.path.join(CFG_DIR, "mnist.yml")
+    before = build.LAUNCHES["fused_projection_v3"]
+    v, k, _ = measure(deep, 64, 2, 5, 1, "pallas_int8",
+                      fallback_to_auto=True, device=cuda_device)
+    assert v > 0 and k == "pallas"
+    assert build.LAUNCHES["fused_projection_v3"] > before
+    with pytest.raises(RuntimeError, match="not runnable"):
+        measure(deep, 64, 2, 5, 1, "pallas_int8", device=cuda_device)
