@@ -7,8 +7,9 @@ Drives the port's three served paths and holds every kernel of them
 against its plain PyTorch version, then the white-box evaluation path
 (phase 6), training (phase 7), the black-box path (phase 8), several
 devices (phase 9), the ported Pallas experiments of scripts/ (phase 10),
-its two compile probes (phase 11), the three operator tools (phase 12)
-and the north-star benchmark bench_torch.py (phase 13):
+its two compile probes (phase 11), the three operator tools (phase 12),
+the north-star benchmark bench_torch.py (phase 13) and the single-device
+entry point graft_entry_torch.py (phase 14):
 
   - the flagship (configs/gans/mnist_fast.yml: wide generator, k 128,
     F 6272, 784 outputs padded to P 832; trained step-20000 weights from
@@ -234,7 +235,17 @@ and the north-star benchmark bench_torch.py (phase 13):
      stamp passes (else pallas) and a deep pallas, vs_baseline = value /
      1000, the headline within 1.5x of phase 5's v2i recon/s, and every
      leg's loop launched (the worker's stderr counts)
- 14. the `kernels` line (the four loops, the four experiments and the two
+ 14. the single-device entry point (chip_smoke.graft_entry_phase):
+     graft_entry_torch.entry() at its default device, every tensor it
+     returns on cuda; its fn (mnist.yml's deep generator at dim 64, seeded,
+     batch 4, R 10, L 200) under exact_numerics(): x_hat (4, 28, 28, 1),
+     finite, in [0, 1], within ENTRY_X_HAT_ATOL of the same fn on CPU
+     copies of the arguments, the same projection's argmins equal and
+     final losses within ENTRY_LOSS_RTOL; the median of 3 calls after a
+     warm-up, beside the card's name and power limit; one call under
+     torch.profiler (device ms summed over its kernels, the device's busy
+     share of the call)
+ 15. the `kernels` line (the four loops, the four experiments and the two
      probes), then {"ok": true, "device": {...}} last.
 
 Every phase prints one JSON line; any failed check exits nonzero. There is
@@ -1907,6 +1918,89 @@ def bench_phase(v2i_recon_per_s: float) -> dict:
     return out
 
 
+# (14) the single-device entry point, graft_entry_torch.py::entry(), on the
+# card:
+# the card's x_hat against the same fn on CPU copies of the arguments within
+# the bound that tests/test_torch_graft_entry.py holds the port to against
+# JAX's entry on the CPU (2e-3 in image space over L 200 at lr 10), the
+# same projection's argmins equal and its [B, R] final losses within rtol
+# 1e-3 (the seeded weights' closest two restarts end 4.4e-3 apart, relative).
+ENTRY_X_HAT_ATOL = 2e-3
+ENTRY_LOSS_RTOL = 1e-3
+
+
+def device_busy(fn) -> dict:
+    """One synchronized call of fn under torch.profiler: its wall ms, the
+    device ms its kernels took (summed), their share of the wall, and the
+    number of kernels it launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, kernels = 0.0, 0
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total",
+                     getattr(e, "cuda_time_total", 0.0))
+        if us > 0 and e.self_cpu_time_total == 0:
+            dev_us += us
+            kernels += e.count
+    return dict(profiled_wall_ms=wall * 1e3, device_ms=dev_us / 1e3,
+                device_busy_share=dev_us / 1e3 / (wall * 1e3),
+                device_kernels=kernels)
+
+
+def graft_entry_phase(smi: str) -> dict:
+    import torch
+
+    import graft_entry_torch as ge
+    from defensegan_torch.cli.int8_accuracy_gate import exact_numerics
+
+    t0 = time.perf_counter()
+    fn, args = ge.entry()
+    params, stats, x, z0 = args
+    tensors = list(params.values()) + list(stats.values()) + [x, z0]
+    devices = sorted({str(t.device.type) for t in tensors})
+    with exact_numerics():
+        out = fn(*args)
+        full = ge.project(*args)
+        ms = median_ms(lambda: fn(*args))
+        busy = device_busy(lambda: fn(*args))
+    cpu_args = tuple({k: v.cpu() for k, v in a.items()} if isinstance(a, dict)
+                     else a.cpu() for a in args)
+    t1 = time.perf_counter()
+    cpu = ge.project(*cpu_args)
+    cpu_s = time.perf_counter() - t1
+    out_h, losses = out.cpu(), full.all_losses.cpu()
+    err = float((out_h - cpu.x_hat).abs().max())
+    loss_rel = float(((losses - cpu.all_losses).abs()
+                      / cpu.all_losses.abs()).max())
+    argmin_equal = bool(torch.equal(losses.argmin(1),
+                                    cpu.all_losses.argmin(1)))
+    rec = dict(nvidia_smi=smi, devices=devices, shape=list(out.shape),
+               dtype=str(out.dtype), finite=bool(torch.isfinite(out).all()),
+               min=float(out.min()), max=float(out.max()),
+               max_abs_err_vs_cpu=err, bound=ENTRY_X_HAT_ATOL,
+               argmin_equal=argmin_equal, all_losses_max_rel=loss_rel,
+               loss_rtol=ENTRY_LOSS_RTOL, ms=ms, **busy,
+               cpu_project_s=cpu_s, s=time.perf_counter() - t0)
+    emit("graft_entry", **rec)
+    if devices != ["cuda"] or out.device.type != "cuda":
+        fail(f"entry() returned tensors on {devices}, x_hat on {out.device}")
+    if tuple(out.shape) != (4, 28, 28, 1) or out.dtype != torch.float32 \
+            or not rec["finite"] or not 0.0 <= rec["min"] <= rec["max"] <= 1:
+        fail(f"entry()'s fn gave {rec['shape']} {rec['dtype']}, finite "
+             f"{rec['finite']}, in [{rec['min']}, {rec['max']}]")
+    if err > ENTRY_X_HAT_ATOL or not argmin_equal or \
+            loss_rel > ENTRY_LOSS_RTOL:
+        fail(f"entry()'s fn on the card against the CPU: x_hat {err}, "
+             f"argmins equal {argmin_equal}, losses {loss_rel}")
+    return rec
+
+
 # (10) the experiments' kernels (defensegan_torch/experiments/): the
 # stream64 level and the three layout experiments on v3.
 # 10a holds the level kernel against its plain version half by half
@@ -3056,7 +3150,10 @@ def main() -> int:
     print(json.dumps({"phase": "phase_13", "s": time.perf_counter() - t0}),
           flush=True)
 
-    # ------------------------------------------------- 14. kernels line
+    # --------------------------------- 14. the single-device entry point
+    graft_entry_phase(smi)
+
+    # ------------------------------------------------- 15. kernels line
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": kk["source"],
          "replaces": kk["replaces"], "launches": launches[name],

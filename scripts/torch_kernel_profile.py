@@ -61,6 +61,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PEAK_BF16 = 989e12      # dense bf16 peak of one H100 SXM (data sheet)
 PEAK_INT8 = 1979e12     # dense int8 peak of one H100 SXM (data sheet)
 TILE_N = 128            # columns of a GEMM tile (csrc/gemm_sm90.cuh)
+PROFILE_WINDOWS = 3     # profiled windows a launch count may take
 
 # the launches of one step of each loop, in stream order; the fc backward
 # is two launches (the split products, then their sum + the momentum)
@@ -237,6 +238,10 @@ def conv_a_bytes(rows: int, g: int, cin: int, cout: int) -> float:
                  * (cin // 64) * slab)
 
 
+def _conv_label(name: str):
+    return "conv" if "conv3x3_sm90" in name else None
+
+
 def conv_a_ceilings(pack, rows: int, reps: int = 10, seed: int = 0) -> list:
     """Conv A at `rows` rows, forward (c0 -> ca, one chain) and backward
     (ca -> c0, each tap rounded), on v3's and ilp's schedules: the conv,
@@ -246,8 +251,6 @@ def conv_a_ceilings(pack, rows: int, reps: int = 10, seed: int = 0) -> list:
     conv issues (skipped border taps left out), its L2 rate the bytes
     its copies bring (conv_a_bytes)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from defensegan_torch.experiments import v3_ilp
     from defensegan_torch.experiments.v3_ilp import conv_a
@@ -278,22 +281,16 @@ def conv_a_ceilings(pack, rows: int, reps: int = 10, seed: int = 0) -> list:
         for sched, probe in runs[way]:
             def run():
                 return conv_a(inp, w, g, schedule=sched, probe=probe, **kw)
-            run()                                        # build + warm-up
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    run()
-                torch.cuda.synchronize()
-            us = [e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and "conv3x3_sm90" in e.name]
-            if len(us) != reps:
-                raise RuntimeError(f"conv A {way} {sched} {probe}: {len(us)} "
-                                   f"launches profiled, not {reps}")
-            ms = statistics.median(us) / 1e3
+            ms_all = _launch_ms(run, reps, _conv_label, ("conv",)).get(
+                "conv", [])
+            if len(ms_all) != reps:
+                raise RuntimeError(f"conv A {way} {sched} {probe}: "
+                                   f"{len(ms_all)} launches profiled, not "
+                                   f"{reps}")
+            ms = statistics.median(ms_all)
             out.append({
                 "way": way, "schedule": sched, "probe": probe, "rows": rows,
-                "ms": ms, "ms_all": [u / 1e3 for u in us],
+                "ms": ms, "ms_all": ms_all,
                 "issued_tera_ops": ops / 1e12,
                 "peak_share": peak_share(ops, PEAK_BF16, ms),
                 "l2_gbytes": moved / 1e9,
@@ -301,23 +298,32 @@ def conv_a_ceilings(pack, rows: int, reps: int = 10, seed: int = 0) -> list:
     return out
 
 
-def _launch_ms(run, reps: int, pick) -> dict:
+def _launch_ms(run, reps: int, pick, labels) -> dict:
     """{label: device ms of each launch, over `reps` calls of run()} for
-    the device kernels that pick(name) labels (None: not counted)."""
+    the device kernels that pick(name) labels (None: not counted). The
+    profiler can drop kernel records from a window (3 of conv A's 10 on an
+    H100 once), so a window that holds other than `reps` records of one of
+    `labels` is profiled again, up to PROFILE_WINDOWS windows; the last
+    window is returned and the callers refuse a count other than `reps`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     run()                                            # build + warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        label = pick(e.name) if e.device_type == DeviceType.CUDA else None
-        if label is not None:
-            out.setdefault(label, []).append(e.time_range.elapsed_us() / 1e3)
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            label = pick(e.name) if e.device_type == DeviceType.CUDA \
+                else None
+            if label is not None:
+                out.setdefault(label, []).append(
+                    e.time_range.elapsed_us() / 1e3)
+        if all(len(out.get(label, ())) == reps for label in labels):
+            break
     return out
 
 
@@ -367,7 +373,7 @@ def stream64_levels(batch: int = 512, reps: int = 10, seed: int = 0) -> list:
         for label, skip in configs:
             kw = dict(skip=skip) if skips else {}
             times = _launch_ms(lambda: sp.fused_level(x, cot, pack, **kw),
-                               reps, pick)
+                               reps, pick, ("forward", "backward"))
             slabs = stream64_slabs(sp, pack, batch, bn, skip)
             rec = {"level": lvl, "config": label, "batch": batch, "bn": bn}
             for way, (n, macs) in slabs.items():
@@ -389,7 +395,9 @@ def profile_loop(name: str, loop, pack, x, cfg, iters: int,
                  chunk: int = 0, seed: int = 0) -> dict:
     """One loop's record: the median of 3 synchronized calls (after a
     warm-up), then one call under torch.profiler: device time by kernel
-    and `by_launch` (the step's launches with their shares of the peak)."""
+    and `by_launch` (the step's launches with their shares of the peak;
+    the call is profiled again, up to PROFILE_WINDOWS times, while the
+    window's records are not whole steps)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     kw = dict(rec_iters=iters, rec_lr=cfg.rec_lr, momentum=cfg.rec_momentum)
@@ -406,11 +414,16 @@ def profile_loop(name: str, loop, pack, x, cfg, iters: int,
         t0 = time.perf_counter()
         run()
         calls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t0
+    ops = issued(name, pack, n, iters)
+    for _ in range(PROFILE_WINDOWS):     # again if records were dropped
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall = time.perf_counter() - t0
+        launches = by_launch(prof, step_labels(name, pack), iters, ops)
+        if isinstance(launches, list):
+            break
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "device_time_total",
@@ -418,7 +431,6 @@ def profile_loop(name: str, loop, pack, x, cfg, iters: int,
         if dev_us > 0 and e.self_cpu_time_total == 0:
             rows.append((e.key, dev_us, e.count))
     total = sum(r[1] for r in rows)
-    ops = issued(name, pack, n, iters)
     return {
         "loop": name, "rows": n, "iters": iters,
         "chunk": chunk or "default", "p": pack_width(pack),
@@ -427,7 +439,7 @@ def profile_loop(name: str, loop, pack, x, cfg, iters: int,
         "issued_tera_ops": {
             kind: sum(o for o, pk in ops.values() if pk == peak) / 1e12
             for kind, peak in (("bf16", PEAK_BF16), ("int8", PEAK_INT8))},
-        "by_launch": by_launch(prof, step_labels(name, pack), iters, ops),
+        "by_launch": launches,
         "kernels": [dict(kernel=k[:120], ms=us / 1e3, count=c,
                          share=us / total if total else None)
                     for k, us, c in sorted(rows, key=lambda r: -r[1])]}

@@ -55,23 +55,17 @@ def test_committed_export_equals_orbax_checkpoint():
 
 
 def _port_sources():
-    files = sorted((ROOT / "defensegan_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "whitebox_torch.py",
-                    ROOT / "train_torch.py", ROOT / "blackbox_torch.py",
-                    ROOT / "multichip_torch.py", ROOT / "bench_torch.py",
-                    ROOT / "scripts" / "int8_validate_torch.py",
-                    ROOT / "scripts" / "serving_bench_torch.py",
-                    ROOT / "scripts" / "int8_accuracy_gate_torch.py",
-                    ROOT / "scripts" / "pipeline_exp_torch.py",
-                    ROOT / "scripts" / "encoder_exp_torch.py",
-                    ROOT / "scripts" / "stream64_probe_torch.py",
-                    ROOT / "scripts" / "pallas_v3_variants_torch.py",
-                    ROOT / "scripts" / "pallas_v3_diag_torch.py",
-                    ROOT / "scripts" / "pallas_v3_diag2_torch.py",
-                    ROOT / "scripts" / "torch_v3_zfinal.py",
-                    ROOT / "scripts" / "torch_probe_gate.py",
-                    # imported by the ranks the CPU tests spawn
-                    ROOT / "tests" / "torch_parallel_workers.py"]
+    """Every file of the port, by pattern: the package, the smoke, the
+    root entry points (*_torch.py), the scripts (*_torch.py, torch_*.py;
+    the JAX-side exporter export_torch_weights.py matches neither), and
+    the module the ranks of the CPU tests import."""
+    files = set((ROOT / "defensegan_torch").rglob("*.py"))
+    files |= set(ROOT.glob("*_torch.py"))
+    files |= set((ROOT / "scripts").glob("*_torch.py"))
+    files |= set((ROOT / "scripts").glob("torch_*.py"))
+    files |= {ROOT / "chip_smoke.py",
+              ROOT / "tests" / "torch_parallel_workers.py"}
+    return sorted(files)
 
 
 @pytest.mark.parametrize("path", _port_sources(),

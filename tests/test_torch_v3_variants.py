@@ -514,3 +514,55 @@ def test_profile_counts_stream64_slabs():
     if not torch.cuda.is_available():
         assert kprof.main(["--kernel", "stream64"]) == 2
         assert kprof.main(["--kernel", "packed", "--root", ROOT]) == 2
+
+
+
+class _Window:
+    """A torch.profiler window that holds the given kernel records."""
+
+    def __init__(self, names):
+        from types import SimpleNamespace
+        from torch.autograd import DeviceType
+        self._events = [SimpleNamespace(
+            name=n, device_type=DeviceType.CUDA,
+            time_range=SimpleNamespace(elapsed_us=lambda: 1000.0))
+            for n in names]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        return self._events
+
+def test_profile_windows_again_when_the_profiler_drops_records(
+        monkeypatch):
+    """scripts/torch_kernel_profile.py::_launch_ms: a window short of a
+    label's `reps` records is profiled again (up to PROFILE_WINDOWS); a
+    window with every record is kept; the last window comes back when
+    none has them all, for the caller to refuse."""
+    import torch.profiler
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    runs = []
+    label = {"conv3x3_sm90<fwd>": "forward", "conv3x3_sm90<bwd>": "backward"}
+
+    def windows(counts):
+        it = iter(counts)
+        monkeypatch.setattr(torch.profiler, "profile", lambda **kw: _Window(
+            ["conv3x3_sm90<fwd>"] * next(it)[0]
+            + ["conv3x3_sm90<bwd>"] * 10 + ["other"]))
+
+    windows([(7, 10), (10, 10), (3, 10)])
+    got = kprof._launch_ms(lambda: runs.append(1), 10, label.get,
+                           ("forward", "backward"))
+    assert {k: len(v) for k, v in got.items()} == {"forward": 10,
+                                                    "backward": 10}
+    assert got["forward"][0] == 1.0 and len(runs) == 1 + 2 * 10
+    windows([(7, 10)] * kprof.PROFILE_WINDOWS)
+    runs.clear()
+    got = kprof._launch_ms(lambda: runs.append(1), 10, label.get,
+                           ("forward", "backward"))
+    assert len(got["forward"]) == 7
+    assert len(runs) == 1 + kprof.PROFILE_WINDOWS * 10
