@@ -1935,19 +1935,17 @@ def device_busy(fn) -> dict:
     number of kernels it launched."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from defensegan_torch.utils.profiling import device_rows
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us, kernels = 0.0, 0
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total",
-                     getattr(e, "cuda_time_total", 0.0))
-        if us > 0 and e.self_cpu_time_total == 0:
-            dev_us += us
-            kernels += e.count
+    rows = device_rows(prof)
+    dev_us = sum(us for _, us, _ in rows)
+    kernels = sum(count for _, _, count in rows)
     return dict(profiled_wall_ms=wall * 1e3, device_ms=dev_us / 1e3,
                 device_busy_share=dev_us / 1e3 / (wall * 1e3),
                 device_kernels=kernels)

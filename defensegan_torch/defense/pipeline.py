@@ -16,6 +16,12 @@ alone). detect_passes=K averages the detection features of K independent
 projection passes (class prediction from pass 0, or the K-pass majority
 when vote=True). Calibrate on held-out clean data from the serving
 distribution, under the same rec_* settings as serving.
+
+Under a torch.profiler, predict records the spans pipeline.predict (the
+call), pipeline.classify (classifier A on a chunk's x_hat), pipeline.sync
+(a chunk's copies to the host and its restart dispersion) and
+pipeline.detect (the scores and the threshold), around the chunk spans
+of batched_reconstruct (utils/profiling.py::span).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from defensegan_torch.eval.accuracy import batched_reconstruct, to_numpy
 from defensegan_torch.eval.detect import (ecdf_atypicality, majority_vote,
                                           multi_feature_scores,
                                           restart_dispersion)
+from defensegan_torch.utils.profiling import span
 
 # z0_fn(pass_index, lo) -> z0 [batch, R, k] for an exact replay of draws
 Z0Fn = Callable[[int, int], torch.Tensor]
@@ -112,13 +119,15 @@ class DefendedPipeline:
         for res, lo, hi in batched_reconstruct(self.gan, x, gen=gen,
                                                batch_size=batch_size,
                                                z0_fn=z0_fn, **self._rec):
-            pb, mb = self._pred(res.x_hat)
+            with span("pipeline.classify"):
+                pb, mb = self._pred(res.x_hat)
             k = hi - lo
-            preds.append(to_numpy(pb, np.int64)[:k])
-            margins.append(to_numpy(mb)[:k])
-            errs.append(to_numpy(res.loss)[:k])
-            disps.append(restart_dispersion(to_numpy(res.all_losses)[:k],
-                                            self.dispersion_kind))
+            with span("pipeline.sync"):
+                preds.append(to_numpy(pb, np.int64)[:k])
+                margins.append(to_numpy(mb)[:k])
+                errs.append(to_numpy(res.loss)[:k])
+                disps.append(restart_dispersion(
+                    to_numpy(res.all_losses)[:k], self.dispersion_kind))
         return (np.concatenate(preds), np.concatenate(errs),
                 np.concatenate(margins), np.concatenate(disps))
 
@@ -174,10 +183,14 @@ class DefendedPipeline:
         if not self.calibrated:
             raise RuntimeError("call calibrate(x_clean) before predict() — "
                                "the detector threshold is fit on clean data")
-        preds, errs, margins, disps = self._run(x, self._generator(gen, 1),
-                                                batch_size, z0_fn)
-        flagged = self._scores(errs, margins, disps) > self._threshold
-        return PipelineResult(pred=preds.astype(np.int32), flagged=flagged,
-                              rec_err=errs.astype(np.float32),
-                              margin=margins.astype(np.float32),
-                              dispersion=disps.astype(np.float32))
+        with span("pipeline.predict"):
+            preds, errs, margins, disps = self._run(
+                x, self._generator(gen, 1), batch_size, z0_fn)
+            with span("pipeline.detect"):
+                flagged = self._scores(errs, margins, disps) > \
+                    self._threshold
+            return PipelineResult(pred=preds.astype(np.int32),
+                                  flagged=flagged,
+                                  rec_err=errs.astype(np.float32),
+                                  margin=margins.astype(np.float32),
+                                  dispersion=disps.astype(np.float32))

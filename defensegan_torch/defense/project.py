@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from defensegan_torch.models.generator import from_image_space, \
     to_image_space
+from defensegan_torch.utils.profiling import span
 
 GenApply = Callable[[torch.Tensor], torch.Tensor]
 
@@ -115,15 +116,19 @@ def reconstruct(gen_apply: GenApply, x: torch.Tensor, z0: torch.Tensor, *,
     z0: [B, R, k] initial latents. back_prop=True: the result carries
     gradients to x and z0 through the whole loop (module docstring);
     otherwise it is detached, as the JAX package stops its gradients.
+    Under a torch.profiler the L steps are a projection.loop span, the
+    final losses and the selection a projection.select span.
     """
     batch, rr, z_dim = z0.shape
     x_flat = tile_restarts(from_image_space(x), rr)
     z = z0.reshape(batch * rr, z_dim).to(torch.float32)
     v = torch.zeros_like(z)
     if not back_prop:
-        for _ in range(rec_iters):
-            z, v = _step(gen_apply, z, v, x_flat, momentum, rec_lr, False)
-        with torch.no_grad():
+        with span("projection.loop"):
+            for _ in range(rec_iters):
+                z, v = _step(gen_apply, z, v, x_flat, momentum, rec_lr,
+                             False)
+        with torch.no_grad(), span("projection.select"):
             losses = rec_losses(gen_apply, z, x_flat).reshape(batch, rr)
             return select_restarts(losses, z, gen_apply)
 
@@ -131,10 +136,12 @@ def reconstruct(gen_apply: GenApply, x: torch.Tensor, z0: torch.Tensor, *,
         return _step(gen_apply, z, v, x_flat, momentum, rec_lr, True)
 
     with torch.enable_grad():
-        for _ in range(rec_iters):
-            z, v = checkpoint(step, z, v, x_flat, use_reentrant=False)
-        losses = rec_losses(gen_apply, z, x_flat).reshape(batch, rr)
-        return select_restarts(losses, z, gen_apply)
+        with span("projection.loop"):
+            for _ in range(rec_iters):
+                z, v = checkpoint(step, z, v, x_flat, use_reentrant=False)
+        with span("projection.select"):
+            losses = rec_losses(gen_apply, z, x_flat).reshape(batch, rr)
+            return select_restarts(losses, z, gen_apply)
 
 
 def make_reconstructor(gen_apply: GenApply, *, rec_rr: int = 10,

@@ -13,6 +13,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from defensegan_torch.utils.profiling import span
+
 
 def _batches(n: int, batch_size: int):
     for i in range(0, n, batch_size):
@@ -36,20 +38,23 @@ def batched_reconstruct(gan, x, gen: Optional[torch.Generator] = None,
     - restart draws come from the torch.Generator `gen`, in batch order,
       unless z0_fn(lo) hands back the batch's z0 [batch_size, R, k] (an
       exact replay, e.g. of another package's draws);
-    - rec_* / rec_kernel / rec_init pass through to gan.reconstruct.
+    - rec_* / rec_kernel / rec_init pass through to gan.reconstruct;
+    - under a torch.profiler each chunk's staging and reconstruction is
+      a batching.chunk span, closed before the chunk is yielded.
     """
     n = x.shape[0]
     if batch_size is None:
         batch_size = min(1024, ((n + 255) // 256) * 256)
     for lo, hi in _batches(n, batch_size):
-        xb = torch.as_tensor(x[lo:hi], device=gan.device)
-        pad = batch_size - xb.shape[0]
-        if pad:
-            xb = torch.cat([xb, xb.new_zeros((pad,) + tuple(xb.shape[1:]))])
-        z0 = z0_fn(lo) if z0_fn is not None else None
-        res = gan.reconstruct(xb, gen, rec_rr=rec_rr, rec_iters=rec_iters,
-                              rec_lr=rec_lr, kernel=rec_kernel,
-                              init=rec_init, z0=z0)
+        with span("batching.chunk"):
+            xb = torch.as_tensor(x[lo:hi], device=gan.device)
+            pad = batch_size - xb.shape[0]
+            if pad:
+                xb = torch.cat([xb, xb.new_zeros((pad,) + xb.shape[1:])])
+            z0 = z0_fn(lo) if z0_fn is not None else None
+            res = gan.reconstruct(xb, gen, rec_rr=rec_rr,
+                                  rec_iters=rec_iters, rec_lr=rec_lr,
+                                  kernel=rec_kernel, init=rec_init, z0=z0)
         yield res, lo, hi
 
 

@@ -48,6 +48,7 @@ from defensegan_torch.gan.train import (GANState, init_gan_state,
 from defensegan_torch.models import critic_for, encoder_for, \
     from_image_space, generator_for, to_image_space
 from defensegan_torch.utils.misc import append_jsonl, ensure_dir, fold_seed
+from defensegan_torch.utils.profiling import span
 from defensegan_torch.utils.visualize import save_images
 
 PROJECTION_KERNELS = ("auto", "xla", "packed", "pallas", "pallas_int8",
@@ -486,7 +487,9 @@ class DefenseGAN:
         returns a result differentiable with respect to x through the
         unrolled loop (defense/project.py) on the path the resolver picks
         for it ('auto' -> 'packed' or 'xla'); otherwise nothing in the
-        result carries gradients.
+        result carries gradients. Under a torch.profiler the call is a
+        gan.reconstruct span around the reconstructor's projection.loop
+        and projection.select.
         """
         cfg = self.cfg
         rr = rec_rr if rec_rr is not None else cfg.rec_rr
@@ -495,22 +498,23 @@ class DefenseGAN:
         init = init if init is not None else cfg.rec_init
         if init not in ("random", "encoder", "encoder_jitter"):
             raise ValueError(f"unknown rec_init {init!r}")
-        x = torch.as_tensor(x, device=self.device)
-        if gen is None:
-            gen = torch.Generator(device=self.device).manual_seed(
-                cfg.seed + 1)
-        path = resolve_projection_kernel(self, requested=kernel,
-                                         back_prop=back_prop)
-        fn = self._reconstructor_for(path, rr, iters, lr, back_prop)
-        with torch.no_grad():
-            if z0 is None:
-                if init == "random":
-                    z0 = sample_z0(gen, x.shape[0], rr, cfg.latent_dim)
-                else:
-                    z0 = self._encoder_z0(x, gen, rr, init)
-        self.last_kernel = path
-        with torch.set_grad_enabled(back_prop):
-            return fn(x, z0=z0.to(self.device, torch.float32))
+        with span("gan.reconstruct"):
+            x = torch.as_tensor(x, device=self.device)
+            if gen is None:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    cfg.seed + 1)
+            path = resolve_projection_kernel(self, requested=kernel,
+                                             back_prop=back_prop)
+            fn = self._reconstructor_for(path, rr, iters, lr, back_prop)
+            with torch.no_grad():
+                if z0 is None:
+                    if init == "random":
+                        z0 = sample_z0(gen, x.shape[0], rr, cfg.latent_dim)
+                    else:
+                        z0 = self._encoder_z0(x, gen, rr, init)
+            self.last_kernel = path
+            with torch.set_grad_enabled(back_prop):
+                return fn(x, z0=z0.to(self.device, torch.float32))
 
     def _encoder_z0(self, x, gen, rr: int, mode: str) -> torch.Tensor:
         from defensegan_torch.defense.encoder_init import encoder_z0

@@ -43,6 +43,7 @@ from defensegan_torch.defense.project import (ReconstructionResult,
 from defensegan_torch.kernels import build
 from defensegan_torch.kernels.gemm import split_k_for
 from defensegan_torch.models.generator import from_image_space
+from defensegan_torch.utils.profiling import span
 
 ROW_TILE = 64        # rows are padded to, and chunks cut at, multiples of
                      # this (the kernels themselves take any row count)
@@ -177,7 +178,9 @@ def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
     first. Rows are zero-padded up to a multiple of ROW_TILE and cropped
     after. They run in chunks of `chunk` rows, one library call (all L steps)
     each, counted in build.LAUNCHES[counter]; by default one chunk, unless
-    its scratch would pass SCRATCH_CAP bytes.
+    its scratch would pass SCRATCH_CAP bytes. Under a torch.profiler the
+    staging (fills and copies) and the library calls are a projection.loop
+    span.
     """
     w1 = weights[0]
     dev = z0_flat.device
@@ -199,31 +202,33 @@ def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
     if chunk % ROW_TILE:
         raise ValueError(f"chunk={chunk} must be a multiple of {ROW_TILE}")
     m = min(chunk, rows)
-    z = torch.zeros((rows, kp), dtype=torch.float32, device=dev)
-    z[:n, :k] = z0_flat
-    v = torch.zeros_like(z)
-    x = pad_to(x_pad, 0, ROW_TILE).contiguous()
-    bufs = [torch.empty((m, cols), dtype=dt, device=dev)
-            for cols, dt in scratch]
-    ptrs = [t.contiguous().data_ptr() if isinstance(t, torch.Tensor) else t
-            for t in weights] + [t.data_ptr() for t in bufs]
-    lib = build.load(name)
-    fn = getattr(lib, entry or LIBRARY_ENTRY[name])
-    fn.argtypes = [ctypes.c_void_p] * (3 + len(ptrs)) + \
-        [ctypes.c_int] * (2 + len(dims)) + [ctypes.c_float] * 3 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    # the library's host code (kernel attributes, SM count, the launch)
-    # uses the runtime's current device: make it the tensors' device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for lo in range(0, rows, m):
-            rc = fn(z[lo].data_ptr(), v[lo].data_ptr(), x[lo].data_ptr(),
-                    *ptrs, min(m, rows - lo), *dims, rec_iters, rec_lr,
-                    momentum, 2.0 / out_dim, stream)
-            build.check(lib, rc, entry or name)
-            build.LAUNCHES[counter or name] += 1
-    return z[:n, :k]
+    with span("projection.loop"):
+        z = torch.zeros((rows, kp), dtype=torch.float32, device=dev)
+        z[:n, :k] = z0_flat
+        v = torch.zeros_like(z)
+        x = pad_to(x_pad, 0, ROW_TILE).contiguous()
+        bufs = [torch.empty((m, cols), dtype=dt, device=dev)
+                for cols, dt in scratch]
+        ptrs = [t.contiguous().data_ptr() if isinstance(t, torch.Tensor)
+                else t for t in weights] + [t.data_ptr() for t in bufs]
+        lib = build.load(name)
+        fn = getattr(lib, entry or LIBRARY_ENTRY[name])
+        fn.argtypes = [ctypes.c_void_p] * (3 + len(ptrs)) + \
+            [ctypes.c_int] * (2 + len(dims)) + [ctypes.c_float] * 3 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        # the library's host code (kernel attributes, SM count, the
+        # launch) uses the runtime's current device: make it the tensors'
+        # device
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for lo in range(0, rows, m):
+                rc = fn(z[lo].data_ptr(), v[lo].data_ptr(),
+                        x[lo].data_ptr(), *ptrs, min(m, rows - lo), *dims,
+                        rec_iters, rec_lr, momentum, 2.0 / out_dim, stream)
+                build.check(lib, rc, entry or name)
+                build.LAUNCHES[counter or name] += 1
+        return z[:n, :k]
 
 
 def fused_projection_dense(pack: DensePack, x_flat_tanh: torch.Tensor,
@@ -238,8 +243,10 @@ def fused_projection_dense(pack: DensePack, x_flat_tanh: torch.Tensor,
     """
     x_pad = pad_targets(pack, x_flat_tanh, z0_flat.shape[0])
     if z0_flat.device.type == "cpu":
-        return dense_loop_plain(pack, x_pad, z0_flat, rec_iters=rec_iters,
-                                rec_lr=rec_lr, momentum=momentum)
+        with span("projection.loop"):
+            return dense_loop_plain(pack, x_pad, z0_flat,
+                                    rec_iters=rec_iters, rec_lr=rec_lr,
+                                    momentum=momentum)
     w1, w1t, b1 = padded_fc(pack)
     kp, fp = w1.shape
     splits = split_k_for(fp, kp)          # the fc backward dh @ W1^T
@@ -280,8 +287,10 @@ def make_dense_reconstructor(generator, image_shape, *, rec_rr: int,
             z0 = sample_z0(gen, batch, rec_rr, z_dim, device=x.device)
         z_fin = loop(pack, x_rep, z0.reshape(batch * rec_rr, z_dim),
                      rec_iters=rec_iters, rec_lr=rec_lr, momentum=momentum)
-        losses = rec_losses(apply_flat, z_fin, x_rep).reshape(batch, rec_rr)
-        return select_restarts(losses, z_fin, apply_flat, image_shape)
+        with span("projection.select"):
+            losses = rec_losses(apply_flat, z_fin, x_rep).reshape(
+                batch, rec_rr)
+            return select_restarts(losses, z_fin, apply_flat, image_shape)
 
     return run
 

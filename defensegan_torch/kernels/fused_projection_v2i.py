@@ -42,6 +42,7 @@ from defensegan_torch.kernels.fused_projection_v2 import (
     COL_TILE, DensePack, make_dense_reconstructor, pack_dense, pad_targets,
     pad_to, padded_fc, rounding, run_loop)
 from defensegan_torch.kernels.gemm import split_k_for
+from defensegan_torch.utils.profiling import span
 
 
 class DensePackInt8(NamedTuple):
@@ -127,9 +128,10 @@ def fused_projection_dense_int8(pack: DensePackInt8,
     base = pack.base
     x_pad = pad_targets(base, x_flat_tanh, z0_flat.shape[0])
     if z0_flat.device.type == "cpu":
-        return dense_int8_loop_plain(pack, x_pad, z0_flat,
-                                     rec_iters=rec_iters, rec_lr=rec_lr,
-                                     momentum=momentum)
+        with span("projection.loop"):
+            return dense_int8_loop_plain(pack, x_pad, z0_flat,
+                                         rec_iters=rec_iters, rec_lr=rec_lr,
+                                         momentum=momentum)
     # F up to a multiple of 64 for the int8 weights too (unit scales for
     # the padded D^T columns, as _quant_cols gives all-zero columns)
     w1, w1t, b1 = padded_fc(base)

@@ -60,6 +60,7 @@ from defensegan_torch.kernels.fused_projection_v2 import (COL_TILE, _round_up,
                                                           run_loop)
 from defensegan_torch.kernels.gemm import split_k_for
 from defensegan_torch.models.generator import from_image_space
+from defensegan_torch.utils.profiling import span
 
 SLAB = 32   # conv B's packed K (kpk) is padded to a multiple of this
 
@@ -327,8 +328,9 @@ def fused_projection_s2d(pack: S2DPack, x_s2d: torch.Tensor,
     """
     check_targets(pack, x_s2d, z0_flat)
     if _on_cpu(z0_flat):
-        return s2d_loop_plain(pack, x_s2d, z0_flat, rec_iters=rec_iters,
-                              rec_lr=rec_lr, momentum=momentum)
+        with span("projection.loop"):
+            return s2d_loop_plain(pack, x_s2d, z0_flat, rec_iters=rec_iters,
+                                  rec_lr=rec_lr, momentum=momentum)
     return run_s2d(pack, x_s2d, z0_flat, rec_iters=rec_iters, rec_lr=rec_lr,
                    momentum=momentum, chunk=chunk)
 
@@ -400,10 +402,12 @@ def make_s2d_reconstructor(generator, image_shape, *, rec_rr: int,
         z_fin = loop(
             pack, x_rep, z0.reshape(batch * rec_rr, z_dim),
             rec_iters=rec_iters, rec_lr=rec_lr, momentum=momentum)
-        losses = rec_losses(apply_s2d, z_fin, x_rep).reshape(batch, rec_rr)
-        res = select_restarts(losses, z_fin, apply_s2d)
-        return res._replace(x_hat=res.x_hat[:, inv].reshape(
-            (batch,) + tuple(image_shape)))
+        with span("projection.select"):
+            losses = rec_losses(apply_s2d, z_fin, x_rep).reshape(
+                batch, rec_rr)
+            res = select_restarts(losses, z_fin, apply_s2d)
+            return res._replace(x_hat=res.x_hat[:, inv].reshape(
+                (batch,) + tuple(image_shape)))
 
     return run
 

@@ -76,6 +76,7 @@ from defensegan_torch.kernels.fused_projection_v3 import (_bf16_round,
 from defensegan_torch.kernels.gemm import split_k_for
 from defensegan_torch.models.generator import from_image_space
 from defensegan_torch.models.layers import conv_transpose_same
+from defensegan_torch.utils.profiling import span
 
 MAX_LEVELS = 4      # kMaxLevels of csrc/fused_projection_v4.cu
 
@@ -375,8 +376,9 @@ def fused_projection_v4(pack: V4Pack, x_flat: torch.Tensor,
         raise ValueError(f"the v4 kernel takes 2 to {MAX_LEVELS} levels, "
                          f"got {len(pack.levels)}")
     if _on_cpu(z0_flat):
-        return v4_loop_plain(pack, x_flat, z0_flat, rec_iters=rec_iters,
-                             rec_lr=rec_lr, momentum=momentum)
+        with span("projection.loop"):
+            return v4_loop_plain(pack, x_flat, z0_flat, rec_iters=rec_iters,
+                                 rec_lr=rec_lr, momentum=momentum)
     pp = padded_v4(pack)
     dev = z0_flat.device
     grids = {lv.g: (torch.from_numpy(_tap_masks(lv.g)).to(dev),
@@ -436,8 +438,10 @@ def make_v4_reconstructor(generator, image_shape, *, rec_rr: int,
             pack, tile_restarts(x_rows(pack, x_tanh), rec_rr),
             z0.reshape(batch * rec_rr, z_dim), rec_iters=rec_iters,
             rec_lr=rec_lr, momentum=momentum)
-        x_rep = tile_restarts(x_tanh.reshape(batch, -1), rec_rr)
-        losses = rec_losses(apply_flat, z_fin, x_rep).reshape(batch, rec_rr)
-        return select_restarts(losses, z_fin, apply_flat, image_shape)
+        with span("projection.select"):
+            x_rep = tile_restarts(x_tanh.reshape(batch, -1), rec_rr)
+            losses = rec_losses(apply_flat, z_fin, x_rep).reshape(
+                batch, rec_rr)
+            return select_restarts(losses, z_fin, apply_flat, image_shape)
 
     return run

@@ -3,6 +3,14 @@ the JAX package's utils/profiling.py).
 
   - `trace(logdir)`: a torch.profiler scope that writes a Chrome trace
     (chrome://tracing, Perfetto) of everything inside it under logdir;
+  - `span(name)`: a named range of the request path (pipeline.predict,
+    batching.chunk, gan.reconstruct, projection.loop, ...), recorded
+    into the trace of whatever torch.profiler is recording, on the
+    clock of its device records, and nested as the calls nest; with no
+    profiler recording it is a shared no-op context;
+  - `device_rows(prof)`: a finished profile's device work by name (the
+    kernels, copies and fills), without the device-side copies of the
+    ranges that launched it;
   - `PhaseTimer`: per-phase wall-clock aggregation. The device runs
     asynchronously: a phase that ends on CUDA work is closed after
     torch.cuda.synchronize(), so its time is the device's, not the
@@ -18,7 +26,7 @@ import contextlib
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch.overrides import TorchFunctionMode
@@ -37,6 +45,34 @@ def trace(logdir: str = "output/traces") -> Iterator[str]:
     with torch.profiler.profile(activities=activities) as prof:
         yield path
     prof.export_chrome_trace(path)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A torch.profiler range named `name` while a profiler records (on
+    this thread), else a shared no-op context: an idle record_function
+    costs tens of microseconds, the check a tenth of one."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def device_rows(prof) -> List[Tuple[str, float, int]]:
+    """(name, device us, count) of each row of prof.key_averages() that
+    is device work. With CUDA activity on, the profiler also gives each
+    named range (a span, any record_function) that launched device work
+    a device-side row as long as the range: such rows (user annotations)
+    are left out, so that no device time is counted twice."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total",
+                     getattr(e, "cuda_time_total", 0.0))
+        if us > 0 and e.self_cpu_time_total == 0 and \
+                not getattr(e, "is_user_annotation", False):
+            rows.append((e.key, us, e.count))
+    return rows
 
 
 class _NonFiniteCheck(TorchFunctionMode):

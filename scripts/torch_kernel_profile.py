@@ -400,6 +400,8 @@ def profile_loop(name: str, loop, pack, x, cfg, iters: int,
     window's records are not whole steps)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from defensegan_torch.utils.profiling import device_rows
     kw = dict(rec_iters=iters, rec_lr=cfg.rec_lr, momentum=cfg.rec_momentum)
     n = x.shape[0]
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -424,12 +426,7 @@ def profile_loop(name: str, loop, pack, x, cfg, iters: int,
         launches = by_launch(prof, step_labels(name, pack), iters, ops)
         if isinstance(launches, list):
             break
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total",
-                         getattr(e, "cuda_time_total", 0.0))
-        if dev_us > 0 and e.self_cpu_time_total == 0:
-            rows.append((e.key, dev_us, e.count))
+    rows = device_rows(prof)
     total = sum(r[1] for r in rows)
     return {
         "loop": name, "rows": n, "iters": iters,
