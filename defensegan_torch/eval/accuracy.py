@@ -31,27 +31,34 @@ def batched_reconstruct(gan, x, gen: Optional[torch.Generator] = None,
                         z0_fn: Optional[Callable[[int], torch.Tensor]] = None):
     """Yield (res, lo, hi) reconstruction batches over x (numpy or torch).
 
-    - batch_size None picks min(1024, n rounded up to 256): wide batch x
-      restarts for full kernel tiles, few calls;
-    - the last partial batch is zero-padded to the batch size — slice the
-      per-example fields of `res` with [: hi - lo];
-    - restart draws come from the torch.Generator `gen`, in batch order,
-      unless z0_fn(lo) hands back the batch's z0 [batch_size, R, k] (an
-      exact replay, e.g. of another package's draws);
+    - batch_size None cuts x into chunks of at most 1024 images and pads
+      none beyond what the device layout needs: a gan sharded over a mesh
+      of d devices gets each chunk's rows rounded up to a multiple of d
+      (parallel/mesh.py::validate_projection_sharding), one device the
+      images alone; rows below a kernel's tile are the kernel wrapper's
+      to pad;
+    - an explicit batch_size cuts chunks of that size and zero-pads the
+      last one to it;
+    - padded rows are zeros: slice the per-example fields of `res` with
+      [: hi - lo];
+    - restart draws come from the torch.Generator `gen`, in chunk order,
+      unless z0_fn(lo) hands back at least the chunk's rows of z0
+      [rows, R, k] (an exact replay, e.g. of another package's draws),
+      cropped to the chunk's rows;
     - rec_* / rec_kernel / rec_init pass through to gan.reconstruct;
     - under a torch.profiler each chunk's staging and reconstruction is
       a batching.chunk span, closed before the chunk is yielded.
     """
     n = x.shape[0]
-    if batch_size is None:
-        batch_size = min(1024, ((n + 255) // 256) * 256)
-    for lo, hi in _batches(n, batch_size):
+    grain = len(getattr(gan, "mesh", ())) or 1
+    for lo, hi in _batches(n, batch_size or min(1024, n)):
         with span("batching.chunk"):
             xb = torch.as_tensor(x[lo:hi], device=gan.device)
-            pad = batch_size - xb.shape[0]
+            rows = batch_size or -(-(hi - lo) // grain) * grain
+            pad = rows - xb.shape[0]
             if pad:
                 xb = torch.cat([xb, xb.new_zeros((pad,) + xb.shape[1:])])
-            z0 = z0_fn(lo) if z0_fn is not None else None
+            z0 = z0_fn(lo)[:rows] if z0_fn is not None else None
             res = gan.reconstruct(xb, gen, rec_rr=rec_rr,
                                   rec_iters=rec_iters, rec_lr=rec_lr,
                                   kernel=rec_kernel, init=rec_init, z0=z0)

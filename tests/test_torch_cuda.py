@@ -834,6 +834,77 @@ def test_int8_accuracy_gate_rows_on_card(cuda_device):
     assert rows["xla"]["clean_defended"] >= 0.9
 
 
+def _serving_gan(config, device):
+    """The benchmark's two configurations: the committed flagship (v2) and
+    the deep mnist.yml generator, seeded (v3); R 10, L 200, bf16."""
+    import pathlib
+
+    from defensegan_torch.configs import load_config
+    from defensegan_torch.gan import DefenseGAN
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    over = dict(COMPUTE_DTYPE="bfloat16", PROJECTION_KERNEL="auto",
+                REC_INIT="random", REC_RR=10, REC_ITERS=200, REC_LR=10.0,
+                REC_MOMENTUM=0.7)
+    if config == "mnist_fast":
+        run = str(root / "output" / "gans" / "mnist_fast")
+        return DefenseGAN(load_config(run, over).replace(output_dir=run),
+                          device=device).load()
+    cfg = load_config(str(root / "defensegan_torch" / "configs" / "gans"
+                          / "mnist.yml"), over)
+    return DefenseGAN(cfg, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config, kernel", [
+    ("mnist_fast", "fused_projection_v2"), ("mnist", "fused_projection_v3")])
+def test_one_image_predict_equals_it_inside_a_256_batch_on_card(
+        cuda_device, config, kernel):
+    """A one-image DefendedPipeline.predict (10 rows, which the kernel
+    wrapper pads to its 64-row tile) against the same image inside an
+    explicit batch_size=256 call (2560 rows), with the same draws. A row's
+    loop does not depend on the other rows (test_kernel_pads_rows_and_
+    chunks_exactly), so z* is equal bit for bit; the selection's losses and
+    G(z*) run bf16 products at another row count, so the restarts' final
+    losses agree within TOL[1] relative and x_hat (in [0, 1]) within TOL[1],
+    one bf16 rounding; prediction and flag exactly."""
+    from defensegan_torch.defense.pipeline import DefendedPipeline
+    from defensegan_torch.eval.accuracy import batched_reconstruct
+    from defensegan_torch.models import build_classifier
+
+    gan = _serving_gan(config, cuda_device)
+    clf = build_classifier("A", gen=torch.Generator().manual_seed(5))
+    pipe = DefendedPipeline(gan, clf.to(cuda_device).requires_grad_(False),
+                            fpr=0.5)
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    k = gan.cfg.latent_dim
+    table = torch.randn(264, 10, k, generator=g, device=cuda_device)
+    calib = torch.randn(256, 10, k, generator=g, device=cuda_device)
+    rng = np.random.RandomState(0)
+    pipe.calibrate(rng.rand(256, 28, 28, 1).astype(np.float32),
+                   batch_size=256, z0_fn=lambda p, lo: calib[lo:])
+    x = rng.rand(200, 28, 28, 1).astype(np.float32)
+    full = pipe.predict(x, batch_size=256, z0_fn=lambda p, lo: table[lo:])
+    (big, _, _), = batched_reconstruct(gan, x, batch_size=256,
+                                       z0_fn=lambda lo: table[lo:])
+    before = build.LAUNCHES[kernel]
+    for j in (0, 77, 199):
+        one = pipe.predict(x[j:j + 1], z0_fn=lambda p, lo: table[j + lo:])
+        assert one.pred[0] == full.pred[j] and \
+            one.flagged[0] == full.flagged[j], j
+        (res, _, _), = batched_reconstruct(gan, x[j:j + 1],
+                                           z0_fn=lambda lo: table[j + lo:])
+        assert res.z_star.shape[0] == 1 and gan.last_kernel == "pallas"
+        assert torch.equal(res.z_star[0], big.z_star[j]), j
+        rel = ((res.all_losses[0] - big.all_losses[j]).abs()
+               / big.all_losses[j].abs()).max().item()
+        assert rel <= TOL[1], (j, rel)
+        err = (res.x_hat[0] - big.x_hat[j]).abs().max().item()
+        assert err <= TOL[1], (j, err)
+    assert build.LAUNCHES[kernel] == before + 6
+    assert full.flagged.any() and not full.flagged.all()
+
+
 def _bench_args(*extra):
     import pathlib
     import sys
