@@ -22,8 +22,8 @@ entry point graft_entry_torch.py (phase 14):
     fold is not the identity. No accuracy is stated for it.
   - the 64x64 generator (configs/gans/celeba.yml: k 128, fc -> 4x4x512 ->
     three 5x5/2 deconvs -> 32x32x64 -> deconv -> 64x64x3, R 2, L 200) on
-    kernel v4, requested as PROJECTION_KERNEL pallas_v4 (opt-in: auto stays
-    on the generic path). Seeded weights like the deep model's: no trained
+    kernel v4, requested as PROJECTION_KERNEL pallas_v4 (auto resolves to
+    it too on the card). Seeded weights like the deep model's: no trained
     64x64 checkpoint is in the repository. celeba_wide.yml (three levels)
     and imagenet64.yml (k 256, widths of 96) run one step each against the
     plain version, and the deep MNIST model runs through v4 once as its
@@ -2969,7 +2969,7 @@ def main() -> int:
     # (100 images x R 10 = 1000 rows) still runs the requested kernel;
     # on the deep model pallas_int8 runs the bf16 v3 (there is no int8
     # deep loop) and packed the plain s2d path; on the 64x64 model
-    # pallas_v4 runs v4 and auto the generic path (v4 is opt-in); the deep
+    # pallas_v4 and auto run v4 (neither v2 nor v3 covers it); the deep
     # model through pallas_v4 is v4's two-level edge case
     limits = {id(gan): (g, CLEAN_LOSS_MAX), id(deep): (gd, deep_unrelated),
               id(celeba): (gc, celeba_unrelated)}
@@ -2988,8 +2988,8 @@ def main() -> int:
              "pallas_v4", V4),
             ("celeba_direct_pallas_v4", celeba, xc_clean[:100], "pallas_v4",
              "pallas_v4", V4),
-            ("celeba_direct_auto", celeba, xc_clean[:100], "auto", "xla",
-             None)):
+            ("celeba_direct_auto", celeba, xc_clean[:100], "auto",
+             "pallas_v4", V4)):
         before = dict(build.LAUNCHES)
         gen_m, loss_max = limits[id(model)]
         res = model.reconstruct(x100, gen_m, kernel=kernel)

@@ -10,8 +10,8 @@
     (csrc/fused_projection_v3.cu).
   - fused_projection_v4: the multi-deconv generators' loop (the 64x64
     stacks), every deconv level a 3x3 grid conv, the interleaves folded
-    into the convs' addressing (csrc/fused_projection_v4.cu); opt-in
-    (`pallas_v4`).
+    into the convs' addressing (csrc/fused_projection_v4.cu); what
+    `auto` runs on CUDA where neither v2 nor v3 covers the generator.
   - gemm, conv3x3: one product (csrc/gemm_sm90.cuh, under every product of
     the four loops) or one grid conv (csrc/conv3x3_sm90.cuh, under v3's and
     v4's convs) on its own, for holding it against its plain version.

@@ -48,6 +48,13 @@ memory) have no meaning on the card and are left out: the wrapper pads the
 rows to a multiple of 64 and run_loop chunks them by its scratch
 cap. The restart selection runs outside the loop through the conv-packed
 apply, in image order, as in the JAX package.
+
+What a kernel call takes besides its rows depends on the weights alone
+(`V4State`: the padded pack, the levels' tap masks and pixel orders on the
+device, the library's pointer and width tables): `make_v4_reconstructor`
+builds it once with the pack and hands it to each `fused_projection_v4`
+call, which then stages its targets (projection.stage) and runs the loop
+(projection.loop).
 """
 
 from __future__ import annotations
@@ -357,41 +364,40 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def fused_projection_v4(pack: V4Pack, x_flat: torch.Tensor,
-                        z0_flat: torch.Tensor, *, rec_iters: int,
-                        rec_lr: float, momentum: float,
-                        chunk: Optional[int] = None) -> torch.Tensor:
-    """Run the L-step loop for all N latents; returns z_final [N, k].
-
-    x_flat: [N, out_dim] TANH-space images in double-blocked order
-    (`x_rows`). z0_flat: [N, k] float32. A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel or raises. Rows are
-    zero-padded to a multiple of 64 and cropped after.
-    """
-    n = z0_flat.shape[0]
-    if tuple(x_flat.shape) != (n, pack.final_g ** 2 * pack.out_lanes):
-        raise ValueError(f"x {tuple(x_flat.shape)} vs [N, out_dim] = "
-                         f"[{n}, {pack.final_g ** 2 * pack.out_lanes}]")
+def _check_levels(pack: V4Pack) -> None:
     if not 2 <= len(pack.levels) <= MAX_LEVELS:
         raise ValueError(f"the v4 kernel takes 2 to {MAX_LEVELS} levels, "
                          f"got {len(pack.levels)}")
-    if _on_cpu(z0_flat):
-        with span("projection.loop"):
-            return v4_loop_plain(pack, x_flat, z0_flat, rec_iters=rec_iters,
-                                 rec_lr=rec_lr, momentum=momentum)
+
+
+class V4State(NamedTuple):
+    """A pack's kernel-side state on one device (`v4_state`): what
+    run_loop takes besides the rows."""
+
+    pack: V4Pack          # padded_v4 of the pack
+    grids: Tuple          # each level's (tap masks, pixel order), on the
+                          # device: the pointer table holds their addresses
+    weights: list         # w1, w1t, b1, the pointer and the width table
+    scratch: list         # (columns, dtype) of each per-row buffer
+    dims: tuple           # kp, c0p, g0, levels, the fc backward's splits
+    out_dim: int
+
+
+def v4_state(pack: V4Pack, device: torch.device) -> V4State:
+    """Pad the pack to the kernel's tiles, put the levels' grid tables on
+    `device` and build the library's host tables of the level list:
+    pointers (w, wt, b, masks, pixel order) and widths (g, ci, co, fine
+    lanes of the interleave or 0), which the library reads before each
+    call returns."""
+    _check_levels(pack)
     pp = padded_v4(pack)
-    dev = z0_flat.device
-    grids = {lv.g: (torch.from_numpy(_tap_masks(lv.g)).to(dev),
-                    torch.from_numpy(pixel_order(lv.g)).to(dev))
+    grids = {lv.g: (torch.from_numpy(_tap_masks(lv.g)).to(device),
+                    torch.from_numpy(pixel_order(lv.g)).to(device))
              for lv in pp.levels}
     tensors = [t for lv in pp.levels
                for t in (lv.w, lv.wt, lv.b) + grids[lv.g]]
-    if any(t.device != dev or not t.is_contiguous() for t in tensors):
-        raise ValueError(f"pack levels must be contiguous on {dev}")
-    # host tables of the level list: pointers (w, wt, b, masks, pixel
-    # order) and widths
-    # (g, ci, co, fine lanes of the interleave or 0), read by the library
-    # before it returns
+    if any(t.device != device or not t.is_contiguous() for t in tensors):
+        raise ValueError(f"pack levels must be contiguous on {device}")
     ptr_table = (ctypes.c_void_p * len(tensors))(
         *[t.data_ptr() for t in tensors])
     dim_table = (ctypes.c_int * (4 * len(pp.levels)))(
@@ -404,13 +410,45 @@ def fused_projection_v4(pack: V4Pack, x_flat: torch.Tensor,
     act_cols = pp.base_hw ** 2 * pp.c0 + sum(lv.g ** 2 * lv.co
                                              for lv in pp.levels)
     splits = split_k_for(pp.w1t.shape[0], pp.z_dim)   # the fc backward
+    return V4State(
+        pack=pp, grids=tuple(grids.values()),
+        weights=[pp.w1, pp.w1t, pp.b1, ptr_table, dim_table],
+        scratch=[(pp.z_dim, bf), (act_cols, bf),
+                 (splits * pp.z_dim, torch.float32)],
+        dims=(pp.z_dim, pp.c0, pp.base_hw, len(pp.levels), splits),
+        out_dim=pack.out_dim)
+
+
+def fused_projection_v4(pack: V4Pack, x_flat: torch.Tensor,
+                        z0_flat: torch.Tensor, *, rec_iters: int,
+                        rec_lr: float, momentum: float,
+                        chunk: Optional[int] = None,
+                        state: Optional[V4State] = None) -> torch.Tensor:
+    """Run the L-step loop for all N latents; returns z_final [N, k].
+
+    x_flat: [N, out_dim] TANH-space images in double-blocked order
+    (`x_rows`). z0_flat: [N, k] float32. A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel or raises, on `state`
+    (`v4_state` of this pack; built for this call when None). Rows are
+    zero-padded to a multiple of 64 and cropped after.
+    """
+    n = z0_flat.shape[0]
+    if tuple(x_flat.shape) != (n, pack.final_g ** 2 * pack.out_lanes):
+        raise ValueError(f"x {tuple(x_flat.shape)} vs [N, out_dim] = "
+                         f"[{n}, {pack.final_g ** 2 * pack.out_lanes}]")
+    _check_levels(pack)
+    if _on_cpu(z0_flat):
+        with span("projection.loop"):
+            return v4_loop_plain(pack, x_flat, z0_flat, rec_iters=rec_iters,
+                                 rec_lr=rec_lr, momentum=momentum)
+    if state is None:
+        state = v4_state(pack, z0_flat.device)
+    with span("projection.stage"):
+        x_pad = padded_targets(pack, state.pack, x_flat)
     return run_loop(
-        "fused_projection_v4", padded_targets(pack, pp, x_flat), z0_flat,
-        [pp.w1, pp.w1t, pp.b1, ptr_table, dim_table],
-        [(pp.z_dim, bf), (act_cols, bf), (splits * pp.z_dim, torch.float32)],
-        (pp.z_dim, pp.c0, pp.base_hw, len(pp.levels), splits),
-        out_dim=pack.out_dim, rec_iters=rec_iters, rec_lr=rec_lr,
-        momentum=momentum, chunk=chunk)
+        "fused_projection_v4", x_pad, z0_flat, state.weights, state.scratch,
+        state.dims, out_dim=state.out_dim, rec_iters=rec_iters,
+        rec_lr=rec_lr, momentum=momentum, chunk=chunk)
 
 
 def make_v4_reconstructor(generator, image_shape, *, rec_rr: int,
@@ -421,23 +459,27 @@ def make_v4_reconstructor(generator, image_shape, *, rec_rr: int,
     z0 ([B, R, k]) overrides sampling from the torch.Generator `gen`. Only
     the loop's targets are permuted (`x_rows`); restart selection and G(z*)
     run outside the loop on the conv-packed apply in image order, so argmin
-    semantics are those of defense/project.py.
+    semantics are those of defense/project.py. On a CUDA generator the
+    kernel's state (`v4_state`) is built here, once.
     """
     pack = pack_v4(generator)
+    state = None if _on_cpu(pack.w1) else v4_state(pack, pack.w1.device)
     apply_flat = make_packed_apply(pack_generator(generator, "conv"))
     z_dim = generator.latent_dim
+    kw = dict(rec_iters=rec_iters, rec_lr=rec_lr, momentum=momentum)
 
     @torch.no_grad()
     def run(x: torch.Tensor, gen: Optional[torch.Generator] = None,
             z0: Optional[torch.Tensor] = None) -> ReconstructionResult:
         batch = x.shape[0]
-        x_tanh = from_image_space(x)
         if z0 is None:
             z0 = sample_z0(gen, batch, rec_rr, z_dim, device=x.device)
-        z_fin = fused_projection_v4(
-            pack, tile_restarts(x_rows(pack, x_tanh), rec_rr),
-            z0.reshape(batch * rec_rr, z_dim), rec_iters=rec_iters,
-            rec_lr=rec_lr, momentum=momentum)
+        z0_flat = z0.reshape(batch * rec_rr, z_dim)
+        with span("projection.stage"):
+            x_tanh = from_image_space(x)
+            targets = tile_restarts(x_rows(pack, x_tanh), rec_rr)
+        z_fin = fused_projection_v4(pack, targets, z0_flat, state=state,
+                                    **kw)
         with span("projection.select"):
             x_rep = tile_restarts(x_tanh.reshape(batch, -1), rec_rr)
             losses = rec_losses(apply_flat, z_fin, x_rep).reshape(

@@ -234,6 +234,91 @@ def test_v4_kernel_rejects_bad_inputs(cuda_device):
         fused_projection_v4(pack, x.cpu(), z0, **kw)
 
 
+def _published_v4(dev, name):
+    """The 64x64 stack of configs/gans/<name>.yml at its published widths,
+    bf16, seeded weights with the BatchNorm statistics of _v4_case."""
+    import pathlib
+
+    from defensegan_torch.configs import load_config
+    cfg = load_config(str(pathlib.Path(__file__).resolve().parents[1]
+                          / "defensegan_torch" / "configs" / "gans"
+                          / f"{name}.yml"))
+    tg = generator_for(cfg.type, cfg.gen_dim, torch.bfloat16, cfg.gen_arch,
+                       cfg.latent_dim, gen=torch.Generator().manual_seed(0))
+    tg.requires_grad_(False)
+    gb = torch.Generator().manual_seed(1)
+    for mod_name, mod in tg.named_modules():
+        if mod_name.startswith("bn_"):
+            mod.scale.copy_(1.0 + 0.3 * torch.randn(mod.scale.shape,
+                                                    generator=gb))
+            mod.bias.copy_(0.2 * torch.randn(mod.bias.shape, generator=gb))
+            mod.mean.copy_(0.2 * torch.randn(mod.mean.shape, generator=gb))
+            mod.var.copy_(0.5 + torch.rand(mod.var.shape, generator=gb))
+    return cfg, tg.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["celeba", "celeba_wide", "imagenet64"])
+def test_v4_state_built_once_equals_the_per_call_build(cuda_device, name):
+    """make_v4_reconstructor builds the kernel's state (padded pack, grid
+    tables, pointer and width tables) once and hands it to every
+    fused_projection_v4 call; each call returns the z* that a call
+    building its own state gives, bit for bit, one library call a
+    chunk."""
+    from defensegan_torch.defense.project import tile_restarts
+    from defensegan_torch.kernels.fused_projection_v4 import \
+        make_v4_reconstructor
+    from defensegan_torch.models.generator import from_image_space
+    cfg, tg = _published_v4(cuda_device, name)
+    b, rr, k = 64, 2, cfg.latent_dim
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.rand(b, 64, 64, 3, generator=g, device=cuda_device)
+    z0 = torch.randn(b, rr, k, generator=g, device=cuda_device)
+    kw = dict(rec_iters=5, rec_lr=LR, momentum=MOM)
+    run = make_v4_reconstructor(tg, (64, 64, 3), rec_rr=rr, **kw)
+    before = build.LAUNCHES[V4]
+    first, second = run(x, z0=z0), run(x, z0=z0)
+    pack = pack_v4(tg)
+    z_fin = fused_projection_v4(
+        pack, tile_restarts(x_rows(pack, from_image_space(x)), rr),
+        z0.reshape(b * rr, k), **kw).reshape(b, rr, k)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[V4] == before + 3
+    pick = z_fin[torch.arange(b), first.all_losses.argmin(1)]
+    assert torch.equal(first.z_star, pick)
+    assert torch.equal(second.z_star, first.z_star)
+    assert torch.equal(second.all_losses, first.all_losses)
+
+
+@pytest.mark.cuda
+def test_celeba_auto_pipeline_matches_the_reference_on_card(cuda_device):
+    """celeba.yml at its published widths as the benchmark's `celeba`
+    configuration states it (PROJECTION_KERNEL auto): every projection
+    call runs v4, and DefendedPipeline.predict on 64 images meets each of
+    the cell's limits against the float32 reference (benchmark/check.py),
+    the detector calibrated on 128 images."""
+    import time
+
+    from benchmark import harness, spec
+    from benchmark.system import ProgramSystem
+    bench = spec.load_benchmark()
+    conf = spec.config(bench, "celeba")
+    conf = dict(conf, pipeline=dict(conf["pipeline"], calibration_images=128),
+                check=dict(conf["check"], sample_images=64))
+    traffic = dict(spec.traffic("bulk4k"), images_per_request=64,
+                   pool_images=256, trace_requests=0)
+    inputs = harness.Inputs(conf, traffic, 2 ** 31 + 21, cuda_device)
+    before = build.LAUNCHES[V4]
+    _, kept, recorder = harness.measure(
+        inputs, lambda rec: ProgramSystem(conf, inputs.gen_w, inputs.clf_w,
+                                          cuda_device, rec),
+        0.0, False, time.perf_counter(), warm_up=False)
+    assert dict(recorder.paths) == {"pallas_v4": 2}   # calibration, request
+    assert build.LAUNCHES[V4] == before + 2
+    correct, checked, _ = harness.judge_kept(inputs, kept, recorder.paths)
+    assert correct, checked
+
+
 # ---- the Hopper grid conv on its own (csrc/conv3x3_sm90.cuh through
 # kernels/conv3x3.py), at the edges of its design
 CONV_EDGES = {

@@ -4,7 +4,8 @@ and the `packed` route's parity with the JAX package.
 
 `resolve_projection_kernel` is held against the JAX package's resolver on
 the same requests (JAX's on_tpu plays the port's on_cuda; JAX degrades a
-kernel request under back_prop to the plain path where the port raises).
+kernel request under back_prop to the plain path where the port raises;
+on a 64x64 stack the port's `auto` runs v4 where JAX's runs `xla`).
 `packed` with PACKED_VARIANT auto packs s2d on a deep generator in both
 packages, runs the loop in s2d pixel order and returns x_hat in image
 order: float32, same weights, x and z0, tolerance 1e-3 relative on the
@@ -90,7 +91,7 @@ def test_uncovered_generator_still_raises_and_names_the_roadmap(tmp_path):
                                latent_dim=8, image_size=64, channels=3,
                                output_dir=str(tmp_path)), device="cpu")
     assert resolve_projection_kernel(celeba, requested="auto",
-                                     on_cuda=True) == "xla"
+                                     on_cuda=True) == "pallas_v4"
     for requested in ("pallas", "pallas_int8"):
         with pytest.raises(NotImplementedError, match="'pallas_v4' serves"):
             resolve_projection_kernel(celeba, requested=requested,
@@ -111,6 +112,8 @@ def stacks(tmp_path_factory):
                                  image_size=64, channels=3)),
             ("celeba_wide", dict(type="celeba", gen_arch="wide",
                                  image_size=64, channels=3)),
+            ("imagenet64", dict(type="imagenet64", gen_arch="deep",
+                                image_size=64, channels=3)),
             ("mnist_deep", dict(type="mnist", gen_arch="deep")),
             ("mnist_wide", dict(type="mnist", gen_arch="wide"))):
         kw = dict(kw, gen_dim=4, disc_dim=4, latent_dim=LATENT,
@@ -124,8 +127,6 @@ def stacks(tmp_path_factory):
     ("celeba_deep", "pallas_v4", True, False, "pallas_v4"),
     ("celeba_wide", "pallas_v4", True, False, "pallas_v4"),
     ("mnist_deep", "pallas_v4", True, False, "pallas_v4"),
-    ("celeba_deep", "auto", True, False, "xla"),    # v4 is opt-in
-    ("celeba_wide", "auto", True, False, "xla"),
     ("celeba_deep", "auto", True, True, "xla"),
     ("celeba_deep", "xla", True, False, "xla"),
     ("celeba_deep", "packed", True, False, "packed"),
@@ -145,6 +146,20 @@ def test_v4_dispatch_matches_jax(stacks, name, requested, on_cuda, back_prop,
     # the rows itself and so has no such guard)
     assert jax_resolve(jgan, n=64, back_prop=back_prop, requested=requested,
                        on_tpu=on_cuda) == path
+
+
+@pytest.mark.parametrize("name", ["celeba_deep", "celeba_wide",
+                                  "imagenet64"])
+def test_v4_auto_on_card_diverges_from_jax(stacks, name):
+    """A stated divergence: on CUDA without back_prop the port's `auto`
+    runs v4 on a 64x64 stack, which neither v2 nor v3 covers, where the
+    JAX resolver keeps v4 opt-in and runs `xla`."""
+    jgan, tgan = stacks[name]
+    assert resolve_projection_kernel(tgan, requested="auto",
+                                     back_prop=False,
+                                     on_cuda=True) == "pallas_v4"
+    assert jax_resolve(jgan, n=64, back_prop=False, requested="auto",
+                       on_tpu=True) == "xla"
 
 
 @pytest.mark.parametrize("name,back_prop,match", [

@@ -163,3 +163,34 @@ def test_device_rows_count_each_kernel_once(tmp_path):
         with profiling.span("projection.loop"):
             torch.ones(3).add_(1)
     assert profiling.device_rows(prof) == []
+
+
+def test_v4_stages_its_targets_in_a_span_of_their_own(tmp_path,
+                                                      monkeypatch):
+    """A 64x64 stack through DefenseGAN.reconstruct on the v4 path (the
+    resolver asked for CUDA; on CPU tensors the reconstructor runs the
+    plain loop): gan.reconstruct holds projection.stage (the targets in
+    tanh space, blocked order, restarts tiled), then projection.loop, then
+    projection.select, one after the other."""
+    from defensegan_torch.gan import defense_gan
+    real = defense_gan.resolve_projection_kernel
+    monkeypatch.setattr(defense_gan, "resolve_projection_kernel",
+                        lambda gan, **kw: real(gan, on_cuda=True, **kw))
+    gan = DefenseGAN(Config(type="celeba", gen_arch="deep", gen_dim=2,
+                            latent_dim=8, image_size=64, channels=3,
+                            rec_rr=RR, rec_iters=ITERS,
+                            compute_dtype="float32",
+                            output_dir=str(tmp_path)), device="cpu")
+    x = torch.rand(3, 64, 64, 3, generator=torch.Generator().manual_seed(3))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        res = gan.reconstruct(x, z0=torch.randn(3, RR, 8))
+    assert gan.last_kernel == "pallas_v4" and res.x_hat.shape == x.shape
+    names = ("gan.reconstruct", "projection.stage", "projection.loop",
+             "projection.select")
+    spans = [s for s in ranges(prof, tmp_path) if s[0] in names]
+    assert [s[0] for s in spans] == list(names)
+    for s in spans[1:]:
+        assert innermost_parent(s, spans)[0] == "gan.reconstruct", s
+    for before, after in zip(spans[1:], spans[2:]):
+        assert before[2] <= after[1], (before, after)
