@@ -13,11 +13,15 @@
 //   int8  A [M, K] row-major, and B given K-major as B^T [N, K]: 8-bit
 //         wgmma has no transpose flag. s32 sums, exact whatever the order.
 //
-// What bounds it on an H100: at the loops' shapes the D products of v2 and
-// v2i are operations (989 TFLOP/s bf16, 1979 TOP/s int8); the K = 128 fc
-// forward is bytes (it writes h, F = 6272 columns a row); the fc backward
-// reads its K = 6272-deep A once. The design is the grid conv's
-// (conv3x3_sm90.cuh) without the taps:
+// What bounds it on an H100: v2's D products walk only the K slabs of
+// D's (D^T's) nonzero blocks (the slab list below: 26.5% and 22.3% of the
+// dense walk on the flagship), which leaves them bound by what they move,
+// not by operations: h @ D by its slabs through L2 (477 MB a step at
+// 10240 rows), do @ D^T by its epilogue, which reads h and writes dh
+// (256 MB a step); v2i's D products, walked dense, are operations (1979
+// TOP/s int8); the K = 128 fc forward is bytes (it writes h, F = 6272
+// columns a row); the fc backward reads its K = 6272-deep A once. The
+// design is the grid conv's (conv3x3_sm90.cuh) without the taps:
 //   * a block of three warpgroups: two consumers, each computing 64 x 128
 //     of the 128 x 128 tile with wgmma.mma_async (sums in registers), and
 //     a producer whose one thread issues the TMA copies; setmaxnreg moves
@@ -38,6 +42,13 @@
 //     an epilogue reads (the relu mask h, the targets x, biases, scales)
 //     is loaded into registers when the unit starts, in flight while its
 //     slabs run, so the epilogue itself waits on no load;
+//   * a slab list (kSlabList, with splits 1): for each n-tile
+//     the K slabs whose block of B holds a nonzero, built once from B
+//     (kernels/gemm.py::slab_list). The producer loads only those A and B
+//     slabs; the consumers run as many, the first with scale_d 0; a tile
+//     with an empty list stores zero sums. A block left out is all zero,
+//     so its products are exact zeros (A finite) and the sums are the
+//     dense walk's; the list does not depend on M;
 //   * split-K where N fits one tile (the fc backward, N = 128: 80 tiles
 //     for 132 SMs at 10240 rows, 8 at v4's 1024): `splits` fixed K ranges
 //     of whole slabs, each stored as float32 partial sums in a workspace
@@ -54,8 +65,8 @@
 // N a multiple of 64 (a warp's 64 columns of a row are all in or all out:
 // an epilogue may use warp collectives), K * element size a multiple of 16
 // bytes, every base 16-byte aligned, 1 <= splits <= K's slabs with every
-// split non-empty, splits > 1 only in bf16. Launches go on the caller's
-// stream and allocate nothing.
+// split non-empty, splits > 1 only in bf16, a slab list only with splits
+// 1. Launches go on the caller's stream and allocate nothing.
 #pragma once
 
 #include <type_traits>
@@ -153,13 +164,33 @@ __device__ __forceinline__ void invoke(const E& e, int r, int c, A a0, A a1,
   }
 }
 
+// The K slabs each n-tile walks with kSlabList: tile j's are idx[off[j]]
+// .. idx[off[j + 1] - 1], in increasing order (CSR, on the device).
+struct SlabList {
+  const int* off;   // [n-tiles + 1]
+  const int* idx;   // [off[n-tiles]]
+};
+
+// The positions [x, y) of a unit's walk: its slabs [s0, s1), or with a
+// slab list the entries of its n-tile's list (slab list.idx[j]).
+template <bool kSlabList>
+__device__ __forceinline__ int2 walk(const GemmUnit& u,
+                                     const SlabList& list) {
+  if constexpr (kSlabList) {
+    const int nt = u.n0 / kGemmBN;
+    return make_int2(list.off[nt], list.off[nt + 1]);
+  } else {
+    return make_int2(u.s0, u.s1);
+  }
+}
+
 // split_stride: where a split's columns go in the epilogue's output (the
-// workspace's N); 0 when splits == 1.
-template <typename T, typename Epi>
+// workspace's N); 0 when splits == 1. `list` is read only with kSlabList.
+template <typename T, typename Epi, bool kSlabList = false>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_sm90(const __grid_constant__ CUtensorMap map_a,
               const __grid_constant__ CUtensorMap map_b, int M, int N, int K,
-              int splits, int split_stride, Epi epi) {
+              int splits, int split_stride, Epi epi, SlabList list) {
   using Op = Operand<T>;
   using Acc = typename Op::Acc;
   using P2 = typename Pair<Acc>::T;
@@ -195,7 +226,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t stage = 0, phase = 0;
     for (int t = blockIdx.x; t < n_units; t += gridDim.x) {
       const GemmUnit u(t, n_n, splits, per_split, slabs);
-      for (int i = u.s0; i < u.s1; ++i) {
+      const int2 w = walk<kSlabList>(u, list);
+      for (int j = w.x; j < w.y; ++j) {
+        const int i = kSlabList ? list.idx[j] : j;
         mbar_wait(empty(stage), phase ^ 1);
         mbar_expect_tx(full(stage), kGemmStage);
         const uint32_t sa = ring + stage * kGemmStage;
@@ -262,8 +295,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         __syncwarp();
       }
+      const int2 w = walk<kSlabList>(u, list);
+      if constexpr (kSlabList) {
+        // zero sums, which a tile with no slab hands to its epilogue and
+        // the first slab's wgmma (scale_d 0) overwrites; on every unit,
+        // since a branch on the list is not warp-uniform to the compiler
+#pragma unroll
+        for (int q = 0; q < kGemmBN / 2; ++q) acc[q] = Acc(0);
+      }
       int held = -1;         // a stage whose wgmma may still be reading it
-      for (int i = u.s0; i < u.s1; ++i) {
+      for (int j = w.x; j < w.y; ++j) {
         mbar_wait(full(stage), phase);
         const uint32_t sa = ring + stage * kGemmStage;
         fence_regs(acc);
@@ -272,7 +313,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int kk = 0; kk < Op::kPerSlab / Op::kStep; ++kk) {
           const uint64_t da =
               sw128_desc(sa + wg * (kABytes / 2) + kk * 32, 16, 1024);
-          const int scale_d = ((i - u.s0) | kk) != 0;
+          const int scale_d = ((j - w.x) | kk) != 0;
           if constexpr (std::is_same<T, bf16>::value) {
             const uint64_t db =
                 sw128_desc(sa + kABytes + kk * 16 * 128, kBChunk, 1024);
@@ -642,21 +683,23 @@ inline cudaError_t make_gemm(Gemm* g, const T* a, const T* b, int M, int N,
                : encode_map(&g->b, b, 2, K, N, sm90::kBK);
 }
 
-template <typename T, typename Epi>
+template <typename T, typename Epi, bool kSlabList = false>
 inline cudaError_t launch_gemm_units(const Gemm& g, Epi epi, int split_stride,
-                                     cudaStream_t stream) {
+                                     cudaStream_t stream,
+                                     sm90::SlabList list = {}) {
   // set on every launch: a function-static "done" flag would be one object
   // per process (a static local of an inline function), shared by the
   // libraries of all four loops
   cudaError_t e = cudaFuncSetAttribute(
-      sm90::gemm_sm90<T, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      sm90::kGemmSmem);
+      sm90::gemm_sm90<T, Epi, kSlabList>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, sm90::kGemmSmem);
   if (e != cudaSuccess) return e;
   const int units = ((g.M + sm90::kBM - 1) / sm90::kBM) * g.splits *
                     ((g.N + sm90::kGemmBN - 1) / sm90::kGemmBN);
   const int grid = units < sm_count() ? units : sm_count();
-  sm90::gemm_sm90<T, Epi><<<grid, sm90::kThreads, sm90::kGemmSmem, stream>>>(
-      g.a, g.b, g.M, g.N, g.K, g.splits, split_stride, epi);
+  sm90::gemm_sm90<T, Epi, kSlabList>
+      <<<grid, sm90::kThreads, sm90::kGemmSmem, stream>>>(
+          g.a, g.b, g.M, g.N, g.K, g.splits, split_stride, epi, list);
   return cudaGetLastError();
 }
 
@@ -680,6 +723,19 @@ inline cudaError_t launch_gemm(const Gemm& g, Epi epi, float* ws,
   } else {
     return cudaErrorInvalidValue;
   }
+}
+
+// C = A @ B walking, for each n-tile, only the K slabs `list` names (see
+// sm90::SlabList; K not split), then epi on every pair of columns: the
+// dense product wherever the blocks the list leaves out are all zero.
+template <typename T, typename Epi>
+inline cudaError_t launch_gemm_listed(const Gemm& g, Epi epi,
+                                      sm90::SlabList list,
+                                      cudaStream_t stream) {
+  if (g.int8 != std::is_same<T, int8_t>::value || g.splits != 1 ||
+      list.off == nullptr)
+    return cudaErrorInvalidValue;
+  return launch_gemm_units<T, Epi, true>(g, epi, 0, stream, list);
 }
 
 // z (f32) -> bf16 copy: the first step's A operand of z @ W1.

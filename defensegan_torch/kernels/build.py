@@ -13,7 +13,10 @@ the CPU tests import every module of the port on machines without nvcc.
 
 The launch counters live here too: each kernel wrapper adds one to
 `LAUNCHES[<name>]` where it calls into its library, and nowhere else, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels. `SLABS` beside
+it counts the K slabs v2's two D products issue (`<product>.issued`) and
+those a dense walk would issue (`<product>.dense`), products `h@D` and
+`do@Dt`: their ratio is how far the slab lists cut the walk.
 """
 
 from __future__ import annotations
@@ -40,14 +43,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES: collections.Counter = collections.Counter(
     {name: 0 for name in KERNELS})
+SLABS: collections.Counter = collections.Counter()
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    """Every counter to 0, the kernels' and any other wrapper's."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Every counter to 0, the kernels' and any other wrapper's, and the
+    slab counts."""
+    for counter in (LAUNCHES, SLABS):
+        for name in counter:
+            counter[name] = 0
 
 
 def nvcc_path() -> str:

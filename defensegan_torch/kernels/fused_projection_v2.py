@@ -24,6 +24,12 @@ on a CPU tensor through `dense_loop_plain`, its plain PyTorch version,
 which rounds to bf16 where the kernel does and multiplies in float32. The
 restart selection (losses of z_final, per-image argmin, G(z*)) runs
 outside the loop through the dense packed apply, as in the JAX package.
+
+D is the deconv unrolled, mostly zero blocks: the pack carries the slab
+lists of D and D^T (kernels/gemm.py::slab_list), with which the kernel's
+h @ D and do @ D^T walk only the K slabs of their nonzero blocks (182 of
+686 and 142 of 637 on the flagship). The sums are the dense walk's; the
+lists depend on the pack alone, never on the row count.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ from defensegan_torch.defense.project import (ReconstructionResult,
                                               select_restarts,
                                               tile_restarts)
 from defensegan_torch.kernels import build
-from defensegan_torch.kernels.gemm import split_k_for
+from defensegan_torch.kernels.gemm import (TILE_M, SlabList, slab_list,
+                                           split_k_for)
 from defensegan_torch.models.generator import from_image_space
 from defensegan_torch.utils.profiling import span
 
@@ -69,6 +76,8 @@ class DensePack(NamedTuple):
     bd: torch.Tensor    # [1, P] f32
     out_dim: int        # true (unpadded) output dim, e.g. 784
     z_dim: int
+    d_slabs: SlabList   # the K slabs of D each 128 columns of h @ D walk
+    dt_slabs: SlabList  # the same of D^T for do @ D^T
 
 
 def pack_dense(generator, dtype: torch.dtype = torch.bfloat16) -> DensePack:
@@ -78,7 +87,7 @@ def pack_dense(generator, dtype: torch.dtype = torch.bfloat16) -> DensePack:
     (packed in the generator's compute dtype, then rounded to bf16) on
     the port's P columns; JAX's pack pads further with zero columns.
     dtype=float32 packs the same weights unrounded, for the fp32 plain
-    path.
+    path. The slab lists are read from D and D^T as packed.
     """
     packed = pack_generator(generator, "dense",
                             dtype=torch.float32 if dtype == torch.float32
@@ -89,11 +98,12 @@ def pack_dense(generator, dtype: torch.dtype = torch.bfloat16) -> DensePack:
     d = F.pad(d_mat.float(), (0, pad))
     bd = F.pad(b_d.float(), (0, pad))
     w1 = packed.w_fc.float()
+    d, dt = d.to(dtype), d.t().contiguous().to(dtype)
     return DensePack(
         w1=w1.to(dtype), w1t=w1.t().contiguous().to(dtype),
-        b1=packed.b_fc.float()[None, :],
-        d=d.to(dtype), dt=d.t().contiguous().to(dtype), bd=bd[None, :],
-        out_dim=out_dim, z_dim=w1.shape[0])
+        b1=packed.b_fc.float()[None, :], d=d, dt=dt, bd=bd[None, :],
+        out_dim=out_dim, z_dim=w1.shape[0], d_slabs=slab_list(d),
+        dt_slabs=slab_list(dt))
 
 
 def rounding(pack: DensePack) -> Callable:
@@ -251,14 +261,35 @@ def fused_projection_dense(pack: DensePack, x_flat_tanh: torch.Tensor,
     kp, fp = w1.shape
     splits = split_k_for(fp, kp)          # the fc backward dh @ W1^T
     bf16 = torch.bfloat16
-    return run_loop(
+    scratch = [(kp, bf16), (fp, bf16), (pack.d.shape[1], bf16), (fp, bf16),
+               (splits * kp, torch.float32)]
+    if chunk is None:       # run_loop's: one call below SCRATCH_CAP bytes
+        row_bytes = sum(c * torch.empty(0, dtype=dt).element_size()
+                        for c, dt in scratch)
+        chunk = max(ROW_TILE, SCRATCH_CAP // row_bytes // ROW_TILE
+                    * ROW_TILE)
+    z = run_loop(
         "fused_projection_v2", x_pad, z0_flat,
         [w1, w1t, b1, pad_to(pack.d, 0, COL_TILE),
-         pad_to(pack.dt, 1, COL_TILE), pack.bd],
-        [(kp, bf16), (fp, bf16), (pack.d.shape[1], bf16), (fp, bf16),
-         (splits * kp, torch.float32)],
-        (kp, fp, pack.d.shape[1], splits), out_dim=pack.out_dim,
+         pad_to(pack.dt, 1, COL_TILE), pack.bd, pack.d_slabs.off,
+         pack.d_slabs.idx, pack.dt_slabs.off, pack.dt_slabs.idx],
+        scratch, (kp, fp, pack.d.shape[1], splits), out_dim=pack.out_dim,
         rec_iters=rec_iters, rec_lr=rec_lr, momentum=momentum, chunk=chunk)
+    count_slabs(pack, z0_flat.shape[0], chunk, rec_iters)
+    return z
+
+
+def count_slabs(pack: DensePack, n: int, chunk: int, iters: int) -> None:
+    """Add to build.SLABS what the library calls of one v2 run over n
+    rows in chunks of `chunk` issue: per call, its 128-row M tiles x
+    iters x the listed slabs (`.issued`) and every slab (`.dense`), for
+    h @ D (`h@D`) and do @ D^T (`do@Dt`)."""
+    rows = _round_up(n, ROW_TILE)
+    m_tiles = sum(-(-min(chunk, rows - lo) // TILE_M)
+                  for lo in range(0, rows, chunk))
+    for name, sl in (("h@D", pack.d_slabs), ("do@Dt", pack.dt_slabs)):
+        build.SLABS[f"{name}.issued"] += m_tiles * iters * sl.issued
+        build.SLABS[f"{name}.dense"] += m_tiles * iters * sl.dense
 
 
 def make_dense_reconstructor(generator, image_shape, *, rec_rr: int,

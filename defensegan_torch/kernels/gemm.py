@@ -27,14 +27,20 @@ K-major copies of its codes. Epilogues (the loops' own):
 The fc backward's N = k = 128 is one tile wide, so its K is split into
 fixed ranges (`split_k_for`, from K and N only: a row's sums then do not
 depend on the call's row count) whose float32 sums one reduction adds.
+
+A bf16 product whose B is mostly zero blocks (v2's D, the deconv
+unrolled) takes a slab list (`slab_list`, built once from B): each N tile
+walks only the K slabs whose block of B holds a nonzero. The blocks left
+out are all zero, so the sums are the dense walk's.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from defensegan_torch.kernels import build
 
@@ -44,6 +50,7 @@ EPILOGUES = {"store": 0, "bias_relu": 1, "bias_relu_amax": 2,
 INT8_EPILOGUES = ("store", "tanh_grad_int8", "relu_mask_int8")
 LIBRARY = "fused_projection_v2"      # the library that holds fp_gemm
 COUNTER = "gemm"                     # build.LAUNCHES key of this wrapper
+TILE_M = 128          # rows of a tile (csrc/sm90_common.cuh kBM)
 TILE_N = 128          # columns of a tile (csrc/gemm_sm90.cuh kGemmBN)
 SLAB = 64             # bf16 of K per slab (128 bytes); int8 takes 128
 SLABS_PER_SPLIT = 16  # K per split: 1024 bf16
@@ -67,6 +74,31 @@ def split_ranges(K: int, splits: int):
     per = -(-slabs // splits)
     return [(s * per * SLAB, min((s + 1) * per * SLAB, K))
             for s in range(splits)]
+
+
+class SlabList(NamedTuple):
+    """The K slabs each N tile of a product walks (csrc/gemm_sm90.cuh
+    sm90::SlabList): tile j's are idx[off[j]:off[j + 1]], increasing."""
+    off: torch.Tensor   # [N tiles + 1] int32
+    idx: torch.Tensor   # [issued] int32
+    issued: int         # blocks listed: the slabs one M tile walks
+    dense: int          # N tiles x K slabs: what a dense walk issues
+
+
+def slab_list(b: torch.Tensor) -> SlabList:
+    """The slab list of a bf16 B [K, N], on B's device: for each TILE_N
+    columns, the SLAB-deep K slabs whose block holds a nonzero entry of B
+    itself (not of the geometry it came from), so that every block left
+    out is an exact zero. Depends on B alone, never on M."""
+    k, n = b.shape
+    slabs, tiles = -(-k // SLAB), -(-n // TILE_N)
+    nz = F.pad(b, (0, tiles * TILE_N - n, 0, slabs * SLAB - k)) != 0
+    blocks = nz.reshape(slabs, SLAB, tiles, TILE_N).any(3).any(1).t()
+    off = torch.zeros(tiles + 1, dtype=torch.int32, device=b.device)
+    off[1:] = blocks.sum(1).cumsum(0)
+    idx = blocks.nonzero()[:, 1].to(torch.int32)
+    return SlabList(off=off, idx=idx.contiguous(), issued=idx.numel(),
+                    dense=slabs * tiles)
 
 
 def _dims(a, b):
@@ -157,18 +189,31 @@ def gemm(a: torch.Tensor, b: torch.Tensor, epilogue: str = "store", *,
          row_scale: Optional[torch.Tensor] = None,
          col_scale: Optional[torch.Tensor] = None, scale: float = 1.0,
          z: Optional[torch.Tensor] = None, v: Optional[torch.Tensor] = None,
-         lr: float = 0.0, momentum: float = 0.0):
+         lr: float = 0.0, momentum: float = 0.0,
+         slabs: Optional[SlabList] = None):
     """One product and its epilogue: the kernel on CUDA tensors (or raise),
     the plain version on CPU tensors. Returns new tensors (as
     `gemm_plain`); z and v are left as they were. A bf16 product splits K
-    by `split_k_for`."""
+    by `split_k_for`. `slabs` (`slab_list(b)`): the kernel walks only the
+    listed slabs (bf16, K not split, epilogues store, tanh_grad and
+    relu_mask: v2's D products); the plain version needs no list."""
     kw = dict(bias=bias, x=x, h=h, row_scale=row_scale, col_scale=col_scale,
               scale=scale, z=z, v=v, lr=lr, momentum=momentum)
     if a.device.type == "cpu":
         return gemm_plain(a, b, epilogue, **kw)
     int8, m, n, k = _check(a, b, epilogue, kw)
+    if slabs is not None and (
+            int8 or split_k_for(k, n) != 1
+            or epilogue not in ("store", "tanh_grad", "relu_mask")):
+        raise ValueError(f"a slab list takes a bf16 product of one K range "
+                         f"with store, tanh_grad or relu_mask, not "
+                         f"{a.dtype} K {k} N {n} {epilogue!r}")
     dev = a.device
-    tensors = (a, b, bias, x, h, row_scale, col_scale, z, v)
+    if slabs is not None and slabs.off.numel() != -(-n // TILE_N) + 1:
+        raise ValueError(f"a slab list of {slabs.off.numel() - 1} tiles for "
+                         f"N = {n}")
+    tensors = (a, b, bias, x, h, row_scale, col_scale, z, v) + (
+        () if slabs is None else (slabs.off, slabs.idx))
     if any(t is not None and (t.device != dev or not t.is_contiguous())
            for t in tensors):
         raise ValueError(f"every tensor must be contiguous on {dev}")
@@ -200,15 +245,16 @@ def gemm(a: torch.Tensor, b: torch.Tensor, epilogue: str = "store", *,
         out = torch.empty((m, n), dtype=bf, device=dev)
     lib = build.load(LIBRARY)
     fn = lib.fp_gemm
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + \
         [ctypes.c_float] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    off, idx = (None, None) if slabs is None else (slabs.off, slabs.idx)
     with torch.cuda.device(dev):      # the library uses the current device
         rc = fn(a.data_ptr(), b.data_ptr(), _ptr(out), _ptr(bias), _ptr(x),
                 _ptr(h), _ptr(row_scale), _ptr(col_scale), amax.data_ptr(),
-                _ptr(zc), _ptr(vc), _ptr(zb), _ptr(ws), m, n, k, int(int8),
-                splits, EPILOGUES[epilogue], scale, lr, momentum,
-                torch.cuda.current_stream(dev).cuda_stream)
+                _ptr(zc), _ptr(vc), _ptr(zb), _ptr(ws), _ptr(off), _ptr(idx),
+                m, n, k, int(int8), splits, EPILOGUES[epilogue], scale, lr,
+                momentum, torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, "gemm")
     build.LAUNCHES[COUNTER] += 1
     if epilogue == "momentum":

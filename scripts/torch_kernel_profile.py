@@ -156,9 +156,12 @@ def issued(name: str, pack, rows: int, iters: int) -> dict:
         fc = (gemm_ops(n, kp, fp), bf)
         back = (gemm_ops(n, fp, kp), bf)
         if name.endswith("v2"):
-            return dict(zip(V2_LAUNCHES, (
-                fc, (gemm_ops(n, fp, p), bf), (gemm_ops(n, p, fp), bf),
-                back)))
+            d_ops, dt_ops = gemm_ops(n, fp, p), gemm_ops(n, p, fp)
+            if getattr(base, "d_slabs", None):  # the listed slabs' walk
+                d_ops *= base.d_slabs.issued / base.d_slabs.dense
+                dt_ops *= base.dt_slabs.issued / base.dt_slabs.dense
+            return dict(zip(V2_LAUNCHES, (fc, (d_ops, bf), (dt_ops, bf),
+                                          back)))
         return dict(zip(V2I_LAUNCHES, (
             fc, (0.0, bf), (gemm_ops(n, fp, p, True), i8), (0.0, bf),
             (gemm_ops(n, p, fp, True), i8), back)))

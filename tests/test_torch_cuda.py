@@ -466,6 +466,94 @@ def test_gemm_kernel_matches_plain(cuda_device, case):
     assert (outs[0] != 0).float().mean() > 0.2        # not an empty output
 
 
+# v2's D products with their slab lists: (pack field, epilogue, a tile of
+# D zeroed so that its list is empty)
+SLAB_CASES = {"h@D": ("d", "tanh_grad", False),
+              "h@D store": ("d", "store", False),
+              "h@D empty tile": ("d", "store", True),
+              "do@Dt": ("dt", "relu_mask", False),
+              "do@Dt store": ("dt", "store", False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [10, 64, 10240])
+@pytest.mark.parametrize("case", list(SLAB_CASES))
+def test_d_product_with_its_slab_list_equals_the_dense_walk(cuda_device,
+                                                            case, m):
+    """h @ D and do @ D^T of mnist_fast.yml's widths (seeded weights: the
+    zero blocks are the deconv's) walking only their listed slabs, against
+    the same product walking every slab (fp_gemm with no list), bit for
+    bit: a block left out is all zero, so its products add exact zeros.
+    A tile whose list is empty stores zero sums."""
+    from defensegan_torch.kernels.gemm import slab_list
+    name, epilogue, empty = SLAB_CASES[case]
+    tg = generator_for("mnist", 16, torch.bfloat16, "wide", 128,
+                       gen=torch.Generator().manual_seed(0))
+    pack = pack_dense(tg.to(cuda_device))
+    b = getattr(pack, name)
+    if empty:
+        b = b.clone()
+        b[:, 256:384] = 0
+    sl = slab_list(b) if empty else getattr(pack, f"{name}_slabs")
+    assert sl.issued < sl.dense
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    a = torch.randn(m, b.shape[0], device=cuda_device, generator=gen)
+    a = (torch.relu(a) if name == "d" else 0.01 * a).to(torch.bfloat16)
+    kw = {}
+    if epilogue == "tanh_grad":
+        kw = dict(bias=pack.bd[0].contiguous(), scale=2.0 / 784,
+                  x=torch.tanh(torch.randn(m, b.shape[1], device=cuda_device,
+                                           generator=gen)).to(torch.bfloat16))
+    if epilogue == "relu_mask":
+        kw["h"] = torch.randn(m, b.shape[1], device=cuda_device,
+                              generator=gen).to(torch.bfloat16)
+    before = build.LAUNCHES[GEMM_COUNTER]
+    listed = gemm(a, b, epilogue, slabs=sl, **kw)
+    dense = gemm(a, b, epilogue, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[GEMM_COUNTER] == before + 2
+    bits = torch.int32 if epilogue == "store" else torch.int16
+    assert torch.equal(listed.view(bits), dense.view(bits))
+    assert (dense != 0).float().mean() > 0.2
+    if empty:
+        assert sl.off[3] == sl.off[2] and not listed[:, 256:384].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [10, 64, 10240])
+def test_v2_zfinal_is_the_dense_walks_bit_for_bit(cuda_device, rows):
+    """v2's z_final on the flagship at L 200 (scripts/torch_v2_zfinal.py)
+    has the sha256 that the parent's dense walk of D gave on this card and
+    torch build (its REFERENCE)."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
+                           / "scripts"))
+    import torch_v2_zfinal
+    got = torch_v2_zfinal.zfinal(rows)
+    assert got["same"] is not None, (
+        f"no reference digest for {got['device']} / torch {got['torch']}: "
+        "record one from the parent checkout (--root)", got)
+    assert got["same"], got
+
+
+@pytest.mark.cuda
+def test_slab_counter_reads_the_lists_share_after_a_reconstruct(cuda_device):
+    """After a flagship reconstruct the slab counter reads 182 of 686
+    (26.5%) for h @ D and 142 of 637 (22.3%) for do @ D^T: per library
+    call, M tiles x L x the list against every slab."""
+    gan = _serving_gan("mnist_fast", cuda_device)
+    build.SLABS.clear()
+    x = torch.rand(3, 28, 28, 1, device=cuda_device)
+    gan.reconstruct(x, gen=torch.Generator(device=cuda_device).manual_seed(0))
+    torch.cuda.synchronize()
+    assert gan.last_kernel == "pallas"
+    s = build.SLABS
+    # 3 images x R 10 = 30 rows: one 64-row call, one M tile, L 200
+    assert (s["h@D.issued"], s["h@D.dense"]) == (200 * 182, 200 * 686)
+    assert (s["do@Dt.issued"], s["do@Dt.dense"]) == (200 * 142, 200 * 637)
+
+
 @pytest.mark.cuda
 def test_training_checkpoint_round_trip_on_card(cuda_device, tmp_path):
     """A run trained on the card restores on the card: the modules, both
