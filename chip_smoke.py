@@ -692,8 +692,8 @@ def bounds_v4(generator, pack, n: int, iters: int) -> dict:
     the dense grid-conv form counts the zero taps of the space-to-depth
     kernels on top, and the kernel issues that form less the skipped
     border taps plus its padding (kernel_mflop)."""
-    from defensegan_torch.kernels.fused_projection_v3 import _tap_masks
     from defensegan_torch.kernels.fused_projection_v4 import padded_v4
+    from defensegan_torch.kernels.grid import tap_masks
     k, hw = generator.latent_dim, generator.base_hw
     chans = list(generator.channels) + [generator.out_channels]
     macs = k * hw * hw * chans[0]
@@ -709,7 +709,7 @@ def bounds_v4(generator, pack, n: int, iters: int) -> dict:
                           for lv in pack.levels))
     pp = padded_v4(pack)
     computed = 4 * (pp.z_dim * hw * hw * pp.c0 + sum(
-        int(_tap_masks(lv.g).sum()) * lv.ci * lv.co for lv in pp.levels))
+        int(tap_masks(lv.g).sum()) * lv.ci * lv.co for lv in pp.levels))
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "function_mflop": 4 * macs / 1e6, "s2d_dense_mflop": dense / 1e6,

@@ -78,9 +78,10 @@ class Config:
     compute_dtype: str = "bfloat16"  # COMPUTE_DTYPE: float32 | bfloat16
     projection_kernel: str = "auto"  # PROJECTION_KERNEL:
     #   auto   = on CUDA the bf16 fused kernel: v2 for wide single-deconv
-    #            archs, v3 for two-deconv deep ones; the plain
-    #            per-topology path otherwise (packed for single-deconv,
-    #            xla for deeper stacks: the 64x64 ones) and under back_prop
+    #            archs, v3 for two-deconv deep ones, v4 (pallas_v4) for
+    #            the 64x64 stacks; the plain per-topology path on the CPU
+    #            and under back_prop (packed for single-deconv, xla for
+    #            deeper stacks)
     #   xla    = generator module in the autograd loop (defense/project.py)
     #   packed = BN-folded flat-space generator (defense/fastgen.py)
     #   pallas = bf16 fused RxL loop: v2 (kernels/fused_projection_v2.py)
@@ -90,9 +91,9 @@ class Config:
     #            (kernels/fused_projection_v2i.py); opt-in because
     #            quantized defense quality is gated per checkpoint
     #            (the int8_gate.json criterion) rather than assumed
-    #   pallas_v4 = OPT-IN fused loop for multi-deconv generators, the
-    #            64x64 stacks (kernels/fused_projection_v4.py); auto
-    #            never resolves to it, as in the JAX package
+    #   pallas_v4 = fused loop for multi-deconv generators, the 64x64
+    #            stacks (kernels/fused_projection_v4.py); what auto takes
+    #            there on CUDA, where the JAX package's auto takes xla
     #   see gan/defense_gan.py::resolve_projection_kernel
     packed_variant: str = "auto"     # PACKED_VARIANT (kernel=packed):
     #   conv | phase | dense | hybrid | s2d (defense/fastgen.py); auto =

@@ -42,11 +42,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from defensegan_torch.kernels.fused_projection_v2 import run_loop
 from defensegan_torch.kernels.fused_projection_v3 import (
-    S2DPack, _bf16_round, _tap_masks, _tap_offsets, check_targets,
-    make_s2d_reconstructor, padded_s2d)
+    S2DPack, check_targets, make_s2d_reconstructor, padded_s2d)
 from defensegan_torch.kernels.gemm import split_k_for
+from defensegan_torch.kernels.grid import bf16_round, tap_masks, tap_offsets
+from defensegan_torch.kernels.loop import LoopState, run_loop
 
 LIBRARY = "fused_projection_v3_variants"
 COUNTER = "fused_projection_v3p"     # build.LAUNCHES key of this wrapper
@@ -73,7 +73,7 @@ def padded_tap_masks(g: int) -> np.ndarray:
     gx = g + 1
     m = np.zeros((g * gx, 9), np.float32)
     for p in range(g * gx):
-        for k, (dy, dx) in enumerate(_tap_offsets(g)):
+        for k, (dy, dx) in enumerate(tap_offsets(g)):
             q = p + dy * gx + dx
             m[p, k] = float(0 <= q < g * gx and q % gx != g)
     return m
@@ -85,7 +85,7 @@ def padded_pixel_order(g: int) -> np.ndarray:
     inside, 6 on an edge, 4 in a corner; pixel order within a count): the
     grid conv's walk, which never reaches the pad column."""
     real = real_to_pad(g)
-    return real[np.argsort(-_tap_masks(g).sum(1), kind="stable")] \
+    return real[np.argsort(-tap_masks(g).sum(1), kind="stable")] \
         .astype(np.int32)
 
 
@@ -124,13 +124,13 @@ def s2d_padded_loop_plain(pack: S2DPack, x_s2d: torch.Tensor,
     v3p's one rounding change (the fc product rounded before the bias):
     v3's function on the padded grid.
     """
-    rnd = _bf16_round
+    rnd = bf16_round
     g, c0, ca, cb = pack.grid_hw, pack.c0, pack.ca, pack.cb
     gx = g + 1
     npix = g * gx
     n = z0.shape[0]
     dev = z0.device
-    offs = [dy * gx + dx for dy, dx in _tap_offsets(g)]
+    offs = [dy * gx + dx for dy, dx in tap_offsets(g)]
     real = torch.from_numpy(real_to_pad(g)).to(dev)
     padm = torch.from_numpy(_pad_row_mask(g, gx)).to(dev)     # [P, 1]
     counts = torch.from_numpy(padded_tap_masks(g)).to(dev) > 0  # [P, 9]
@@ -199,24 +199,22 @@ def fused_projection_s2d_padded(pack: S2DPack, x_s2d: torch.Tensor,
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     or raises.
     """
-    g = pack.grid_hw
     check_targets(pack, x_s2d, z0_flat)
     if z0_flat.device.type == "cpu":
         return s2d_padded_loop_plain(pack, x_s2d, z0_flat,
                                      rec_iters=rec_iters, rec_lr=rec_lr,
                                      momentum=momentum)
-    x_pad, weights, scratch, dims = kernel_args(pack, x_s2d)
-    return run_loop(
-        LIBRARY, x_pad, z0_flat, weights, scratch, dims,
-        out_dim=g * g * pack.cb, rec_iters=rec_iters, rec_lr=rec_lr,
-        momentum=momentum, chunk=chunk, entry="fp_v3p_run", counter=COUNTER)
+    x_pad = pad_pixels(x_s2d.to(torch.bfloat16), pack.grid_hw, pack.cb)
+    return run_loop(v3p_state(pack), x_pad, z0_flat, rec_iters=rec_iters,
+                    rec_lr=rec_lr, momentum=momentum, chunk=chunk)
 
 
-def kernel_args(pack: S2DPack, x_s2d: torch.Tensor):
-    """fp_v3p_run's inputs on x_s2d's device, as run_loop takes them:
-    (x on the padded grid [N, P*cb] bf16, the weights in argument order,
-    (columns, dtype) of each per-row scratch buffer, the widths)."""
-    g, dev, bf = pack.grid_hw, x_s2d.device, torch.bfloat16
+def v3p_state(pack: S2DPack) -> LoopState:
+    """fp_v3p_run's state on the pack's device: the fc padded to the g x
+    (g+1) grid, v3's other padded weights, v3p's tap masks, walk and pad
+    mask; scratch per row on the padded grid. The targets go in padded
+    (`pad_pixels`)."""
+    g, dev, bf = pack.grid_hw, pack.w1.device, torch.bfloat16
     pp = padded_s2d(pack)
     kp, c0, ca, cb = pp.z_dim, pp.c0, pp.ca, pp.cb
     npix = g * (g + 1)
@@ -228,12 +226,14 @@ def kernel_args(pack: S2DPack, x_s2d: torch.Tensor):
     order = torch.from_numpy(padded_pixel_order(g)).to(dev)
     padm = torch.from_numpy(_pad_row_mask(g, g + 1)).reshape(-1).to(dev)
     splits = split_k_for(npix * c0, kp)                    # the fc backward
-    return (pad_pixels(x_s2d.to(bf), g, cb),
-            [w1, w1t, b1, pp.ka, pp.kat, pp.ba, pp.kbp, pp.kbpt, pp.bb,
-             masks, order, padm],
-            [(kp, bf), (npix * c0, bf), (npix * ca, bf), (npix * npk, bf),
-             (npix * kpk, bf), (splits * kp, torch.float32)],
-            (kp, c0, ca, cb, g, npk, kpk, splits))
+    return LoopState(
+        library=LIBRARY, entry="fp_v3p_run", counter=COUNTER,
+        weights=(w1, w1t, b1, pp.ka, pp.kat, pp.ba, pp.kbp, pp.kbpt, pp.bb,
+                 masks, order, padm),
+        scratch=((kp, bf), (npix * c0, bf), (npix * ca, bf),
+                 (npix * npk, bf), (npix * kpk, bf),
+                 (splits * kp, torch.float32)),
+        dims=(kp, c0, ca, cb, g, npk, kpk, splits), out_dim=g * g * pack.cb)
 
 
 def make_s2d_padded_reconstructor(generator, image_shape, *, rec_rr: int,

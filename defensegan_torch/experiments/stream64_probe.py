@@ -55,12 +55,10 @@ import torch.nn.functional as F
 
 from defensegan_torch.defense.fastgen import phase_decompose
 from defensegan_torch.kernels import build
-from defensegan_torch.kernels.fused_projection_v3 import (_bf16_round,
-                                                          _tap_masks,
-                                                          _tap_offsets,
-                                                          pixel_order)
 from defensegan_torch.kernels.fused_projection_v4 import (grid_conv,
                                                           grid_conv_t)
+from defensegan_torch.kernels.grid import (bf16_round, pixel_order,
+                                           tap_masks, tap_offsets)
 from defensegan_torch.models.layers import (conv_transpose_pads,
                                             conv_transpose_same)
 from defensegan_torch.ckpt.bridge import conv_transpose_weight
@@ -158,7 +156,7 @@ def tile_slabs(zero: Optional[np.ndarray], g: int, ci: int, co4: int,
     backward). Forward: a tap counts on a bn-lane tile unless all its
     blocks there are zero, and issues ci / 64 slabs; backward: a tap issues
     its nonzero slabs of co4. zero=None: every block."""
-    masks = _tap_masks(g)
+    masks = tap_masks(g)
     nz = np.ones((9, co4 // BLOCK), bool) if zero is None else np.array(
         [[not (int(z) >> b) & 1 for b in range(co4 // BLOCK)]
          for z in zero])
@@ -197,7 +195,7 @@ def level_tensors(wcat, wcat_t, bias, g: int, device) -> LevelPack:
     return LevelPack(
         w=w, wt=torch.as_tensor(wcat_t.reshape(9 * co4, ci)).to(device, bf),
         bias=torch.as_tensor(bias).to(device, torch.float32),
-        masks=torch.from_numpy(_tap_masks(g)).to(device),
+        masks=torch.from_numpy(tap_masks(g)).to(device),
         order=level_walk(zero, g, ci, co4, bn, False, device), g=g, ci=ci,
         co=co4 // 4, zero=torch.from_numpy(zero.astype(np.int32)).to(device),
         order_t=level_walk(zero, g, ci, co4, bn, True, device))
@@ -259,7 +257,7 @@ def _blocks_conv(a: torch.Tensor, w: torch.Tensor, g: int,
     `keep[k]` holds (all of them: grid_conv's sums exactly)."""
     ap = F.pad(a, (0, 0, 1, 1, 1, 1))
     acc = torch.zeros(a.shape[:-1] + w.shape[2:], device=a.device)
-    for k, (dy, dx) in enumerate(_tap_offsets(g)):
+    for k, (dy, dx) in enumerate(tap_offsets(g)):
         prod = ap[:, 1 + dy:1 + dy + g, 1 + dx:1 + dx + g] @ w[k]
         lanes = torch.as_tensor(np.repeat(keep[k], BLOCK), device=a.device)
         acc = torch.where(lanes, acc + prod, acc)
@@ -272,12 +270,12 @@ def _blocks_conv_t(d: torch.Tensor, wt: torch.Tensor, g: int,
     in slab order, over the slabs `keep[k]` holds (the tap's sum, then
     rounded to bf16, before the float32 sum of the taps)."""
     acc = 0.0
-    for k, (dy, dx) in enumerate(_tap_offsets(g)):
+    for k, (dy, dx) in enumerate(tap_offsets(g)):
         part = torch.zeros(d.shape[:-1] + wt.shape[2:], device=d.device)
         for b in np.flatnonzero(keep[k]):
             sl = slice(BLOCK * b, BLOCK * (b + 1))
             part = part + d[..., sl] @ wt[k][sl]
-        t = F.pad(_bf16_round(part), (0, 0, 1, 1, 1, 1))
+        t = F.pad(bf16_round(part), (0, 0, 1, 1, 1, 1))
         acc = acc + t[:, 1 - dy:1 - dy + g, 1 - dx:1 - dx + g]
     return acc
 
@@ -299,7 +297,7 @@ def fused_level_plain(x: torch.Tensor, cot: torch.Tensor, pack: LevelPack,
     zero = pack.zero.cpu().numpy() if skip_zero else np.zeros(9, np.int64)
     keep = np.array([[not (int(z) >> b) & 1 for b in range(nb)]
                      for z in zero])
-    a = _bf16_round(x.float())
+    a = bf16_round(x.float())
     h = _blocks_conv(a, pack.w.float().reshape(9, ci, co4), g, keep) + \
         pack.bias
     dh = torch.where(h > 0.0, cot.float(), 0.0).to(torch.bfloat16)
@@ -386,7 +384,7 @@ def check_against_plain(x: torch.Tensor, cot: torch.Tensor,
     """
     from defensegan_torch.kernels.conv3x3 import rounding_excess
     n, g, ci, co4 = x.shape[0], pack.g, pack.ci, 4 * pack.co
-    a = _bf16_round(x.float())
+    a = bf16_round(x.float())
     wk = pack.w.float().reshape(9, ci, co4)
     h = grid_conv(a, wk, g) + pack.bias
     mag = grid_conv(a.abs(), wk.abs(), g)

@@ -38,11 +38,11 @@ import torch
 from defensegan_torch.experiments.v3_diag import (bind, events_ms, host_ms,
                                                   launch)
 from defensegan_torch.kernels import build
-from defensegan_torch.kernels.fused_projection_v2 import ROW_TILE, _round_up
 from defensegan_torch.kernels.fused_projection_v3 import (
-    CUTS, S2DPack, check_targets, pack_s2d, padded_s2d, pixel_order,
-    s2d_step_plain)
+    CUTS, S2DPack, check_targets, pack_s2d, padded_s2d, s2d_step_plain)
 from defensegan_torch.kernels.gemm import split_k_for
+from defensegan_torch.kernels.grid import pixel_order
+from defensegan_torch.kernels.loop import ROW_TILE, round_up
 
 LIBRARY = COUNTER = "v3_diag2"    # the library and its build.LAUNCHES key
 LR, MOMENTUM = 10.0, 0.7          # the script's step (pallas_v3_diag2.py)
@@ -131,7 +131,7 @@ class Diag2Plan:
         pp = padded_s2d(pack)
         g, p2 = pp.grid_hw, pp.grid_hw ** 2
         npk, kpk = pp.kbp.shape[1], pp.kbpt.shape[0]
-        k, kp, rows = pack.z_dim, pp.z_dim, _round_up(self.n, ROW_TILE)
+        k, kp, rows = pack.z_dim, pp.z_dim, round_up(self.n, ROW_TILE)
         splits = split_k_for(p2 * pp.c0, kp)          # the fc backward
         order = torch.from_numpy(pixel_order(g)).to(dev)
         weights = [t.contiguous() for t in (

@@ -35,10 +35,11 @@ import torch.nn.functional as F
 
 from defensegan_torch.kernels import build
 from defensegan_torch.kernels.conv3x3 import conv3x3_plain
-from defensegan_torch.kernels.fused_projection_v2 import ROW_TILE
 from defensegan_torch.kernels.fused_projection_v3 import (
-    S2DPack, _tap_masks, _tap_offsets, check_targets, make_s2d_reconstructor,
-    pixel_order, run_s2d, s2d_loop_plain)
+    S2DPack, check_targets, fused_projection_s2d, make_s2d_reconstructor,
+    s2d_loop_plain, s2d_state)
+from defensegan_torch.kernels.grid import pixel_order, tap_masks, tap_offsets
+from defensegan_torch.kernels.loop import ROW_TILE
 
 LIBRARY = "fused_projection_v3_variants"
 COUNTER = "fused_projection_v3_ilp"      # build.LAUNCHES key of this wrapper
@@ -84,9 +85,11 @@ def fused_projection_ilp(pack: S2DPack, x_s2d: torch.Tensor,
     if z0_flat.device.type == "cpu":
         return ilp_loop_plain(pack, x_s2d, z0_flat, rec_iters=rec_iters,
                               rec_lr=rec_lr, momentum=momentum)
-    return run_s2d(pack, x_s2d, z0_flat, rec_iters=rec_iters, rec_lr=rec_lr,
-                   momentum=momentum, chunk=chunk, library=LIBRARY,
-                   entry="fp_v3_ilp_run", counter=COUNTER)
+    return fused_projection_s2d(
+        pack, x_s2d, z0_flat, rec_iters=rec_iters, rec_lr=rec_lr,
+        momentum=momentum, chunk=chunk,
+        state=s2d_state(pack, library=LIBRARY,
+                        entry="fp_v3_ilp_run")._replace(counter=COUNTER))
 
 
 def conv_a(inp: torch.Tensor, w: torch.Tensor, g: int, mode: str, *,
@@ -136,7 +139,7 @@ def conv_a(inp: torch.Tensor, w: torch.Tensor, g: int, mode: str, *,
     out = h.clone() if backward else torch.empty(
         (m, g * g * cout), dtype=bf, device=dev)
     b = None if backward else bias.float().contiguous()
-    masks = torch.from_numpy(_tap_masks(g)).to(dev)
+    masks = torch.from_numpy(tap_masks(g)).to(dev)
     order = torch.from_numpy(pixel_order(g)).to(dev)
     lib = build.load(LIBRARY)
     fn = lib.fp_conv_a
@@ -162,7 +165,7 @@ def _backward_chain_plain(inp: torch.Tensor, w: torch.Tensor, g: int,
     a = inp.float().reshape(m, g, g, cin)
     wk = w.float().reshape(9, cin, cout)
     acc = 0.0
-    for k, (dy, dx) in enumerate(_tap_offsets(g)):
+    for k, (dy, dx) in enumerate(tap_offsets(g)):
         t = F.pad(a @ wk[k], (0, 0, 1, 1, 1, 1))
         acc = acc + t[:, 1 - dy:1 - dy + g, 1 - dx:1 - dx + g]
     out = torch.where(h.float() > 0.0, acc.reshape(m, -1), 0.0)

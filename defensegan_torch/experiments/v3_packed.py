@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 from defensegan_torch.kernels.fused_projection_v3 import (
-    S2DPack, check_targets, run_s2d, s2d_loop_plain)
+    S2DPack, check_targets, fused_projection_s2d, s2d_loop_plain, s2d_state)
 
 LIBRARY = "fused_projection_v3_variants"
 COUNTER = "fused_projection_v3_packed"   # build.LAUNCHES key of this wrapper
@@ -57,8 +57,10 @@ def run_packed(pack: S2DPack, x_s2d: torch.Tensor, z0_flat: torch.Tensor, *,
     if z0_flat.device.type == "cpu":
         return packed_loop_plain(pack, x_s2d, z0_flat, rec_iters=rec_iters,
                                  rec_lr=rec_lr, momentum=momentum)
-    return run_s2d(pack, x_s2d, z0_flat, rec_iters=rec_iters, rec_lr=rec_lr,
-                   momentum=momentum, chunk=chunk, library=LIBRARY,
-                   entry="fp_v3_packed_run" if fused
-                   else "fp_v3_packed_launches_run",
-                   counter=COUNTER, fused_conv_b=fused)
+    return fused_projection_s2d(
+        pack, x_s2d, z0_flat, rec_iters=rec_iters, rec_lr=rec_lr,
+        momentum=momentum, chunk=chunk,
+        state=s2d_state(pack, library=LIBRARY,
+                        entry="fp_v3_packed_run" if fused
+                        else "fp_v3_packed_launches_run",
+                        fused_conv_b=fused)._replace(counter=COUNTER))

@@ -38,11 +38,13 @@ from defensegan_torch.ckpt.checkpoint import (latest_step,
 from defensegan_torch.configs import Config, save_config
 from defensegan_torch.defense.project import (ReconstructionResult,
                                               reconstruct, sample_z0)
-from defensegan_torch.kernels.fused_projection_v2 import \
-    dense_kernel_available
-from defensegan_torch.kernels.fused_projection_v3 import \
-    s2d_kernel_available
-from defensegan_torch.kernels.fused_projection_v4 import v4_kernel_available
+from defensegan_torch.kernels import (dense_kernel_available,
+                                      make_dense_int8_reconstructor,
+                                      make_dense_reconstructor,
+                                      make_s2d_reconstructor,
+                                      make_v4_reconstructor,
+                                      s2d_kernel_available,
+                                      v4_kernel_available)
 from defensegan_torch.gan.train import (GANState, init_gan_state,
                                         make_data_train_step)
 from defensegan_torch.models import critic_for, encoder_for, \
@@ -53,6 +55,9 @@ from defensegan_torch.utils.visualize import save_images
 
 PROJECTION_KERNELS = ("auto", "xla", "packed", "pallas", "pallas_int8",
                       "pallas_v4")
+# the fused loops a resolved path runs on, by name, and their reconstructors
+LOOPS = {"v2": make_dense_reconstructor, "v2i": make_dense_int8_reconstructor,
+         "v3": make_s2d_reconstructor, "v4": make_v4_reconstructor}
 
 
 def _dtype_of(name: str) -> torch.dtype:
@@ -111,6 +116,16 @@ def resolve_projection_kernel(gan, *, back_prop: bool = False,
     64x64 stack, which 'pallas_v4' serves; 'pallas_v4' on a
     single-deconv generator).
     """
+    return _resolve(gan, back_prop=back_prop, requested=requested,
+                    on_cuda=on_cuda)[0]
+
+
+def _resolve(gan, *, back_prop: bool = False,
+             requested: Optional[str] = None,
+             on_cuda: Optional[bool] = None) -> Tuple[str, str]:
+    """(path, loop): the path `resolve_projection_kernel` returns and
+    what serves it, one of LOOPS ('v2', 'v2i', 'v3', 'v4') on a kernel
+    path, the path itself ('packed', 'xla') on a plain one."""
     if requested is None:
         requested = gan.cfg.projection_kernel
     if requested not in PROJECTION_KERNELS:
@@ -124,30 +139,32 @@ def resolve_projection_kernel(gan, *, back_prop: bool = False,
     v4_ok = v4_kernel_available(gan.generator)
     if requested == "auto":
         if on_cuda and not back_prop:
-            if dense_ok or s2d_ok:
-                return "pallas"
+            if dense_ok:
+                return "pallas", "v2"
+            if s2d_ok:
+                return "pallas", "v3"
             if v4_ok:
-                return "pallas_v4"
-        return xla_best
+                return "pallas_v4", "v4"
+        return xla_best, xla_best
     if requested in ("xla", "packed"):
-        return requested
+        return requested, requested
     if not on_cuda:
-        return xla_best
+        return xla_best, xla_best
     if back_prop:
         raise NotImplementedError(
             f"{requested!r} has no backward pass: under back_prop=True "
             "request 'auto', 'packed' or 'xla' (the differentiable paths)")
     if requested == "pallas_v4":
         if v4_ok:
-            return requested
+            return requested, "v4"
         raise NotImplementedError(
             f"'pallas_v4' covers multi-deconv generators up to "
             f"channels[0] = 768, not channels {channels}; a single-deconv "
             "generator has the dense kernels ('pallas', 'pallas_int8')")
     if dense_ok:
-        return requested
+        return requested, "v2i" if requested == "pallas_int8" else "v2"
     if s2d_ok:
-        return "pallas"       # deep topologies: the bf16 v3 only
+        return "pallas", "v3"     # deep topologies: the bf16 v3 only
     raise NotImplementedError(
         f"{requested!r}: no ported kernel covers this generator under that "
         f"name (channels {channels}, base {gan.generator.base_hw}); the "
@@ -511,9 +528,9 @@ class DefenseGAN:
             if gen is None:
                 gen = torch.Generator(device=self.device).manual_seed(
                     cfg.seed + 1)
-            path = resolve_projection_kernel(self, requested=kernel,
-                                             back_prop=back_prop)
-            fn = self._reconstructor_for(path, rr, iters, lr, back_prop)
+            path, loop = _resolve(self, requested=kernel,
+                                  back_prop=back_prop)
+            fn = self._reconstructor_for(loop, rr, iters, lr, back_prop)
             with torch.no_grad():
                 if z0 is None:
                     if init == "random":
@@ -533,34 +550,22 @@ class DefenseGAN:
         return encoder_z0(self.encoder, x, gen, rec_rr=rr, mode=mode,
                           sigma=self.cfg.encoder_sigma)
 
-    def _reconstructor_for(self, kernel: str, rr: int, iters: int,
+    def _reconstructor_for(self, loop: str, rr: int, iters: int,
                            lr: float, back_prop: bool = False):
         """Build (or fetch from the cache) f(x, z0=...) for a RESOLVED
-        kernel. Builders pack the current weights; load() clears the
-        cache. back_prop reaches the plain paths only: the resolver never
-        hands a kernel path over under back_prop."""
-        sig = (kernel, rr, iters, lr, back_prop)
+        loop (`_resolve`: a fused loop of LOOPS, 'packed' or 'xla').
+        Builders pack the current weights; load() clears the cache.
+        back_prop reaches the plain paths only: the resolver never hands a
+        kernel path over under back_prop."""
+        sig = (loop, rr, iters, lr, back_prop)
         if sig in self._reconstructors:
             return self._reconstructors[sig]
         cfg = self.cfg
-        common = dict(rec_rr=rr, rec_iters=iters, rec_lr=lr,
-                      momentum=cfg.rec_momentum)
-        if kernel == "pallas_v4":
-            from defensegan_torch.kernels import make_v4_reconstructor
-            fn = make_v4_reconstructor(self.generator, cfg.image_shape,
-                                       **common)
-        elif kernel in ("pallas", "pallas_int8"):
-            from defensegan_torch.kernels import (
-                make_dense_int8_reconstructor, make_dense_reconstructor,
-                make_s2d_reconstructor)
-            if not dense_kernel_available(self.generator):
-                make = make_s2d_reconstructor
-            elif kernel == "pallas_int8":
-                make = make_dense_int8_reconstructor
-            else:
-                make = make_dense_reconstructor
-            fn = make(self.generator, cfg.image_shape, **common)
-        elif kernel == "packed":
+        if loop in LOOPS:
+            fn = LOOPS[loop](self.generator, cfg.image_shape, rec_rr=rr,
+                             rec_iters=iters, rec_lr=lr,
+                             momentum=cfg.rec_momentum)
+        elif loop == "packed":
             # For s2d the loop runs in space-to-depth pixel order (MSE is
             # permutation-invariant); the un-shuffle is one gather outside
             from defensegan_torch.defense.fastgen import (make_packed_apply,

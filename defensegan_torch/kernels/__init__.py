@@ -15,6 +15,10 @@
   - gemm, conv3x3: one product (csrc/gemm_sm90.cuh, under every product of
     the four loops) or one grid conv (csrc/conv3x3_sm90.cuh, under v3's and
     v4's convs) on its own, for holding it against its plain version.
+  - loop: the layer under the four loops: each loop's kernel state
+    (`LoopState`, built once per reconstructor), `run_loop`, which calls
+    its library, and the reconstructor they share; grid: the grid
+    convs' tap tables and padding.
 
 Each wrapper runs its plain PyTorch version on CPU tensors and its kernel
 on CUDA tensors. kernels/build.py compiles the sources with nvcc at first

@@ -31,13 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from defensegan_torch.kernels import build
-from defensegan_torch.kernels.fused_projection_v3 import (_bf16_round,
-                                                          _tap_masks,
-                                                          _tap_offsets,
-                                                          pixel_order)
 from defensegan_torch.kernels.fused_projection_v4 import (grid_conv,
                                                           grid_conv_t,
                                                           interleave_perm)
+from defensegan_torch.kernels.grid import (bf16_round, pixel_order,
+                                           tap_masks, tap_offsets)
 
 MODES = {"chain": 0, "per_tap": 1, "tanh_grad": 2, "backward": 3}
 LIBRARY = "fused_projection_v4"      # the library that holds fp_conv3x3
@@ -97,9 +95,8 @@ def conv3x3_plain(inp: torch.Tensor, w: torch.Tensor, g: int, mode: str, *,
     kernel's float32 sums, so both run the taps one by one here."""
     _check(inp, w, g, mode, bias, x, h, in_fine, out_fine)
     m, cin, cout = inp.shape[0], w.shape[0] // 9, w.shape[1]
-    a = to_blocked(_bf16_round(inp.float()), g, in_fine).reshape(m, g, g,
-                                                                 cin)
-    wk = _bf16_round(w.float()).reshape(9, cin, cout)
+    a = to_blocked(bf16_round(inp.float()), g, in_fine).reshape(m, g, g, cin)
+    wk = bf16_round(w.float()).reshape(9, cin, cout)
     if mode == "backward":
         acc = grid_conv_t(a, wk, g).reshape(m, -1)
         out = torch.where(h.float() > 0.0, acc, 0.0)
@@ -108,7 +105,7 @@ def conv3x3_plain(inp: torch.Tensor, w: torch.Tensor, g: int, mode: str, *,
         acc = acc.reshape(m, -1)
         if mode == "tanh_grad":
             t = torch.tanh(acc)
-            out = (t - _bf16_round(x.float())) * (1.0 - t * t) * scale
+            out = (t - bf16_round(x.float())) * (1.0 - t * t) * scale
         else:
             out = torch.relu(acc)
     return to_fine(out.to(torch.bfloat16), g, out_fine)
@@ -139,7 +136,7 @@ def conv3x3(inp: torch.Tensor, w: torch.Tensor, g: int, mode: str, *,
     m = inp.shape[0]
     out = h.clone() if mode == "backward" else torch.empty(
         (m, g * g * cout), dtype=bf, device=dev)
-    masks = torch.from_numpy(_tap_masks(g)).to(dev)
+    masks = torch.from_numpy(tap_masks(g)).to(dev)
     order = torch.from_numpy(pixel_order(g)).to(dev)
     b = None if bias is None else bias.float().contiguous()
     lib = build.load(LIBRARY)
@@ -163,7 +160,7 @@ def _tap_magnitudes(a: torch.Tensor, w: torch.Tensor, g: int) -> torch.Tensor:
     """sum_k |a[p - off_k] @ W_k| on blocked [N, g, g, cin] (float32): the
     sizes of the backward's rounded taps, added up."""
     acc = 0.0
-    for k, (dy, dx) in enumerate(_tap_offsets(g)):
+    for k, (dy, dx) in enumerate(tap_offsets(g)):
         t = F.pad((a @ w[k]).abs(), (0, 0, 1, 1, 1, 1))
         acc = acc + t[:, 1 - dy:1 - dy + g, 1 - dx:1 - dx + g]
     return acc
@@ -186,8 +183,8 @@ def rounding_excess(got: torch.Tensor, ref: torch.Tensor, inp: torch.Tensor,
     turns TF32 off.
     """
     m, cin, cout = inp.shape[0], w.shape[0] // 9, w.shape[1]
-    a = _bf16_round(to_blocked(inp, g, in_fine).float()).reshape(m, g, g, cin)
-    wk = _bf16_round(w.float()).reshape(9, cin, cout)
+    a = bf16_round(to_blocked(inp, g, in_fine).float()).reshape(m, g, g, cin)
+    wk = bf16_round(w.float()).reshape(9, cin, cout)
     backward = mode == "backward"
     k = wk.abs().reshape(3, 3, cin, cout)
     k = (k.flip(0, 1) if backward else k).permute(3, 2, 0, 1)

@@ -34,37 +34,22 @@ lists depend on the pack alone, never on the row count.
 
 from __future__ import annotations
 
-import ctypes
-from typing import Callable, NamedTuple, Optional, Sequence
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from defensegan_torch.defense.fastgen import make_packed_apply, \
     pack_generator
-from defensegan_torch.defense.project import (ReconstructionResult,
-                                              rec_losses, sample_z0,
-                                              select_restarts,
-                                              tile_restarts)
 from defensegan_torch.kernels import build
 from defensegan_torch.kernels.gemm import (TILE_M, SlabList, slab_list,
                                            split_k_for)
-from defensegan_torch.models.generator import from_image_space
+from defensegan_torch.kernels.loop import (COL_TILE, ROW_TILE, LoopState,
+                                           default_chunk,
+                                           make_loop_reconstructor, pad_to,
+                                           round_up, run_loop)
 from defensegan_torch.utils.profiling import span
-
-ROW_TILE = 64        # rows are padded to, and chunks cut at, multiples of
-                     # this (the kernels themselves take any row count)
-COL_TILE = 64        # the kernel's k, F and P are multiples of this (a GEMM
-                     # epilogue's warp covers 64 columns of a row)
-SCRATCH_CAP = 1 << 30  # bytes of per-row scratch (h, do, dh) in one call
-LIBRARY_ENTRY = {"fused_projection_v2": "fp_v2_run",
-                 "fused_projection_v2i": "fp_v2i_run",
-                 "fused_projection_v3": "fp_v3_run",
-                 "fused_projection_v4": "fp_v4_run"}
-
-
-def _round_up(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
 
 
 class DensePack(NamedTuple):
@@ -94,7 +79,7 @@ def pack_dense(generator, dtype: torch.dtype = torch.bfloat16) -> DensePack:
                             else None)
     d_mat, b_d = packed.dense
     out_dim = d_mat.shape[1]
-    pad = _round_up(out_dim, COL_TILE) - out_dim
+    pad = round_up(out_dim, COL_TILE) - out_dim
     d = F.pad(d_mat.float(), (0, pad))
     bd = F.pad(b_d.float(), (0, pad))
     w1 = packed.w_fc.float()
@@ -140,15 +125,6 @@ def dense_loop_plain(pack: DensePack, x_pad: torch.Tensor,
     return z
 
 
-def pad_to(t: torch.Tensor, dim: int, mult: int, value: float = 0.0):
-    """Zero-pad (or `value`-pad) dim of t up to a multiple of mult."""
-    extra = _round_up(t.shape[dim], mult) - t.shape[dim]
-    if not extra:
-        return t
-    pads = [0, 0] * (t.ndim - dim - 1) + [0, extra]
-    return F.pad(t, pads, value=value).contiguous()
-
-
 def pad_targets(pack: DensePack, x_flat_tanh: torch.Tensor,
                 n: int) -> torch.Tensor:
     """[N, out_dim] tanh-space targets -> [N, P] in the pack's dtype."""
@@ -168,88 +144,35 @@ def padded_fc(pack: DensePack):
             pad_to(pack.b1, 1, COL_TILE))
 
 
-def run_loop(name: str, x_pad: torch.Tensor, z0_flat: torch.Tensor,
-             weights, scratch, dims: Sequence[int], *, out_dim: int,
-             rec_iters: int, rec_lr: float, momentum: float,
-             chunk: Optional[int] = None, entry: Optional[str] = None,
-             counter: Optional[str] = None) -> torch.Tensor:
-    """Drive a fused loop's library on CUDA tensors; z_final [N, k].
-
-    Shared by the v2, v2i, v3 and v4 wrappers and the v3 variants (whose
-    library holds three loops: `entry` names the one to call, `counter`
-    its build.LAUNCHES key; both default to the library's own). Every
-    library entry takes
-    (z, v, x, *weights, *scratch, M, *dims, iters, lr, momentum, scale,
-    stream). `weights`: the padded pack tensors in the library's argument
-    order, W1 [kp, .] first; an entry that is no tensor (a host table of
-    pointers or widths, as ctypes builds it) is handed on as it is.
-    `scratch`: (columns, dtype) of each per-row
-    scratch buffer, in argument order. `dims`: the kernel's widths, kp
-    first. Rows are zero-padded up to a multiple of ROW_TILE and cropped
-    after. They run in chunks of `chunk` rows, one library call (all L steps)
-    each, counted in build.LAUNCHES[counter]; by default one chunk, unless
-    its scratch would pass SCRATCH_CAP bytes. Under a torch.profiler the
-    staging (fills and copies) and the library calls are a projection.loop
-    span.
-    """
-    w1 = weights[0]
-    dev = z0_flat.device
-    if dev.type != "cuda":
-        raise ValueError(f"the fused kernel runs on CUDA tensors, got {dev}")
-    tensors = [t for t in weights if isinstance(t, torch.Tensor)]
-    if any(t.device != dev for t in tensors) or x_pad.device != dev:
-        raise ValueError(f"pack on {w1.device}, x on {x_pad.device}, z0 on "
-                         f"{dev}: all must be on one device")
-    if w1.dtype != torch.bfloat16:
-        raise ValueError("the fused kernel takes a bf16 pack")
-    n, k = z0_flat.shape
-    kp = w1.shape[0]
-    rows = _round_up(n, ROW_TILE)
-    if chunk is None:
-        row_bytes = sum(cols * torch.empty(0, dtype=dt).element_size()
-                        for cols, dt in scratch)
-        chunk = max(ROW_TILE, SCRATCH_CAP // row_bytes // ROW_TILE * ROW_TILE)
-    if chunk % ROW_TILE:
-        raise ValueError(f"chunk={chunk} must be a multiple of {ROW_TILE}")
-    m = min(chunk, rows)
-    with span("projection.loop"):
-        z = torch.zeros((rows, kp), dtype=torch.float32, device=dev)
-        z[:n, :k] = z0_flat
-        v = torch.zeros_like(z)
-        x = pad_to(x_pad, 0, ROW_TILE).contiguous()
-        bufs = [torch.empty((m, cols), dtype=dt, device=dev)
-                for cols, dt in scratch]
-        ptrs = [t.contiguous().data_ptr() if isinstance(t, torch.Tensor)
-                else t for t in weights] + [t.data_ptr() for t in bufs]
-        lib = build.load(name)
-        fn = getattr(lib, entry or LIBRARY_ENTRY[name])
-        fn.argtypes = [ctypes.c_void_p] * (3 + len(ptrs)) + \
-            [ctypes.c_int] * (2 + len(dims)) + [ctypes.c_float] * 3 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        # the library's host code (kernel attributes, SM count, the
-        # launch) uses the runtime's current device: make it the tensors'
-        # device
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            for lo in range(0, rows, m):
-                rc = fn(z[lo].data_ptr(), v[lo].data_ptr(),
-                        x[lo].data_ptr(), *ptrs, min(m, rows - lo), *dims,
-                        rec_iters, rec_lr, momentum, 2.0 / out_dim, stream)
-                build.check(lib, rc, entry or name)
-                build.LAUNCHES[counter or name] += 1
-        return z[:n, :k]
+def dense_state(pack: DensePack) -> LoopState:
+    """fp_v2_run's state: W1, W1^T, b1, D, D^T at the kernel's tiles, bD,
+    the slab lists; scratch zb, h, do, dh, the fc backward's sums."""
+    w1, w1t, b1 = padded_fc(pack)
+    kp, fp = w1.shape
+    p = pack.d.shape[1]
+    splits = split_k_for(fp, kp)          # the fc backward dh @ W1^T
+    bf16 = torch.bfloat16
+    return LoopState(
+        library="fused_projection_v2", entry="fp_v2_run",
+        weights=(w1, w1t, b1, pad_to(pack.d, 0, COL_TILE),
+                 pad_to(pack.dt, 1, COL_TILE), pack.bd, pack.d_slabs.off,
+                 pack.d_slabs.idx, pack.dt_slabs.off, pack.dt_slabs.idx),
+        scratch=((kp, bf16), (fp, bf16), (p, bf16), (fp, bf16),
+                 (splits * kp, torch.float32)),
+        dims=(kp, fp, p, splits), out_dim=pack.out_dim)
 
 
 def fused_projection_dense(pack: DensePack, x_flat_tanh: torch.Tensor,
                            z0_flat: torch.Tensor, *, rec_iters: int,
                            rec_lr: float, momentum: float,
-                           chunk: Optional[int] = None) -> torch.Tensor:
+                           chunk: Optional[int] = None,
+                           state: Optional[LoopState] = None
+                           ) -> torch.Tensor:
     """Run the L-step loop for all N latents; returns z_final [N, k].
 
     x_flat_tanh: [N, out_dim] TANH-space images. z0_flat: [N, k] float32.
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises.
+    on `state` (`dense_state(pack)` when None) or raises.
     """
     x_pad = pad_targets(pack, x_flat_tanh, z0_flat.shape[0])
     if z0_flat.device.type == "cpu":
@@ -257,24 +180,10 @@ def fused_projection_dense(pack: DensePack, x_flat_tanh: torch.Tensor,
             return dense_loop_plain(pack, x_pad, z0_flat,
                                     rec_iters=rec_iters, rec_lr=rec_lr,
                                     momentum=momentum)
-    w1, w1t, b1 = padded_fc(pack)
-    kp, fp = w1.shape
-    splits = split_k_for(fp, kp)          # the fc backward dh @ W1^T
-    bf16 = torch.bfloat16
-    scratch = [(kp, bf16), (fp, bf16), (pack.d.shape[1], bf16), (fp, bf16),
-               (splits * kp, torch.float32)]
-    if chunk is None:       # run_loop's: one call below SCRATCH_CAP bytes
-        row_bytes = sum(c * torch.empty(0, dtype=dt).element_size()
-                        for c, dt in scratch)
-        chunk = max(ROW_TILE, SCRATCH_CAP // row_bytes // ROW_TILE
-                    * ROW_TILE)
-    z = run_loop(
-        "fused_projection_v2", x_pad, z0_flat,
-        [w1, w1t, b1, pad_to(pack.d, 0, COL_TILE),
-         pad_to(pack.dt, 1, COL_TILE), pack.bd, pack.d_slabs.off,
-         pack.d_slabs.idx, pack.dt_slabs.off, pack.dt_slabs.idx],
-        scratch, (kp, fp, pack.d.shape[1], splits), out_dim=pack.out_dim,
-        rec_iters=rec_iters, rec_lr=rec_lr, momentum=momentum, chunk=chunk)
+    state = state or dense_state(pack)
+    chunk = chunk or default_chunk(state.scratch)
+    z = run_loop(state, x_pad, z0_flat, rec_iters=rec_iters, rec_lr=rec_lr,
+                 momentum=momentum, chunk=chunk)
     count_slabs(pack, z0_flat.shape[0], chunk, rec_iters)
     return z
 
@@ -284,7 +193,7 @@ def count_slabs(pack: DensePack, n: int, chunk: int, iters: int) -> None:
     rows in chunks of `chunk` issue: per call, its 128-row M tiles x
     iters x the listed slabs (`.issued`) and every slab (`.dense`), for
     h @ D (`h@D`) and do @ D^T (`do@Dt`)."""
-    rows = _round_up(n, ROW_TILE)
+    rows = round_up(n, ROW_TILE)
     m_tiles = sum(-(-min(chunk, rows - lo) // TILE_M)
                   for lo in range(0, rows, chunk))
     for name, sl in (("h@D", pack.d_slabs), ("do@Dt", pack.dt_slabs)):
@@ -296,34 +205,20 @@ def make_dense_reconstructor(generator, image_shape, *, rec_rr: int,
                              rec_iters: int, rec_lr: float, momentum: float,
                              loop: Optional[Callable] = None,
                              pack=None):
-    """f(x, gen=None, z0=None) -> ReconstructionResult on the fused loop.
-
-    loop/pack default to the bf16 v2 kernel and its pack (the int8 module
-    passes its own). z0 ([B, R, k]) overrides sampling from the
-    torch.Generator `gen`. Restart selection and G(z*) run outside the
-    loop on the dense packed apply, so argmin semantics are those of
-    defense/project.py.
-    """
+    """f(x, gen=None, z0=None) -> ReconstructionResult on the fused loop
+    (loop.py::make_loop_reconstructor), selecting on the dense packed
+    apply. loop/pack default to v2, its state built here once (the int8
+    module passes its own)."""
     if loop is None:
-        loop, pack = fused_projection_dense, pack_dense(generator)
-    apply_flat = make_packed_apply(pack_generator(generator, "dense"))
-    z_dim = generator.latent_dim
-
-    @torch.no_grad()
-    def run(x: torch.Tensor, gen: Optional[torch.Generator] = None,
-            z0: Optional[torch.Tensor] = None) -> ReconstructionResult:
-        batch = x.shape[0]
-        x_rep = tile_restarts(from_image_space(x).reshape(batch, -1), rec_rr)
-        if z0 is None:
-            z0 = sample_z0(gen, batch, rec_rr, z_dim, device=x.device)
-        z_fin = loop(pack, x_rep, z0.reshape(batch * rec_rr, z_dim),
-                     rec_iters=rec_iters, rec_lr=rec_lr, momentum=momentum)
-        with span("projection.select"):
-            losses = rec_losses(apply_flat, z_fin, x_rep).reshape(
-                batch, rec_rr)
-            return select_restarts(losses, z_fin, apply_flat, image_shape)
-
-    return run
+        pack = pack_dense(generator)
+        loop = functools.partial(fused_projection_dense,
+                                 state=dense_state(pack))
+    return make_loop_reconstructor(
+        functools.partial(loop, pack, rec_iters=rec_iters, rec_lr=rec_lr,
+                          momentum=momentum),
+        make_packed_apply(pack_generator(generator, "dense")),
+        lambda x_tanh: (x_tanh.reshape(x_tanh.shape[0], -1), None),
+        image_shape, rec_rr=rec_rr, z_dim=generator.latent_dim)
 
 
 def dense_kernel_available(generator) -> bool:

@@ -33,15 +33,18 @@ float conversion does.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from defensegan_torch.kernels.fused_projection_v2 import (
-    COL_TILE, DensePack, make_dense_reconstructor, pack_dense, pad_targets,
-    pad_to, padded_fc, rounding, run_loop)
+    DensePack, make_dense_reconstructor, pack_dense, pad_targets, padded_fc,
+    rounding)
 from defensegan_torch.kernels.gemm import split_k_for
+from defensegan_torch.kernels.loop import COL_TILE, LoopState, pad_to, \
+    run_loop
 from defensegan_torch.utils.profiling import span
 
 
@@ -115,48 +118,58 @@ def dense_int8_loop_plain(pack: DensePackInt8, x_pad: torch.Tensor,
     return z
 
 
-def fused_projection_dense_int8(pack: DensePackInt8,
-                                x_flat_tanh: torch.Tensor,
-                                z0_flat: torch.Tensor, *, rec_iters: int,
-                                rec_lr: float, momentum: float,
-                                chunk: Optional[int] = None) -> torch.Tensor:
-    """Run the int8 L-step loop for all N latents; returns z_final [N, k].
-
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises.
-    """
+def dense_int8_state(pack: DensePackInt8) -> LoopState:
+    """fp_v2i_run's state: v2's fc, the int8 codes and column scales of D
+    and D^T (F up to a multiple of 64, unit scales on the padded D^T
+    columns, as _quant_cols gives all-zero columns), bD."""
     base = pack.base
-    x_pad = pad_targets(base, x_flat_tanh, z0_flat.shape[0])
-    if z0_flat.device.type == "cpu":
-        with span("projection.loop"):
-            return dense_int8_loop_plain(pack, x_pad, z0_flat,
-                                         rec_iters=rec_iters, rec_lr=rec_lr,
-                                         momentum=momentum)
-    # F up to a multiple of 64 for the int8 weights too (unit scales for
-    # the padded D^T columns, as _quant_cols gives all-zero columns)
     w1, w1t, b1 = padded_fc(base)
     kp, fp = w1.shape
     p = base.d.shape[1]
     splits = split_k_for(fp, kp)          # the fc backward dh @ W1^T
     f32, i8, i32 = torch.float32, torch.int8, torch.int32
-    return run_loop(
-        "fused_projection_v2i", x_pad, z0_flat,
-        [w1, w1t, b1, pad_to(pack.dq_k, 1, COL_TILE), pack.sd,
-         pad_to(pack.dtq_k, 0, COL_TILE), pad_to(pack.sdt, 1, COL_TILE, 1.0),
-         base.bd],
-        [(kp, torch.bfloat16), (fp, f32), (fp, i8), (1, f32), (p, f32),
-         (p, i8), (1, f32), (fp, torch.bfloat16), (1, i32), (1, i32),
-         (splits * kp, f32)],
-        (kp, fp, p, splits), out_dim=base.out_dim, rec_iters=rec_iters,
-        rec_lr=rec_lr, momentum=momentum, chunk=chunk)
+    return LoopState(
+        library="fused_projection_v2i", entry="fp_v2i_run",
+        weights=(w1, w1t, b1, pad_to(pack.dq_k, 1, COL_TILE), pack.sd,
+                 pad_to(pack.dtq_k, 0, COL_TILE),
+                 pad_to(pack.sdt, 1, COL_TILE, 1.0), base.bd),
+        scratch=((kp, torch.bfloat16), (fp, f32), (fp, i8), (1, f32),
+                 (p, f32), (p, i8), (1, f32), (fp, torch.bfloat16),
+                 (1, i32), (1, i32), (splits * kp, f32)),
+        dims=(kp, fp, p, splits), out_dim=base.out_dim)
+
+
+def fused_projection_dense_int8(pack: DensePackInt8,
+                                x_flat_tanh: torch.Tensor,
+                                z0_flat: torch.Tensor, *, rec_iters: int,
+                                rec_lr: float, momentum: float,
+                                chunk: Optional[int] = None,
+                                state: Optional[LoopState] = None
+                                ) -> torch.Tensor:
+    """Run the int8 L-step loop for all N latents; returns z_final [N, k].
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    on `state` (`dense_int8_state(pack)` when None) or raises.
+    """
+    x_pad = pad_targets(pack.base, x_flat_tanh, z0_flat.shape[0])
+    if z0_flat.device.type == "cpu":
+        with span("projection.loop"):
+            return dense_int8_loop_plain(pack, x_pad, z0_flat,
+                                         rec_iters=rec_iters, rec_lr=rec_lr,
+                                         momentum=momentum)
+    return run_loop(state or dense_int8_state(pack), x_pad, z0_flat,
+                    rec_iters=rec_iters, rec_lr=rec_lr, momentum=momentum,
+                    chunk=chunk)
 
 
 def make_dense_int8_reconstructor(generator, image_shape, *, rec_rr: int,
                                   rec_iters: int, rec_lr: float,
                                   momentum: float):
-    """f(x, gen=None, z0=None) -> ReconstructionResult on the int8 loop;
-    same epilogue (final losses, argmin restart, G(z*)) as v2."""
+    """f(x, gen=None, z0=None) -> ReconstructionResult on the int8 loop,
+    its state built here once; v2's epilogue."""
+    pack = pack_dense_int8(generator)
     return make_dense_reconstructor(
         generator, image_shape, rec_rr=rec_rr, rec_iters=rec_iters,
-        rec_lr=rec_lr, momentum=momentum,
-        loop=fused_projection_dense_int8, pack=pack_dense_int8(generator))
+        rec_lr=rec_lr, momentum=momentum, pack=pack,
+        loop=functools.partial(fused_projection_dense_int8,
+                               state=dense_int8_state(pack)))

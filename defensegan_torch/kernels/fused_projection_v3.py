@@ -44,22 +44,20 @@ the loop through the s2d packed apply, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
-import torch.nn.functional as F
 
 from defensegan_torch.defense.fastgen import make_packed_apply, \
     pack_generator
-from defensegan_torch.defense.project import (ReconstructionResult,
-                                              rec_losses, sample_z0,
-                                              select_restarts,
-                                              tile_restarts)
-from defensegan_torch.kernels.fused_projection_v2 import (COL_TILE, _round_up,
-                                                          run_loop)
 from defensegan_torch.kernels.gemm import split_k_for
-from defensegan_torch.models.generator import from_image_space
+from defensegan_torch.kernels.grid import (bf16_round, pad_blocks,
+                                           pixel_order, tap_masks,
+                                           tap_offsets)
+from defensegan_torch.kernels.loop import (COL_TILE, LoopState,
+                                           make_loop_reconstructor,
+                                           round_up, run_loop)
 from defensegan_torch.utils.profiling import span
 
 SLAB = 32   # conv B's packed K (kpk) is padded to a multiple of this
@@ -85,29 +83,6 @@ class S2DPack(NamedTuple):
     z_dim: int
 
 
-def _tap_offsets(g: int):
-    """Pixel offsets of a 3x3 SAME conv, index k = (dy+1)*3 + (dx+1)."""
-    return [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
-
-
-def _tap_masks(g: int) -> np.ndarray:
-    """[g*g, 9] validity of reading pixel p + off_k (inside the grid)."""
-    m = np.zeros((g * g, 9), np.float32)
-    for p in range(g * g):
-        y, x = divmod(p, g)
-        for k, (dy, dx) in enumerate(_tap_offsets(g)):
-            m[p, k] = float(0 <= y + dy < g and 0 <= x + dx < g)
-    return m
-
-
-def pixel_order(g: int) -> np.ndarray:
-    """[g*g] int32: the grid's pixels by their count of valid taps, most
-    first (9 inside, 6 on an edge, 4 in a corner), in pixel order within a
-    count. The grid conv (csrc/conv3x3_sm90.cuh) walks each 128-row slice
-    of the activation in this order, so the cheapest tiles come last."""
-    return np.argsort(-_tap_masks(g).sum(1), kind="stable").astype(np.int32)
-
-
 def pack_s2d(generator) -> S2DPack:
     """Pack the frozen deep generator for the v3 kernel (equal to the JAX
     package's pack: s2d-packed in the generator's compute dtype, then
@@ -118,7 +93,7 @@ def pack_s2d(generator) -> S2DPack:
     (ka_, ba_, _), (kb_, bb_, _) = packed.convs      # [3, 3, ci, co] kernels
     ka_, kb_ = ka_.float(), kb_.float()
     c0, ca, cb = ka_.shape[2], ka_.shape[3], kb_.shape[3]
-    taps = [(dy + 1, dx + 1) for dy, dx in _tap_offsets(g)]
+    taps = [(dy + 1, dx + 1) for dy, dx in tap_offsets(g)]
     w1 = packed.w_fc.float()                          # [k, g*g*c0]
     bf = torch.bfloat16
     return S2DPack(
@@ -130,12 +105,8 @@ def pack_s2d(generator) -> S2DPack:
         kbp=torch.cat([kb_[a, b] for a, b in taps], dim=1).to(bf),
         kbpt=torch.cat([kb_[a, b].t() for a, b in taps], dim=0).to(bf),
         bb=bb_.float()[None, :],
-        masks=torch.from_numpy(_tap_masks(g)).to(dev),
+        masks=torch.from_numpy(tap_masks(g)).to(dev),
         c0=c0, ca=ca, cb=cb, grid_hw=g, z_dim=w1.shape[0])
-
-
-def _bf16_round(a: torch.Tensor) -> torch.Tensor:
-    return a.to(torch.bfloat16).float()
 
 
 # Where v3's step may be cut (the sections of scripts/pallas_v3_diag2.py
@@ -161,13 +132,13 @@ def s2d_step_plain(pack: S2DPack, x_s2d: torch.Tensor, z: torch.Tensor,
     """
     if upto not in CUTS:
         raise ValueError(f"upto={upto!r} is not one of {CUTS}")
-    rnd = _bf16_round
+    rnd = bf16_round
     tap = rnd if round_taps else (lambda a: a)
     obr = rnd if round_obb else (lambda a: a)
     g, c0, ca, cb = pack.grid_hw, pack.c0, pack.ca, pack.cb
     p2 = g * g
     n = z.shape[0]
-    offs = [dy * g + dx for dy, dx in _tap_offsets(g)]
+    offs = [dy * g + dx for dy, dx in tap_offsets(g)]
     pd = product_dtype
     given = given or {}
     sections = {}
@@ -268,14 +239,6 @@ def s2d_loop_plain(pack: S2DPack, x_s2d: torch.Tensor, z0: torch.Tensor, *,
     return z
 
 
-def _pad_blocks(t: torch.Tensor, view, target) -> torch.Tensor:
-    """View t as `view`, zero-pad every axis up to `target`."""
-    pads = []
-    for have, want in zip(reversed(view), reversed(target)):
-        pads += [0, want - have]
-    return F.pad(t.reshape(view), pads)
-
-
 def padded_s2d(pack: S2DPack) -> S2DPack:
     """The pack at the kernel's tile widths: k, c0 and ca up to multiples
     of 64, the packed conv-B width 9*cb up to 64 on kbp's columns (the
@@ -287,23 +250,18 @@ def padded_s2d(pack: S2DPack) -> S2DPack:
     """
     p2 = pack.grid_hw ** 2
     k, c0, ca, nine_cb = pack.z_dim, pack.c0, pack.ca, 9 * pack.cb
-    kp, c0p, cap = (_round_up(d, COL_TILE) for d in (k, c0, ca))
-    npk, kpk = _round_up(nine_cb, COL_TILE), _round_up(nine_cb, SLAB)
+    kp, c0p, cap = (round_up(d, COL_TILE) for d in (k, c0, ca))
+    npk, kpk = round_up(nine_cb, COL_TILE), round_up(nine_cb, SLAB)
     return pack._replace(
-        w1=_pad_blocks(pack.w1, (k, p2, c0), (kp, p2, c0p)).reshape(kp, -1),
-        w1t=_pad_blocks(pack.w1t, (p2, c0, k), (p2, c0p, kp)).reshape(-1, kp),
-        b1=_pad_blocks(pack.b1, (p2, c0), (p2, c0p)),
-        ka=_pad_blocks(pack.ka, (9, c0, ca), (9, c0p, cap)).reshape(-1, cap),
-        kat=_pad_blocks(pack.kat, (9, ca, c0), (9, cap, c0p)).reshape(-1,
-                                                                     c0p),
-        ba=_pad_blocks(pack.ba, (1, ca), (1, cap)),
-        kbp=_pad_blocks(pack.kbp, (ca, nine_cb), (cap, npk)),
-        kbpt=_pad_blocks(pack.kbpt, (nine_cb, ca), (kpk, cap)),
+        w1=pad_blocks(pack.w1, (k, p2, c0), (kp, p2, c0p)).reshape(kp, -1),
+        w1t=pad_blocks(pack.w1t, (p2, c0, k), (p2, c0p, kp)).reshape(-1, kp),
+        b1=pad_blocks(pack.b1, (p2, c0), (p2, c0p)),
+        ka=pad_blocks(pack.ka, (9, c0, ca), (9, c0p, cap)).reshape(-1, cap),
+        kat=pad_blocks(pack.kat, (9, ca, c0), (9, cap, c0p)).reshape(-1, c0p),
+        ba=pad_blocks(pack.ba, (1, ca), (1, cap)),
+        kbp=pad_blocks(pack.kbp, (ca, nine_cb), (cap, npk)),
+        kbpt=pad_blocks(pack.kbpt, (nine_cb, ca), (kpk, cap)),
         c0=c0p, ca=cap, z_dim=kp)
-
-
-def _on_cpu(t: torch.Tensor) -> bool:
-    return t.device.type == "cpu"
 
 
 def check_targets(pack: S2DPack, x_s2d: torch.Tensor,
@@ -315,101 +273,80 @@ def check_targets(pack: S2DPack, x_s2d: torch.Tensor,
                          f"[{n}, {out_dim}]")
 
 
-def fused_projection_s2d(pack: S2DPack, x_s2d: torch.Tensor,
-                         z0_flat: torch.Tensor, *, rec_iters: int,
-                         rec_lr: float, momentum: float,
-                         chunk: Optional[int] = None) -> torch.Tensor:
-    """Run the L-step loop for all N latents; returns z_final [N, k].
-
-    x_s2d: [N, 49*cb] TANH-space images in s2d-flat order (image-flat
-    x[:, perm] of the s2d packing). z0_flat: [N, k] float32. A CPU tensor
-    runs the plain version; a CUDA tensor launches the kernel or raises.
-    Rows are zero-padded to a multiple of 64 and cropped after.
-    """
-    check_targets(pack, x_s2d, z0_flat)
-    if _on_cpu(z0_flat):
-        with span("projection.loop"):
-            return s2d_loop_plain(pack, x_s2d, z0_flat, rec_iters=rec_iters,
-                                  rec_lr=rec_lr, momentum=momentum)
-    return run_s2d(pack, x_s2d, z0_flat, rec_iters=rec_iters, rec_lr=rec_lr,
-                   momentum=momentum, chunk=chunk)
-
-
-def run_s2d(pack: S2DPack, x_s2d: torch.Tensor, z0_flat: torch.Tensor, *,
-            rec_iters: int, rec_lr: float, momentum: float,
-            chunk: Optional[int] = None,
-            library: str = "fused_projection_v3",
-            entry: Optional[str] = None,
-            counter: Optional[str] = None,
-            fused_conv_b: bool = False) -> torch.Tensor:
-    """The loop on CUDA tensors through a library entry with fp_v3_run's
-    arguments: v3's own, or one of the layout experiments that keep them
-    (defensegan_torch/experiments/: `library`, `entry`, `counter` as in
-    run_loop). fused_conv_b: the entry runs conv B's section as one kernel
-    and reads neither scratch of it (the packed product, the packed do),
-    which are then not allocated."""
+def s2d_state(pack: S2DPack, *, library: str = "fused_projection_v3",
+              entry: str = "fp_v3_run",
+              fused_conv_b: bool = False) -> LoopState:
+    """The state of an entry with fp_v3_run's arguments (v3's, or a layout
+    experiment's): the padded pack, tap masks, pixel order. fused_conv_b:
+    the entry runs conv B's section as one kernel and reads neither of its
+    scratch buffers (packed product, packed do): none are allocated."""
     p2 = pack.grid_hw ** 2
     pp = padded_s2d(pack)
     npk, kpk = pp.kbp.shape[1], pp.kbpt.shape[0]
-    order = torch.from_numpy(pixel_order(pp.grid_hw)).to(z0_flat.device)
+    order = torch.from_numpy(pixel_order(pp.grid_hw)).to(pp.w1.device)
     bf = torch.bfloat16
     splits = split_k_for(p2 * pp.c0, pp.z_dim)    # the fc backward
     # dh1 and dh0 overwrite h1 and h0 in place (the kernel's epilogue
     # reads the relu mask and writes the gradient at the same index), so
     # the scratch is zb, h0, h1, the packed product, the packed do and the
     # fc backward's split sums
-    return run_loop(
-        library, x_s2d.to(bf), z0_flat,
-        [pp.w1, pp.w1t, pp.b1, pp.ka, pp.kat, pp.ba, pp.kbp, pp.kbpt, pp.bb,
-         pp.masks, order],
-        [(pp.z_dim, bf), (p2 * pp.c0, bf), (p2 * pp.ca, bf),
-         (0 if fused_conv_b else p2 * npk, bf),
-         (0 if fused_conv_b else p2 * kpk, bf),
-         (splits * pp.z_dim, torch.float32)],
-        (pp.z_dim, pp.c0, pp.ca, pp.cb, pp.grid_hw, npk, kpk, splits),
-        out_dim=p2 * pack.cb, rec_iters=rec_iters, rec_lr=rec_lr,
-        momentum=momentum, chunk=chunk, entry=entry, counter=counter)
+    return LoopState(
+        library=library, entry=entry,
+        weights=(pp.w1, pp.w1t, pp.b1, pp.ka, pp.kat, pp.ba, pp.kbp,
+                 pp.kbpt, pp.bb, pp.masks, order),
+        scratch=((pp.z_dim, bf), (p2 * pp.c0, bf), (p2 * pp.ca, bf),
+                 (0 if fused_conv_b else p2 * npk, bf),
+                 (0 if fused_conv_b else p2 * kpk, bf),
+                 (splits * pp.z_dim, torch.float32)),
+        dims=(pp.z_dim, pp.c0, pp.ca, pp.cb, pp.grid_hw, npk, kpk, splits),
+        out_dim=p2 * pack.cb)
+
+
+def fused_projection_s2d(pack: S2DPack, x_s2d: torch.Tensor,
+                         z0_flat: torch.Tensor, *, rec_iters: int,
+                         rec_lr: float, momentum: float,
+                         chunk: Optional[int] = None,
+                         state: Optional[LoopState] = None) -> torch.Tensor:
+    """Run the L-step loop for all N latents; returns z_final [N, k].
+
+    x_s2d: [N, 49*cb] TANH-space images in s2d-flat order (image-flat
+    x[:, perm] of the s2d packing). z0_flat: [N, k] float32. A CPU tensor
+    runs the plain version; a CUDA tensor launches the kernel on `state`
+    (`s2d_state(pack)` when None; a layout experiment passes its own) or
+    raises.
+    """
+    check_targets(pack, x_s2d, z0_flat)
+    if z0_flat.device.type == "cpu":
+        with span("projection.loop"):
+            return s2d_loop_plain(pack, x_s2d, z0_flat, rec_iters=rec_iters,
+                                  rec_lr=rec_lr, momentum=momentum)
+    return run_loop(state or s2d_state(pack), x_s2d.to(torch.bfloat16),
+                    z0_flat, rec_iters=rec_iters, rec_lr=rec_lr,
+                    momentum=momentum, chunk=chunk)
 
 
 def make_s2d_reconstructor(generator, image_shape, *, rec_rr: int,
                            rec_iters: int, rec_lr: float, momentum: float,
                            loop=None):
     """f(x, gen=None, z0=None) -> ReconstructionResult on the fused s2d
-    loop, for two-deconv deep generators.
-
-    z0 ([B, R, k]) overrides sampling from the torch.Generator `gen`.
-    Restart selection and G(z*) run outside the loop on the s2d packed
-    apply (MSE is permutation-invariant), so argmin semantics are those of
-    defense/project.py; x_hat is permuted back to image order. `loop`:
-    another L loop with `fused_projection_s2d`'s signature (the layout
-    experiments of defensegan_torch/experiments/), the same epilogue.
+    loop (loop.py::make_loop_reconstructor), for two-deconv deep
+    generators: targets and selection in s2d order (MSE is
+    permutation-invariant), x_hat permuted back. `loop`: one with
+    `fused_projection_s2d`'s signature (the layout experiments); by
+    default v3's, its state built here once.
     """
-    loop = loop or fused_projection_s2d
     pack = pack_s2d(generator)
+    loop = loop or functools.partial(fused_projection_s2d,
+                                     state=s2d_state(pack))
     packed = pack_generator(generator, "s2d")
-    apply_s2d = make_packed_apply(packed)             # flat s2d order
     perm, inv = packed.perm
-    z_dim = generator.latent_dim
-
-    @torch.no_grad()
-    def run(x: torch.Tensor, gen: Optional[torch.Generator] = None,
-            z0: Optional[torch.Tensor] = None) -> ReconstructionResult:
-        batch = x.shape[0]
-        x_s2d = from_image_space(x).reshape(batch, -1)[:, perm]
-        x_rep = tile_restarts(x_s2d, rec_rr)
-        if z0 is None:
-            z0 = sample_z0(gen, batch, rec_rr, z_dim, device=x.device)
-        z_fin = loop(
-            pack, x_rep, z0.reshape(batch * rec_rr, z_dim),
-            rec_iters=rec_iters, rec_lr=rec_lr, momentum=momentum)
-        with span("projection.select"):
-            losses = rec_losses(apply_s2d, z_fin, x_rep).reshape(
-                batch, rec_rr)
-            res = select_restarts(losses, z_fin, apply_s2d)
-            return res._replace(x_hat=res.x_hat[:, inv].reshape(
-                (batch,) + tuple(image_shape)))
-
-    return run
+    return make_loop_reconstructor(
+        functools.partial(loop, pack, rec_iters=rec_iters, rec_lr=rec_lr,
+                          momentum=momentum),
+        make_packed_apply(packed),
+        lambda x_tanh: (x_tanh.reshape(x_tanh.shape[0], -1)[:, perm], None),
+        image_shape, rec_rr=rec_rr, z_dim=generator.latent_dim,
+        unstage=lambda x_hat: x_hat[:, inv])
 
 
 def s2d_kernel_available(generator) -> bool:

@@ -44,22 +44,16 @@ directly in fine order (`interleave_perm` is the map, a permutation of
 c-wide runs within a row), so the interleave is no pass of its own.
 
 The TPU kernel's tile of latents and its `v4_tile_for` (a budget of on-chip
-memory) have no meaning on the card and are left out: the wrapper pads the
-rows to a multiple of 64 and run_loop chunks them by its scratch
-cap. The restart selection runs outside the loop through the conv-packed
-apply, in image order, as in the JAX package.
-
-What a kernel call takes besides its rows depends on the weights alone
-(`V4State`: the padded pack, the levels' tap masks and pixel orders on the
-device, the library's pointer and width tables): `make_v4_reconstructor`
-builds it once with the pack and hands it to each `fused_projection_v4`
-call, which then stages its targets (projection.stage) and runs the loop
-(projection.loop).
+memory) have no meaning on the card and are left out: run_loop pads the
+rows to a multiple of 64 and chunks them by its scratch cap. The restart
+selection runs outside the loop through the conv-packed apply, in image
+order, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -69,19 +63,13 @@ import torch.nn.functional as F
 from defensegan_torch.defense.fastgen import (_np, _probe_grid_conv, _s2d,
                                               _s2d_inv, make_packed_apply,
                                               pack_generator)
-from defensegan_torch.defense.project import (ReconstructionResult,
-                                              rec_losses, sample_z0,
-                                              select_restarts,
-                                              tile_restarts)
-from defensegan_torch.kernels.fused_projection_v2 import (COL_TILE, _round_up,
-                                                          run_loop)
-from defensegan_torch.kernels.fused_projection_v3 import (_bf16_round,
-                                                          _pad_blocks,
-                                                          _tap_masks,
-                                                          _tap_offsets,
-                                                          pixel_order)
 from defensegan_torch.kernels.gemm import split_k_for
-from defensegan_torch.models.generator import from_image_space
+from defensegan_torch.kernels.grid import (bf16_round, pad_blocks,
+                                           pixel_order, tap_masks,
+                                           tap_offsets)
+from defensegan_torch.kernels.loop import (COL_TILE, LoopState,
+                                           make_loop_reconstructor,
+                                           round_up, run_loop)
 from defensegan_torch.models.layers import conv_transpose_same
 from defensegan_torch.utils.profiling import span
 
@@ -161,7 +149,7 @@ def pack_v4(generator) -> V4Pack:
     ksize = packed.kernel
     bf = torch.bfloat16
     w_fc = packed.w_fc.float()
-    taps = [(dy + 1, dx + 1) for dy, dx in _tap_offsets(g0)]
+    taps = [(dy + 1, dx + 1) for dy, dx in tap_offsets(g0)]
     levels = []
     grid = g0
     for i, (kern, bias, relu) in enumerate(convs):
@@ -226,7 +214,7 @@ def grid_conv(h: torch.Tensor, w: torch.Tensor, g: int) -> torch.Tensor:
     each tap's product summed in w's dtype, the taps added in float32."""
     hp = F.pad(h, (0, 0, 1, 1, 1, 1))
     acc = 0.0
-    for k, (dy, dx) in enumerate(_tap_offsets(g)):
+    for k, (dy, dx) in enumerate(tap_offsets(g)):
         acc = acc + _mm(hp[:, 1 + dy:1 + dy + g, 1 + dx:1 + dx + g], w[k])
     return acc
 
@@ -236,8 +224,8 @@ def grid_conv_t(d: torch.Tensor, wt: torch.Tensor, g: int) -> torch.Tensor:
     [9, co, ci] (the per-tap transposes): each tap's product rounded before
     the float32 sum."""
     acc = 0.0
-    for k, (dy, dx) in enumerate(_tap_offsets(g)):
-        t = F.pad(_bf16_round(_mm(d, wt[k])), (0, 0, 1, 1, 1, 1))
+    for k, (dy, dx) in enumerate(tap_offsets(g)):
+        t = F.pad(bf16_round(_mm(d, wt[k])), (0, 0, 1, 1, 1, 1))
         acc = acc + t[:, 1 - dy:1 - dy + g, 1 - dx:1 - dx + g]
     return acc
 
@@ -258,7 +246,7 @@ def v4_loop_plain(pack: V4Pack, x_flat: torch.Tensor, z0: torch.Tensor, *,
     how far two float32 summation orders of this loop drift apart on their
     own.
     """
-    rnd, pd = _bf16_round, product_dtype
+    rnd, pd = bf16_round, product_dtype
     n = z0.shape[0]
     g0, c0 = pack.base_hw, pack.c0
 
@@ -298,11 +286,6 @@ def v4_loop_plain(pack: V4Pack, x_flat: torch.Tensor, z0: torch.Tensor, *,
     return z
 
 
-def _pad_view(t: torch.Tensor, view, target) -> torch.Tensor:
-    """_pad_blocks, returning t itself where nothing is to pad."""
-    return t if tuple(view) == tuple(target) else _pad_blocks(t, view, target)
-
-
 def padded_v4(pack: V4Pack) -> V4Pack:
     """The pack at the kernel's tile widths: k, c0 and every interleaved
     level's fine channel count up to multiples of 64 (each of a blocked
@@ -316,52 +299,48 @@ def padded_v4(pack: V4Pack) -> V4Pack:
     """
     p0 = pack.base_hw ** 2
     k, c0 = pack.z_dim, pack.c0
-    kp, c0p = _round_up(k, COL_TILE), _round_up(c0, COL_TILE)
+    kp, c0p = round_up(k, COL_TILE), round_up(c0, COL_TILE)
     levels = []
     cin, cinp = (c0,), (c0p,)          # the level's input lanes, as a view
     for lv in pack.levels:
         last = lv is pack.levels[-1]
         if last:
-            cout, coutp = (lv.co,), (_round_up(lv.co, COL_TILE),)
+            cout, coutp = (lv.co,), (round_up(lv.co, COL_TILE),)
         else:
             # an interleaved run holds whole 64-wide tiles; the last mid
             # level's four runs only have to add up to such tiles
             cf = lv.co // 4
             mult = COL_TILE if lv.interleave_after is not None \
                 else COL_TILE // 4
-            cout, coutp = (4, cf), (4, _round_up(cf, mult))
+            cout, coutp = (4, cf), (4, round_up(cf, mult))
         ci_p, co_p = int(np.prod(cinp)), int(np.prod(coutp))
         inter = lv.interleave_after
         levels.append(lv._replace(
             ci=ci_p, co=co_p,
             interleave_after=None if inter is None else coutp[1],
-            w=_pad_view(lv.w, (9,) + cin + cout,
-                        (9,) + cinp + coutp).reshape(9 * ci_p, co_p),
-            wt=_pad_view(lv.wt, (9,) + cout + cin,
-                         (9,) + coutp + cinp).reshape(9 * co_p, ci_p),
-            b=_pad_view(lv.b, (1,) + cout, (1,) + coutp).reshape(1, co_p)))
+            w=pad_blocks(lv.w, (9,) + cin + cout,
+                         (9,) + cinp + coutp).reshape(9 * ci_p, co_p),
+            wt=pad_blocks(lv.wt, (9,) + cout + cin,
+                          (9,) + coutp + cinp).reshape(9 * co_p, ci_p),
+            b=pad_blocks(lv.b, (1,) + cout, (1,) + coutp).reshape(1, co_p)))
         # an interleaved level hands its fine lanes on, the last mid level
         # its four blocked runs
         cin, cinp = ((cout[1],), (coutp[1],)) if inter is not None \
             else (cout, coutp)
     return pack._replace(
-        w1=_pad_view(pack.w1, (k, p0, c0), (kp, p0, c0p)).reshape(kp, -1),
-        w1t=_pad_view(pack.w1t, (p0, c0, k), (p0, c0p, kp)).reshape(-1, kp),
-        b1=_pad_view(pack.b1, (p0, c0), (p0, c0p)),
+        w1=pad_blocks(pack.w1, (k, p0, c0), (kp, p0, c0p)).reshape(kp, -1),
+        w1t=pad_blocks(pack.w1t, (p0, c0, k), (p0, c0p, kp)).reshape(-1, kp),
+        b1=pad_blocks(pack.b1, (p0, c0), (p0, c0p)),
         levels=tuple(levels), z_dim=kp, c0=c0p)
 
 
-def padded_targets(pack: V4Pack, pp: V4Pack, x_flat: torch.Tensor
-                   ) -> torch.Tensor:
-    """[N, final_g^2 * out_lanes] targets -> the padded pack's lanes per
-    pixel (zeros past the true ones), bf16."""
+def padded_targets(pack: V4Pack, x_flat: torch.Tensor) -> torch.Tensor:
+    """[N, final_g^2 * out_lanes] targets -> bf16, zeros past the true
+    lanes up to the padded out level's (`padded_v4`)."""
     n, p2 = x_flat.shape[0], pack.final_g ** 2
-    return _pad_view(x_flat.to(torch.bfloat16), (n, p2, pack.out_lanes),
-                     (n, p2, pp.out_lanes)).reshape(n, -1)
-
-
-def _on_cpu(t: torch.Tensor) -> bool:
-    return t.device.type == "cpu"
+    return pad_blocks(x_flat.to(torch.bfloat16), (n, p2, pack.out_lanes),
+                      (n, p2, round_up(pack.out_lanes, COL_TILE))
+                      ).reshape(n, -1)
 
 
 def _check_levels(pack: V4Pack) -> None:
@@ -370,28 +349,16 @@ def _check_levels(pack: V4Pack) -> None:
                          f"got {len(pack.levels)}")
 
 
-class V4State(NamedTuple):
-    """A pack's kernel-side state on one device (`v4_state`): what
-    run_loop takes besides the rows."""
-
-    pack: V4Pack          # padded_v4 of the pack
-    grids: Tuple          # each level's (tap masks, pixel order), on the
-                          # device: the pointer table holds their addresses
-    weights: list         # w1, w1t, b1, the pointer and the width table
-    scratch: list         # (columns, dtype) of each per-row buffer
-    dims: tuple           # kp, c0p, g0, levels, the fc backward's splits
-    out_dim: int
-
-
-def v4_state(pack: V4Pack, device: torch.device) -> V4State:
-    """Pad the pack to the kernel's tiles, put the levels' grid tables on
-    `device` and build the library's host tables of the level list:
-    pointers (w, wt, b, masks, pixel order) and widths (g, ci, co, fine
-    lanes of the interleave or 0), which the library reads before each
-    call returns."""
+def v4_state(pack: V4Pack) -> LoopState:
+    """fp_v4_run's state on the pack's device: the pack padded to the
+    kernel's tiles, the levels' grid tables on the device, and the
+    library's host tables of the level list: pointers (w, wt, b, masks,
+    pixel order) and widths (g, ci, co, fine lanes of the interleave or
+    0), which the library reads before each call returns."""
     _check_levels(pack)
     pp = padded_v4(pack)
-    grids = {lv.g: (torch.from_numpy(_tap_masks(lv.g)).to(device),
+    device = pp.w1.device
+    grids = {lv.g: (torch.from_numpy(tap_masks(lv.g)).to(device),
                     torch.from_numpy(pixel_order(lv.g)).to(device))
              for lv in pp.levels}
     tensors = [t for lv in pp.levels
@@ -410,80 +377,53 @@ def v4_state(pack: V4Pack, device: torch.device) -> V4State:
     act_cols = pp.base_hw ** 2 * pp.c0 + sum(lv.g ** 2 * lv.co
                                              for lv in pp.levels)
     splits = split_k_for(pp.w1t.shape[0], pp.z_dim)   # the fc backward
-    return V4State(
-        pack=pp, grids=tuple(grids.values()),
-        weights=[pp.w1, pp.w1t, pp.b1, ptr_table, dim_table],
-        scratch=[(pp.z_dim, bf), (act_cols, bf),
-                 (splits * pp.z_dim, torch.float32)],
+    return LoopState(
+        library="fused_projection_v4", entry="fp_v4_run",
+        weights=(pp.w1, pp.w1t, pp.b1, ptr_table, dim_table),
+        scratch=((pp.z_dim, bf), (act_cols, bf),
+                 (splits * pp.z_dim, torch.float32)),
         dims=(pp.z_dim, pp.c0, pp.base_hw, len(pp.levels), splits),
-        out_dim=pack.out_dim)
+        out_dim=pack.out_dim, keep=tuple(tensors))
 
 
 def fused_projection_v4(pack: V4Pack, x_flat: torch.Tensor,
                         z0_flat: torch.Tensor, *, rec_iters: int,
                         rec_lr: float, momentum: float,
                         chunk: Optional[int] = None,
-                        state: Optional[V4State] = None) -> torch.Tensor:
+                        state: Optional[LoopState] = None) -> torch.Tensor:
     """Run the L-step loop for all N latents; returns z_final [N, k].
 
     x_flat: [N, out_dim] TANH-space images in double-blocked order
     (`x_rows`). z0_flat: [N, k] float32. A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel or raises, on `state`
-    (`v4_state` of this pack; built for this call when None). Rows are
-    zero-padded to a multiple of 64 and cropped after.
+    version; a CUDA tensor launches the kernel on `state`
+    (`v4_state(pack)` when None) or raises.
     """
     n = z0_flat.shape[0]
     if tuple(x_flat.shape) != (n, pack.final_g ** 2 * pack.out_lanes):
         raise ValueError(f"x {tuple(x_flat.shape)} vs [N, out_dim] = "
                          f"[{n}, {pack.final_g ** 2 * pack.out_lanes}]")
     _check_levels(pack)
-    if _on_cpu(z0_flat):
+    if z0_flat.device.type == "cpu":
         with span("projection.loop"):
             return v4_loop_plain(pack, x_flat, z0_flat, rec_iters=rec_iters,
                                  rec_lr=rec_lr, momentum=momentum)
-    if state is None:
-        state = v4_state(pack, z0_flat.device)
-    with span("projection.stage"):
-        x_pad = padded_targets(pack, state.pack, x_flat)
-    return run_loop(
-        "fused_projection_v4", x_pad, z0_flat, state.weights, state.scratch,
-        state.dims, out_dim=state.out_dim, rec_iters=rec_iters,
-        rec_lr=rec_lr, momentum=momentum, chunk=chunk)
+    return run_loop(state or v4_state(pack), padded_targets(pack, x_flat),
+                    z0_flat, rec_iters=rec_iters, rec_lr=rec_lr,
+                    momentum=momentum, chunk=chunk)
 
 
 def make_v4_reconstructor(generator, image_shape, *, rec_rr: int,
                           rec_iters: int, rec_lr: float, momentum: float):
     """f(x, gen=None, z0=None) -> ReconstructionResult on the fused v4
-    loop, for multi-deconv generators.
-
-    z0 ([B, R, k]) overrides sampling from the torch.Generator `gen`. Only
-    the loop's targets are permuted (`x_rows`); restart selection and G(z*)
-    run outside the loop on the conv-packed apply in image order, so argmin
-    semantics are those of defense/project.py. On a CUDA generator the
-    kernel's state (`v4_state`) is built here, once.
-    """
+    loop (loop.py::make_loop_reconstructor), its state built here once:
+    only the loop's targets are permuted (`x_rows`); the selection runs on
+    the conv-packed apply in image order."""
     pack = pack_v4(generator)
-    state = None if _on_cpu(pack.w1) else v4_state(pack, pack.w1.device)
-    apply_flat = make_packed_apply(pack_generator(generator, "conv"))
-    z_dim = generator.latent_dim
-    kw = dict(rec_iters=rec_iters, rec_lr=rec_lr, momentum=momentum)
-
-    @torch.no_grad()
-    def run(x: torch.Tensor, gen: Optional[torch.Generator] = None,
-            z0: Optional[torch.Tensor] = None) -> ReconstructionResult:
-        batch = x.shape[0]
-        if z0 is None:
-            z0 = sample_z0(gen, batch, rec_rr, z_dim, device=x.device)
-        z0_flat = z0.reshape(batch * rec_rr, z_dim)
-        with span("projection.stage"):
-            x_tanh = from_image_space(x)
-            targets = tile_restarts(x_rows(pack, x_tanh), rec_rr)
-        z_fin = fused_projection_v4(pack, targets, z0_flat, state=state,
-                                    **kw)
-        with span("projection.select"):
-            x_rep = tile_restarts(x_tanh.reshape(batch, -1), rec_rr)
-            losses = rec_losses(apply_flat, z_fin, x_rep).reshape(
-                batch, rec_rr)
-            return select_restarts(losses, z_fin, apply_flat, image_shape)
-
-    return run
+    return make_loop_reconstructor(
+        functools.partial(fused_projection_v4, pack, state=v4_state(pack),
+                          rec_iters=rec_iters, rec_lr=rec_lr,
+                          momentum=momentum),
+        make_packed_apply(pack_generator(generator, "conv")),
+        lambda x_tanh: (x_rows(pack, x_tanh),
+                        x_tanh.reshape(x_tanh.shape[0], -1)),
+        image_shape, rec_rr=rec_rr, z_dim=generator.latent_dim)

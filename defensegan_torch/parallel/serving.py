@@ -110,8 +110,7 @@ class ShardedDefenseGAN:
                 "ShardedDefenseGAN is the serving path (no gradients "
                 "through the shards); build attack graphs on the "
                 "single-device DefenseGAN")
-        from defensegan_torch.gan.defense_gan import \
-            resolve_projection_kernel
+        from defensegan_torch.gan.defense_gan import _resolve
         cfg = self.gan.cfg
         rr = rec_rr if rec_rr is not None else cfg.rec_rr
         iters = rec_iters if rec_iters is not None else cfg.rec_iters
@@ -128,14 +127,13 @@ class ShardedDefenseGAN:
         # then build every replica's reconstructor before any shard is
         # enqueued: the pack builders sync with the host, and a build
         # between two shards' launches would serialize them
-        paths = {resolve_projection_kernel(r, requested=kernel)
-                 for r in reps}
-        if len(paths) != 1:
+        resolved = {_resolve(r, requested=kernel) for r in reps}
+        if len(resolved) != 1:
             raise ValueError(f"the mesh's shards resolve to different "
-                             f"paths {sorted(paths)}: mixed device types")
-        path = paths.pop()
+                             f"paths {sorted(resolved)}: mixed device types")
+        path, loop = resolved.pop()
         for rep in {id(r): r for r in reps}.values():
-            rep._reconstructor_for(path, rr, iters, lr, False)
+            rep._reconstructor_for(loop, rr, iters, lr, False)
         seed = base_seed(gen, cfg) if z0 is None else None
         outs = []
         for i, (dev, rep) in enumerate(zip(self.mesh, reps)):

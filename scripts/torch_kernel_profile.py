@@ -126,9 +126,10 @@ def step_labels(name: str, pack):
 
 
 def taps(g: int) -> int:
-    """Valid taps of a 3x3 SAME conv on a g x g grid, over all pixels."""
-    from defensegan_torch.kernels.fused_projection_v3 import _tap_masks
-    return int(_tap_masks(g).sum())
+    """Valid taps of a 3x3 SAME conv on a g x g grid, over all pixels:
+    along each axis g + 2(g - 1) (pixel, offset) pairs stay in the grid
+    (kernels/grid.py::tap_masks summed)."""
+    return (3 * g - 2) ** 2
 
 
 def _up(n: int, m: int) -> int:

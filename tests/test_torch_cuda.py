@@ -795,7 +795,9 @@ def test_v3p_keeps_h1s_pad_column_at_zero(cuda_device):
     pack = pack_s2d(tg)
     kw = dict(rec_iters=3, rec_lr=LR, momentum=MOM)
     ref = v3p.fused_projection_s2d_padded(pack, x, z0, **kw)
-    x_pad, weights, scratch, dims = v3p.kernel_args(pack, x)
+    state = v3p.v3p_state(pack)
+    x_pad = v3p.pad_pixels(x.to(torch.bfloat16), pack.grid_hw, pack.cb)
+    weights, scratch, dims = list(state.weights), state.scratch, state.dims
     m, kp = x_pad.shape[0], dims[0]
     z = torch.zeros((m, kp), dtype=torch.float32, device=cuda_device)
     z[:, :z0.shape[1]] = z0

@@ -27,6 +27,7 @@ from defensegan_torch.ckpt.bridge import load_flax_tree
 from defensegan_torch.configs import Config
 from defensegan_torch.defense import fastgen
 from defensegan_torch.gan import DefenseGAN, resolve_projection_kernel
+from defensegan_torch.gan.defense_gan import _resolve
 
 torch.set_num_threads(2)
 
@@ -160,6 +161,31 @@ def test_v4_auto_on_card_diverges_from_jax(stacks, name):
                                      on_cuda=True) == "pallas_v4"
     assert jax_resolve(jgan, n=64, back_prop=False, requested="auto",
                        on_tpu=True) == "xla"
+
+
+@pytest.mark.parametrize("name,requested,path,loop", [
+    ("mnist_wide", "auto", "pallas", "v2"),
+    ("mnist_wide", "pallas", "pallas", "v2"),
+    ("mnist_wide", "pallas_int8", "pallas_int8", "v2i"),
+    ("mnist_deep", "auto", "pallas", "v3"),
+    ("mnist_deep", "pallas", "pallas", "v3"),
+    ("mnist_deep", "pallas_int8", "pallas", "v3"),
+    ("mnist_deep", "pallas_v4", "pallas_v4", "v4"),
+    ("celeba_deep", "auto", "pallas_v4", "v4"),
+    ("celeba_wide", "auto", "pallas_v4", "v4"),
+    ("imagenet64", "pallas_v4", "pallas_v4", "v4"),
+    ("mnist_wide", "packed", "packed", "packed"),
+    ("celeba_deep", "xla", "xla", "xla"),
+])
+def test_each_topology_resolves_to_its_loop(stacks, name, requested, path,
+                                            loop):
+    """The resolver names the path and, once, the loop that serves it (on
+    CUDA): the wide generator v2, or v2i under pallas_int8; the deep one v3
+    under both bf16 and int8 requests; a 64x64 stack v4."""
+    _, tgan = stacks[name]
+    assert _resolve(tgan, requested=requested, on_cuda=True) == (path, loop)
+    assert resolve_projection_kernel(tgan, requested=requested,
+                                     on_cuda=True) == path
 
 
 @pytest.mark.parametrize("name,back_prop,match", [

@@ -26,10 +26,11 @@ from defensegan_tpu.kernels.fused_projection_v3 import (
 from defensegan_torch.ckpt.bridge import load_flax_tree
 from defensegan_torch.kernels import build
 from defensegan_torch.kernels import fused_projection_v3 as v3
-from defensegan_torch.kernels.fused_projection_v2 import run_loop
 from defensegan_torch.kernels.fused_projection_v3 import (
-    _tap_masks, fused_projection_s2d, make_s2d_reconstructor, pack_s2d,
-    padded_s2d, s2d_kernel_available, s2d_loop_plain)
+    fused_projection_s2d, make_s2d_reconstructor, pack_s2d, padded_s2d,
+    s2d_kernel_available, s2d_loop_plain, s2d_state)
+from defensegan_torch.kernels.grid import tap_masks
+from defensegan_torch.kernels.loop import run_loop
 from defensegan_torch.models.generator import generator_for
 
 torch.set_num_threads(2)
@@ -89,7 +90,7 @@ def test_pack_equals_jax(pair):
         assert got.dtype == (torch.float32 if f in ("b1", "ba", "bb", "masks")
                              else torch.bfloat16), f
         np.testing.assert_array_equal(got.float().numpy(), ref, err_msg=f)
-    np.testing.assert_array_equal(tp.masks.numpy(), _tap_masks(7))
+    np.testing.assert_array_equal(tp.masks.numpy(), tap_masks(7))
 
 
 @pytest.mark.parametrize("steps", [1, L])
@@ -183,26 +184,25 @@ def test_wrapper_rejects_targets_of_another_width(pair):
 
 def test_kernel_path_raises_without_a_card(pair, monkeypatch):
     """Off the CPU branch the wrapper goes to the kernel and nowhere else:
-    with the device check patched to say "not a CPU tensor", the call
-    raises (these tensors are not on a card) instead of falling back to
-    the plain version; and the shared run_loop refuses CPU tensors."""
+    with z0 on the meta device, not a CPU tensor, the call raises (it is
+    not on a card) instead of falling back to the plain version; and the
+    shared run_loop refuses CPU tensors."""
     _, tg = pair
     x, z0 = _inputs()
     pack = pack_s2d(tg)
-    monkeypatch.setattr(v3, "_on_cpu", lambda t: False)
     called = []
     monkeypatch.setattr(v3, "s2d_loop_plain",
                         lambda *a, **k: called.append(1))
     before = build.LAUNCHES["fused_projection_v3"]
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fused_projection_s2d(pack, torch.from_numpy(x), torch.from_numpy(z0),
-                             rec_iters=1, rec_lr=LR, momentum=MOM)
+        fused_projection_s2d(pack, torch.from_numpy(x),
+                             torch.from_numpy(z0).to("meta"), rec_iters=1,
+                             rec_lr=LR, momentum=MOM)
     assert not called
     assert build.LAUNCHES["fused_projection_v3"] == before
     with pytest.raises(ValueError, match="CUDA tensors"):
-        run_loop("fused_projection_v3", torch.from_numpy(x),
-                 torch.from_numpy(z0), [pack.w1], [(32, torch.bfloat16)],
-                 (32,), out_dim=784, rec_iters=1, rec_lr=LR, momentum=MOM)
+        run_loop(s2d_state(pack), torch.from_numpy(x), torch.from_numpy(z0),
+                 rec_iters=1, rec_lr=LR, momentum=MOM)
 
 
 def test_s2d_kernel_available():

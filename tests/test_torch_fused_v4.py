@@ -35,12 +35,12 @@ from defensegan_torch.kernels.conv3x3 import COUNTER as CONV3X3_COUNTER
 from defensegan_torch.kernels.conv3x3 import (conv3x3, conv3x3_plain,
                                               rounding_excess, to_blocked,
                                               to_fine)
-from defensegan_torch.kernels.fused_projection_v2 import run_loop
-from defensegan_torch.kernels.fused_projection_v3 import (_tap_masks,
-                                                          pixel_order)
 from defensegan_torch.kernels.fused_projection_v4 import (
     fused_projection_v4, interleave_perm, make_v4_reconstructor, pack_v4,
-    padded_targets, padded_v4, v4_kernel_available, v4_loop_plain, x_rows)
+    padded_targets, padded_v4, v4_kernel_available, v4_loop_plain, v4_state,
+    x_rows)
+from defensegan_torch.kernels.grid import pixel_order, tap_masks
+from defensegan_torch.kernels.loop import run_loop
 from defensegan_torch.models.generator import generator_for
 
 torch.set_num_threads(2)
@@ -245,7 +245,7 @@ def test_padded_pack_computes_the_same_loop(pairs, name):
     ref = v4_loop_plain(pack, xr, torch.from_numpy(z0), **kw)
     z0p = torch.zeros(4, 64)
     z0p[:, :LATENT] = torch.from_numpy(z0)
-    xp = padded_targets(pack, pp, xr)
+    xp = padded_targets(pack, xr)
     assert xp.dtype == torch.bfloat16 and \
         tuple(xp.shape) == (4, pack.final_g ** 2 * 64)
     got = v4_loop_plain(pp, xp, z0p, **kw)
@@ -331,27 +331,25 @@ def test_wrapper_rejects_targets_of_another_width(pairs):
 
 def test_kernel_path_raises_without_a_card(pairs, monkeypatch):
     """Off the CPU branch the wrapper goes to the kernel and nowhere else:
-    with the device check patched to say "not a CPU tensor", the call
-    raises (these tensors are not on a card) instead of falling back to
-    the plain version; and the shared run_loop refuses CPU tensors, host
-    tables among the weights or not."""
+    with z0 on the meta device, not a CPU tensor, the call raises (it is
+    not on a card) instead of falling back to the plain version; and the
+    shared run_loop refuses CPU tensors, host tables among the weights or
+    not."""
     _, tg = pairs("celeba_wide")
     x, z0 = _inputs("celeba_wide")
     pack = pack_v4(tg)
     xr = x_rows(pack, torch.from_numpy(x))
-    monkeypatch.setattr(v4, "_on_cpu", lambda t: False)
     called = []
     monkeypatch.setattr(v4, "v4_loop_plain", lambda *a, **k: called.append(1))
     before = build.LAUNCHES[V4]
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fused_projection_v4(pack, xr, torch.from_numpy(z0), rec_iters=1,
-                            rec_lr=LR, momentum=MOM)
+        fused_projection_v4(pack, xr, torch.from_numpy(z0).to("meta"),
+                            rec_iters=1, rec_lr=LR, momentum=MOM)
     assert not called
     assert build.LAUNCHES[V4] == before
     with pytest.raises(ValueError, match="CUDA tensors"):
-        run_loop(V4, xr, torch.from_numpy(z0), [pack.w1, None],
-                 [(LATENT, torch.bfloat16)], (LATENT,), out_dim=pack.out_dim,
-                 rec_iters=1, rec_lr=LR, momentum=MOM)
+        run_loop(v4_state(pack), xr, torch.from_numpy(z0), rec_iters=1,
+                 rec_lr=LR, momentum=MOM)
 
 
 # ---- the grid conv on its own (kernels/conv3x3.py): the kernel's order of
@@ -363,7 +361,7 @@ def test_kernel_path_raises_without_a_card(pairs, monkeypatch):
 def test_pixel_order_puts_the_full_taps_first(g):
     order = pixel_order(g)
     assert order.dtype == np.int32 and sorted(order) == list(range(g * g))
-    taps = _tap_masks(g).sum(1)[order]
+    taps = tap_masks(g).sum(1)[order]
     assert list(taps) == sorted(taps, reverse=True)
     assert taps[0] == 9 and taps[-1] == 4
     # within a count, pixel order (the walk stays near the grid's rows)

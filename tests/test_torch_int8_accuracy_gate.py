@@ -121,8 +121,8 @@ def on_the_accelerators(monkeypatch):
                  "make_pallas_dense_int8_reconstructor"):
         monkeypatch.setattr(jax_kernels, name, functools.partial(
             getattr(jax_kernels, name), interpret=True))
-    torch_resolve = torch_dg.resolve_projection_kernel
-    monkeypatch.setattr(torch_dg, "resolve_projection_kernel",
+    torch_resolve = torch_dg._resolve
+    monkeypatch.setattr(torch_dg, "_resolve",
                         lambda gan, **kw: torch_resolve(gan, on_cuda=True,
                                                         **kw))
 

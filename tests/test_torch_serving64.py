@@ -172,7 +172,7 @@ def test_pipeline_over_the_v4_loop_agrees_with_the_generic_path(pair):
     z0 = torch.from_numpy(np.random.RandomState(9).randn(4, RR, LATENT)
                           .astype(np.float32))
     ref = tgan.reconstruct(x, kernel="xla", z0=z0)
-    fn = tgan._reconstructor_for("pallas_v4", RR, ITERS, tgan.cfg.rec_lr)
+    fn = tgan._reconstructor_for("v4", RR, ITERS, tgan.cfg.rec_lr)
     got = fn(torch.as_tensor(x), z0=z0)
     assert got.x_hat.shape == (4,) + SHAPE
     np.testing.assert_allclose(got.all_losses.numpy(),

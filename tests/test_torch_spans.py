@@ -173,8 +173,8 @@ def test_v4_stages_its_targets_in_a_span_of_their_own(tmp_path,
     tanh space, blocked order, restarts tiled), then projection.loop, then
     projection.select, one after the other."""
     from defensegan_torch.gan import defense_gan
-    real = defense_gan.resolve_projection_kernel
-    monkeypatch.setattr(defense_gan, "resolve_projection_kernel",
+    real = defense_gan._resolve
+    monkeypatch.setattr(defense_gan, "_resolve",
                         lambda gan, **kw: real(gan, on_cuda=True, **kw))
     gan = DefenseGAN(Config(type="celeba", gen_arch="deep", gen_dim=2,
                             latent_dim=8, image_size=64, channels=3,

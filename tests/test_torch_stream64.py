@@ -38,8 +38,7 @@ import stream64_probe as jax_probe  # noqa: E402
 from defensegan_torch.experiments import stream64_probe as sp  # noqa: E402
 from defensegan_torch.kernels import build  # noqa: E402
 from defensegan_torch.kernels.conv3x3 import _tap_magnitudes  # noqa: E402
-from defensegan_torch.kernels.fused_projection_v3 import (  # noqa: E402
-    _tap_masks)
+from defensegan_torch.kernels.grid import tap_masks  # noqa: E402
 from torch_csrc_signatures import c_signatures  # noqa: E402
 
 torch.set_num_threads(2)
@@ -274,7 +273,7 @@ def test_issued_slabs_and_walks(level):
     # every block: the 9-tap count times every slab
     all_fwd = sp.issued_slabs(None, g, ci, 4 * co, 128, False)
     np.testing.assert_array_equal(
-        all_fwd, _tap_masks(g).sum(1) * (4 * co // 128) * (ci // 64))
+        all_fwd, tap_masks(g).sum(1) * (4 * co // 128) * (ci // 64))
     if level == 2:
         narrow = sp.issued_slabs(zero, g, ci, 4 * co, 64, False).sum()
         wide = sp.issued_slabs(zero, g, ci, 4 * co, 128, False).sum()

@@ -17,6 +17,7 @@ import torch
 from defensegan_torch.kernels import build
 from defensegan_torch.kernels import fused_projection_v2 as v2
 from defensegan_torch.kernels.gemm import SLAB, TILE_M, TILE_N, slab_list
+from defensegan_torch.kernels.loop import argtypes
 from defensegan_torch.models.generator import generator_for
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -167,8 +168,8 @@ def test_wrapper_hands_the_packs_lists_and_counts_them(
     card), on meta tensors, which take the kernel's branch."""
     calls = []
 
-    def fake_run_loop(name, x_pad, z0, weights, scratch, dims, **kw):
-        calls.append((name, weights, scratch, dims, kw))
+    def fake_run_loop(state, x_pad, z0, **kw):
+        calls.append((state, kw))
         return torch.zeros_like(z0)
 
     monkeypatch.setattr(v2, "run_loop", fake_run_loop)
@@ -181,11 +182,12 @@ def test_wrapper_hands_the_packs_lists_and_counts_them(
         pack, torch.zeros(n, 784, device=meta),
         torch.zeros(n, 128, device=meta), rec_iters=7, rec_lr=10.0,
         momentum=0.7, chunk=chunk)
-    (name, weights, scratch, dims, kw), = calls
-    assert name == "fused_projection_v2" and dims == (128, 6272, 832, 7)
+    (state, kw), = calls
+    assert state.library == "fused_projection_v2" and \
+        state.dims == (128, 6272, 832, 7)
     lists = pack.d_slabs[:2] + pack.dt_slabs[:2]
-    assert len(weights) == 10 and all(
-        w is t for w, t in zip(weights[6:], lists))
+    assert len(state.weights) == 10 and all(
+        w is t for w, t in zip(state.weights[6:], lists))
     assert kw["chunk"] == chunk if chunk else kw["chunk"] >= n
     assert dict(build.SLABS) == {
         "h@D.issued": m_tiles * 7 * 182, "h@D.dense": m_tiles * 7 * 686,
@@ -212,12 +214,13 @@ def test_v2_entry_takes_the_lists_in_its_c_signature(flagship_pack,
         flagship_pack, torch.zeros(64, 784, device=meta),
         torch.zeros(64, 128, device=meta), rec_iters=1, rec_lr=1.0,
         momentum=0.7)
-    _, _, _, weights, scratch, dims = calls[0]
-    restype, params = c_signatures("fused_projection_v2.cu")["fp_v2_run"]
-    want = [ctypes.c_void_p] * (3 + len(weights) + len(scratch)) + \
-        [ctypes.c_int] * (2 + len(dims)) + [ctypes.c_float] * 3 + \
+    state = calls[0][0]
+    restype, params = c_signatures("fused_projection_v2.cu")[state.entry]
+    want = [ctypes.c_void_p] * (3 + len(state.weights) +
+                                len(state.scratch)) + \
+        [ctypes.c_int] * (2 + len(state.dims)) + [ctypes.c_float] * 3 + \
         [ctypes.c_void_p]
-    assert restype is ctypes.c_int and params == want
+    assert restype is ctypes.c_int and params == want == argtypes(state)
 
 
 def test_profile_counts_the_listed_slabs_as_issued(flagship_pack):

@@ -65,7 +65,9 @@ from defensegan_torch.kernels import build  # noqa: E402
 from defensegan_torch.kernels.conv3x3 import (  # noqa: E402
     conv3x3_plain, rounding_excess)
 from defensegan_torch.kernels.fused_projection_v3 import (  # noqa: E402
-    _tap_masks, pack_s2d, padded_s2d, pixel_order, s2d_loop_plain)
+    pack_s2d, padded_s2d, s2d_loop_plain)
+from defensegan_torch.kernels.grid import pixel_order, tap_masks  # noqa: E402
+from defensegan_torch.kernels.loop import argtypes  # noqa: E402
 from defensegan_torch.models.generator import generator_for  # noqa: E402
 from torch_csrc_signatures import c_signatures  # noqa: E402
 
@@ -178,10 +180,10 @@ def test_padded_masks_count_v3s_taps_at_the_real_pixels(g):
     m, order = v3p.padded_tap_masks(g), v3p.padded_pixel_order(g)
     real, gx = v3p.real_to_pad(g), g + 1
     assert m.shape == (g * gx, 9) and order.dtype == np.int32
-    np.testing.assert_array_equal(m[real], _tap_masks(g))
+    np.testing.assert_array_equal(m[real], tap_masks(g))
     np.testing.assert_array_equal(order, real[pixel_order(g)])
     assert not np.isin(order, np.arange(g, g * gx, gx)).any()
-    assert m[order].sum() == _tap_masks(g).sum()
+    assert m[order].sum() == tap_masks(g).sum()
     if g == 7:
         assert m[order].sum() == 361
     for p in range(g * gx):
@@ -207,26 +209,31 @@ def test_v3p_counted_taps_equal_all_taps_bit_for_bit(pair, steps):
 
 def test_v3p_kernel_args_on_the_padded_grid(pair):
     """fp_v3p_run's inputs: x and the fc padded to 56 pixels, v3p's masks
-    and walk, scratch per row on the padded grid; what run_loop passes
+    and walk, scratch per row on the padded grid; what run_loop binds
     matches the C entry's parameters."""
     _, tg = pair
     pack = pack_s2d(tg)
     x, _ = _inputs()
-    x_pad, weights, scratch, dims = v3p.kernel_args(pack, torch.from_numpy(x))
+    state = v3p.v3p_state(pack)
+    x_pad = v3p.pad_pixels(torch.from_numpy(x).to(torch.bfloat16),
+                           pack.grid_hw, pack.cb)
     pp = padded_s2d(pack)
     assert tuple(x_pad.shape) == (16, 56 * pp.cb)
     assert x_pad.dtype == torch.bfloat16
-    np.testing.assert_array_equal(weights[9].numpy(), v3p.padded_tap_masks(7))
-    np.testing.assert_array_equal(weights[10].numpy(),
+    assert (state.library, state.entry, state.counter) == (
+        v3p.LIBRARY, "fp_v3p_run", v3p.COUNTER)
+    np.testing.assert_array_equal(state.weights[9].numpy(),
+                                  v3p.padded_tap_masks(7))
+    np.testing.assert_array_equal(state.weights[10].numpy(),
                                   v3p.padded_pixel_order(7))
-    assert [c for c, _ in scratch[1:3]] == [56 * pp.c0, 56 * pp.ca]
+    assert [c for c, _ in state.scratch[1:3]] == [56 * pp.c0, 56 * pp.ca]
     restype, params = c_signatures("fused_projection_v3_variants.cu")[
         "fp_v3p_run"]
-    n_ptr = 3 + len(weights) + len(scratch)
+    n_ptr = 3 + len(state.weights) + len(state.scratch)
     assert restype is ctypes.c_int
     assert params == [ctypes.c_void_p] * n_ptr + \
-        [ctypes.c_int] * (2 + len(dims)) + [ctypes.c_float] * 3 + \
-        [ctypes.c_void_p]
+        [ctypes.c_int] * (2 + len(state.dims)) + [ctypes.c_float] * 3 + \
+        [ctypes.c_void_p] == argtypes(state)
 
 
 def test_conv_a_binding_matches_the_c_signature():
