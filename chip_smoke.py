@@ -37,8 +37,11 @@ entry point graft_entry_torch.py (phase 14):
        a. z_final after L = 1 and L = 5 steps at 512 rows, elementwise
           (v3 and v4 row by row, beside the plain version's own float32
           against float64 drift); and 192-row chunks (the last one short)
-          bit for bit against one chunk; v4 also at L = 1, 128 rows, on
-          celeba_wide.yml and imagenet64.yml
+          bit for bit against one chunk; v3's three-launch entry bit for
+          bit against the fused conv B entry that the deep model runs; v4
+          also at L = 1, 128 rows, on celeba_wide.yml and imagenet64.yml;
+          v3's three-launch entry at L = 1 and 5, 128 rows, on the deep
+          generators it runs (a 3-channel output, channels[1] 128)
        a''. every grid conv of v3 and v4 (the Hopper conv, celeba.yml's
           levels and v3's conv A, forward and backward) on its own at 256
           rows against its plain version, within one bf16 ulp of the
@@ -1869,6 +1872,7 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "gen_arch",
 def bench_phase(v2i_recon_per_s: float) -> dict:
     from defensegan_torch.cli.bench import (LEG_LIBRARIES, int8_gate_stamp,
                                             leg_launches)
+    from defensegan_torch.kernels.fused_projection_v3 import FUSED_COUNTER
     stamp = int8_gate_stamp(RUN_DIR)
     cmd = [sys.executable, os.path.join(ROOT, "bench_torch.py"),
            "--deadline", str(BENCH_DEADLINE_S)]
@@ -1912,8 +1916,12 @@ def bench_phase(v2i_recon_per_s: float) -> dict:
     if not 1 / BENCH_RATIO_MAX <= ratio <= BENCH_RATIO_MAX:
         fail(f"the headline {rec['value']} recon/s is {ratio:.3f}x phase "
              f"5's v2i {v2i_recon_per_s:.1f}")
-    if any(launches.get(leg, {}).get(lib, 0) <= 0
-           for leg, lib in legs.items()):
+    # the deep leg (mnist.yml) runs v3's fused conv B entry, counted under
+    # its own key
+    keys = {leg: FUSED_COUNTER if lib == "fused_projection_v3" else lib
+            for leg, lib in legs.items()}
+    if any(launches.get(leg, {}).get(key, 0) <= 0
+           for leg, key in keys.items()):
         fail(f"a leg of the bench did not launch its kernel: {launches}")
     return out
 
@@ -2442,10 +2450,12 @@ def main() -> int:
     from defensegan_torch.kernels.conv3x3 import (conv3x3, conv3x3_plain,
                                                   rounding_excess)
     from defensegan_torch.kernels.fused_projection_v3 import (
-        fused_projection_s2d, pack_s2d, padded_s2d, s2d_loop_plain)
+        ENTRY as V3_THREE_LAUNCH, FUSED_COUNTER, fused_projection_s2d,
+        pack_s2d, padded_s2d, s2d_loop_plain, s2d_state)
     from defensegan_torch.kernels.fused_projection_v4 import (
         fused_projection_v4, pack_v4, padded_v4, v4_loop_plain, x_rows)
     from defensegan_torch.models import build_classifier, from_image_space
+    from defensegan_torch.models.generator import Generator
 
     # fp32 references run in full float32 (no TF32 in products or convs)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2578,6 +2588,12 @@ def main() -> int:
     V3, V4 = "fused_projection_v3", "fused_projection_v4"
     ROW_WISE = (V3, V4)          # held row by row, with the f64 control
 
+    # the build.LAUNCHES key of each kernel's main-path calls: on the deep
+    # generator v3 takes its fused conv B entry, which counts under its
+    # own key; v3's library key then counts the three-launch entry alone
+    KEY = {n: n for n in kernels}
+    KEY[V3] = FUSED_COUNTER
+
     def images(n, kk=kernels["fused_projection_v2"]):
         """Clean requests G(z_true), [n, H, W, C] in [0, 1]."""
         return kk["gan"].generate(kk["gen"], n)
@@ -2610,6 +2626,14 @@ def main() -> int:
             errs[name][steps] = e["max_abs_err"]
             ok = bool(torch.isfinite(zk).all()) and chunked_equal
             extra = {}
+            if name == V3:
+                # v3's three-launch entry (the shapes the fused conv B
+                # section cannot take run it) equals the fused entry that
+                # runs here bit for bit, so it meets the same bounds
+                z3 = kk["run"](kk["pack"], xr, z0, state=s2d_state(
+                    kk["pack"], entry=V3_THREE_LAUNCH), **kw)
+                extra["three_launch_equal"] = bool(torch.equal(z3, zk))
+                ok = ok and extra["three_launch_equal"]
             if name in ROW_WISE:
                 z64 = kk["plain"](kk["pack"], xr, z0,
                                   product_dtype=torch.float64, **kw)
@@ -2618,7 +2642,7 @@ def main() -> int:
                     else (tol, V3_WORST_ROW_TOL[steps])
                 ok = ok and e["row_rel_p50"] <= p50 \
                     and e["row_rel_max"] <= worst
-                extra = dict(tol_row_p50=p50, tol_row_max=worst,
+                extra.update(tol_row_p50=p50, tol_row_max=worst,
                              control_plain_f32_vs_f64=dict(
                                  rel=c["rel"], row_rel_p50=c["row_rel_p50"],
                                  row_rel_max=c["row_rel_max"]))
@@ -2664,6 +2688,43 @@ def main() -> int:
         if not ok:
             fail(f"{V4} on {cfg_name}: {e}")
         del other, po, xr, zk, zp
+    # and v3's three-launch entry where it is the path that runs: deep
+    # generators whose conv B section the fused kernel cannot take, a
+    # 3-channel output (cb 48) and channels[1] 128 (ca 512); L 1 and 5 at
+    # 128 rows (tanh of seeded normals as targets), held as 3a holds v3
+    for label, channels, out in (
+            ("rgb", deep.generator.channels, 3), ("wide_ca", (256, 128), 1)):
+        gen3 = Generator(latent_dim=k, base_hw=7, channels=channels,
+                         out_channels=out, dtype=torch.bfloat16,
+                         gen=torch.Generator().manual_seed(out)) \
+            .to(dev).requires_grad_(False)
+        po = pack_s2d(gen3)
+        st = s2d_state(po)
+        xr = torch.tanh(torch.randn(128, po.grid_hw ** 2 * po.cb,
+                                    device=dev, generator=gd))
+        z0 = torch.randn(128, k, device=dev, generator=gd)
+        for steps, tol in ELEMENTWISE_TOL.items():
+            kw = dict(rec_iters=steps, rec_lr=lr, momentum=mom)
+            before = build.LAUNCHES[V3]
+            zk = fused_projection_s2d(po, xr, z0, state=st, **kw)
+            torch.cuda.synchronize()
+            ran = build.LAUNCHES[V3] - before
+            zp = s2d_loop_plain(po, xr, z0, **kw)
+            e = row_errors(zk, zp, z0)
+            c = row_errors(zp, s2d_loop_plain(
+                po, xr, z0, product_dtype=torch.float64, **kw), z0)
+            worst = V3_WORST_ROW_TOL[steps]
+            ok = st.entry == V3_THREE_LAUNCH and ran == 1 \
+                and bool(torch.isfinite(zk).all()) \
+                and e["row_rel_p50"] <= tol and e["row_rel_max"] <= worst
+            emit(f"elementwise_{V3}_three_launch_{label}_L{steps}", **e,
+                 entry=st.entry, ca=po.ca, cb=po.cb, tol_row_p50=tol,
+                 tol_row_max=worst, control_plain_f32_vs_f64=dict(
+                     rel=c["rel"], row_rel_p50=c["row_rel_p50"],
+                     row_rel_max=c["row_rel_max"]), ok=ok)
+            if not ok:
+                fail(f"{V3}'s {st.entry} on {label} L={steps}: {e}")
+        del gen3, po, st, xr, zk, zp
 
     # 3a''. every grid conv of the two deep paths on its own (the Hopper
     # conv of csrc/conv3x3_sm90.cuh at celeba.yml's levels, forward and
@@ -2956,7 +3017,7 @@ def main() -> int:
     serve("deep_auto", deep, xd_cal, xd_req, 128, deep_unrelated,
           rec_kernel="auto")
     serving["deep_auto"]["unrelated_latent_loss"] = deep_unrelated
-    v3_after_pipeline = build.LAUNCHES[V3]
+    v3_after_pipeline = build.LAUNCHES[KEY[V3]]
     with torch.no_grad():
         celeba_unrelated = float(rec_losses(
             apply_v4, torch.randn(128, k, device=dev, generator=gc),
@@ -2990,11 +3051,11 @@ def main() -> int:
              "pallas_v4", V4),
             ("celeba_direct_auto", celeba, xc_clean[:100], "auto",
              "pallas_v4", V4)):
-        before = dict(build.LAUNCHES)
+        before = build.LAUNCHES.copy()
         gen_m, loss_max = limits[id(model)]
         res = model.reconstruct(x100, gen_m, kernel=kernel)
         torch.cuda.synchronize()
-        rose = {n: build.LAUNCHES[n] - before[n] for n in kernels}
+        rose = {n: build.LAUNCHES[KEY[n]] - before[KEY[n]] for n in kernels}
         serving[label] = dict(
             path=model.last_kernel, clean_mean_loss=float(res.loss.mean()),
             finite=bool(torch.isfinite(res.x_hat).all()),
@@ -3040,8 +3101,12 @@ def main() -> int:
             serving["celeba_pallas_v4"]["path"] != "pallas_v4" or \
             v3_after_pipeline <= 0 or v4_after_pipeline <= 0:
         fail(f"dispatch: {serving}")
-    if not all(launches[name] > 0 for name in kernels):
-        fail(f"a kernel of the main path never launched: {launches}")
+    # and the main path ran v3's fused conv B entry alone (the launches
+    # were reset at the top of this phase)
+    if not all(launches.get(KEY[n], 0) > 0 for n in kernels) \
+            or launches.get(V3, 0):
+        fail(f"a kernel of the main path never launched, or v3 ran its "
+             f"three-launch entry: {launches}")
 
     # ------------------------------------------------------- 5. timing
     timing = {}
@@ -3154,7 +3219,7 @@ def main() -> int:
     # ------------------------------------------------- 15. kernels line
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": kk["source"],
-         "replaces": kk["replaces"], "launches": launches[name],
+         "replaces": kk["replaces"], "launches": launches[KEY[name]],
          "max_abs_err": max(errs[name].values()),
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"],

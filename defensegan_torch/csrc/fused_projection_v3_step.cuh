@@ -1,7 +1,7 @@
 // The step of the deep loop v3 and its L loop, shared by
-// fused_projection_v3.cu (v3), fused_projection_v3_variants.cu (the
-// layout experiments v3p, packed and ilp, which change one switch each)
-// and v3_diag2.cu (the step cut after one of its sections; see those
+// fused_projection_v3.cu (v3's two entries), fused_projection_v3_variants.cu
+// (the layout experiments v3p, packed and ilp, which change one switch
+// each) and v3_diag2.cu (the step cut after one of its sections; see those
 // files' headers for the function, the layouts and the design).
 //
 // A chain is one row range's step: seven launches (eight with the split-K
@@ -20,9 +20,10 @@
 //                   conv3x3_sm90.cuh (ilp): the same products, the two
 //                   consumer warpgroups out of phase;
 //   kFusedConvB     conv B forward, tanh_grad_pack and conv B backward as
-//                   one kernel (convb::section below, packed): the same
+//                   one kernel (convb::section below; v3's fp_v3_fused_run
+//                   sets it alone, packed with kChainBackward): the same
 //                   function, its obb and dop never in device memory.
-// With all four off it is v3's loop, launch for launch. `step` takes two
+// With all four off it is v3's fp_v3_run, launch for launch. `step` takes two
 // more, for v3_diag2.cu alone: kF32ConvB (conv B's packed product stored
 // in float32, tanh_grad_pack reading it so) and the cut (`upto`: the step
 // ends after that section; the conv B and tanh-gradient cuts write o and
@@ -103,7 +104,8 @@ __global__ void __launch_bounds__(kPackThreads)
   }
 }
 
-// ---- conv B's section as one kernel (the packed experiment, kFusedConvB)
+// ---- conv B's section as one kernel (kFusedConvB: v3's fp_v3_fused_run,
+// the packed experiment)
 //
 // The function of conv B forward -> tanh_grad_pack -> conv B backward for
 // whole latents, with their rounding points and summation orders: per
@@ -605,10 +607,10 @@ inline cudaError_t conv_b_launches(const Chain& ch, cudaStream_t st,
   return e;
 }
 
-// One projection step of a chain: fused_projection_v3.cu's seven launches
-// (eight with the split-K sum), with the variant's changes; cut after
-// section `upto` (under kFusedConvB only after the fc, conv A, the fused
-// section or later).
+// One projection step of a chain: fp_v3_run's seven launches (eight with
+// the split-K sum; five and six under kFusedConvB), with the variant's
+// changes; cut after section `upto` (under kFusedConvB only after the fc,
+// conv A, the fused section or later).
 template <bool kPadded, bool kChainBackward, bool kF32ConvB = false,
           bool kPingPong = false, bool kFusedConvB = false>
 inline cudaError_t step(const Chain& ch, cudaStream_t st,

@@ -35,8 +35,9 @@
 //    K = 9*ca product on the TPU) and rounds once, by the epilogue; v3
 //    rounds each tap. The forward is v3's: already one chain. Its conv B
 //    section (conv B forward, tanh_grad_pack, conv B backward: three
-//    launches passing obb and dop through device memory in v3) is one
-//    kernel, fused_projection_v3_step.cuh's convb::section: a consumer
+//    launches passing obb and dop through device memory in v3's
+//    fp_v3_run) is one kernel, fused_projection_v3_step.cuh's
+//    convb::section, as in v3's fp_v3_fused_run: a consumer
 //    warpgroup takes a latent whole, both products against KBT resident
 //    in shared memory, obb and dop only in shared memory and registers;
 //    the same function with the same rounding points and summation

@@ -11,10 +11,11 @@ K = 9*ca, rounded to bf16 once, after the sum, where v3 rounds each tap's
 product (the TPU kernel's layout artefact that v3 keeps). In the kernel
 that is the grid conv's tap-sum mode (TapSum kChain under kBackward,
 csrc/conv3x3_sm90.cuh). Its conv B section runs as one kernel
-(csrc/fused_projection_v3_step.cuh, convb::section), where v3 passes
-the packed product and the packed do through device memory between
-three launches: the same function, rounding for rounding, so the packed
-loop's z_final is what those three launches give, bit for bit.
+(csrc/fused_projection_v3_step.cuh, convb::section; v3 runs it too where
+the shapes allow), where the three-launch form passes the packed product
+and the packed do through device memory: the same function, rounding for
+rounding, so the packed loop's z_final is what those three launches
+give, bit for bit.
 
 `run_packed` runs the loop: on a CUDA tensor through the hand-written
 kernel (csrc/fused_projection_v3_variants.cu, fp_v3_packed_run), on a CPU

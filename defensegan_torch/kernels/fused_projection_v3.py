@@ -30,16 +30,21 @@ tap's product to bf16 before the shifted sum. The port KEEPS both, in the
 CUDA kernel and in the plain version alike: it then computes the reference
 kernel's function up to float32 summation order, so the CPU test against
 the Pallas kernel in interpret mode is as tight as v2's (1e-5 on z_final)
-and shows any misplaced tap or mask; and the packed product goes through
-device memory anyway, in bf16 at half the bytes of float32.
+and shows any misplaced tap or mask; and the three-launch form passes the
+packed product through device memory, in bf16 at half the bytes of
+float32.
 
 `fused_projection_s2d` runs all L steps: on a CUDA tensor through the
 hand-written kernel csrc/fused_projection_v3.cu (built by kernels/build.py),
-on a CPU tensor through `s2d_loop_plain`, its plain PyTorch version. Every
-activation is kept latent-major and flat, [N, 49*C] in (pixel, channel)
-order, exactly as the fc produces it; x is [N, 784] in s2d-flat order. The
-restart selection (losses of z_final, per-image argmin, G(z*)) runs outside
-the loop through the s2d packed apply, as in the JAX package.
+on a CPU tensor through `s2d_loop_plain`, its plain PyTorch version. The
+kernel's entry is chosen by the pack's shapes (`s2d_state`): conv B's
+section as one fused kernel where it fits (cb 16, a grid of at most 64
+pixels, ca up to 256: the deep MNIST generator), else as three launches;
+both give one z_final, bit for bit. Every activation is kept latent-major
+and flat, [N, 49*C] in (pixel, channel) order, exactly as the fc produces
+it; x is [N, 784] in s2d-flat order. The restart selection (losses of
+z_final, per-image argmin, G(z*)) runs outside the loop through the s2d
+packed apply, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -273,15 +278,36 @@ def check_targets(pack: S2DPack, x_s2d: torch.Tensor,
                          f"[{n}, {out_dim}]")
 
 
-def s2d_state(pack: S2DPack, *, library: str = "fused_projection_v3",
-              entry: str = "fp_v3_run",
+LIBRARY = "fused_projection_v3"
+ENTRY = "fp_v3_run"                # conv B's section as three launches
+FUSED_ENTRY = "fp_v3_fused_run"    # conv B's section as one kernel
+FUSED_COUNTER = "fused_projection_v3_fused"   # build.LAUNCHES key of its calls
+
+
+def conv_b_fuses(pp: S2DPack) -> bool:
+    """Whether the fused conv B section (csrc/fused_projection_v3_step.cuh,
+    convb::section) takes the padded pack: cb 16 (one k16 step a tap), the
+    grid in one 64-row wgmma tile, ca up to 256 (KBT and a ring of h1
+    tiles in shared memory)."""
+    return pp.cb == 16 and pp.grid_hw ** 2 <= 64 and pp.ca <= 256
+
+
+def s2d_state(pack: S2DPack, *, library: str = LIBRARY,
+              entry: Optional[str] = None,
               fused_conv_b: bool = False) -> LoopState:
     """The state of an entry with fp_v3_run's arguments (v3's, or a layout
-    experiment's): the padded pack, tap masks, pixel order. fused_conv_b:
-    the entry runs conv B's section as one kernel and reads neither of its
-    scratch buffers (packed product, packed do): none are allocated."""
+    experiment's): the padded pack, tap masks, pixel order. entry None:
+    v3's, by the pack's shapes: FUSED_ENTRY, counted under FUSED_COUNTER,
+    where `conv_b_fuses`, else ENTRY. fused_conv_b: the entry runs conv
+    B's section as one kernel and reads neither of its scratch buffers
+    (packed product, packed do): none are allocated."""
     p2 = pack.grid_hw ** 2
     pp = padded_s2d(pack)
+    counter = None
+    if entry is None:
+        fused_conv_b = conv_b_fuses(pp)
+        entry, counter = (FUSED_ENTRY, FUSED_COUNTER) if fused_conv_b \
+            else (ENTRY, None)
     npk, kpk = pp.kbp.shape[1], pp.kbpt.shape[0]
     order = torch.from_numpy(pixel_order(pp.grid_hw)).to(pp.w1.device)
     bf = torch.bfloat16
@@ -299,7 +325,7 @@ def s2d_state(pack: S2DPack, *, library: str = "fused_projection_v3",
                  (0 if fused_conv_b else p2 * kpk, bf),
                  (splits * pp.z_dim, torch.float32)),
         dims=(pp.z_dim, pp.c0, pp.ca, pp.cb, pp.grid_hw, npk, kpk, splits),
-        out_dim=p2 * pack.cb)
+        out_dim=p2 * pack.cb, counter=counter)
 
 
 def fused_projection_s2d(pack: S2DPack, x_s2d: torch.Tensor,

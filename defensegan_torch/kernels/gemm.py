@@ -1,14 +1,15 @@
 """One product of the fused loops, on its own.
 
 Every product of the four projection loops (v2's and v2i's four, the fc
-products of v3 and v4, v3's packed conv B) runs on one Hopper GEMM with a
-fused epilogue, csrc/gemm_sm90.cuh (wgmma + TMA, persistent,
-warp-specialized), inside the loops' libraries. `gemm` launches it alone,
-through the v2 library's entry `fp_gemm`, so that a test can hold one
-product against `gemm_plain` at each edge of its design: a K that the
-128-byte slab does not divide (v2i's 832 in int8, conv B's 160), an N of
-6.5 tiles (P = 832), the split-K of the fc backward (N = 128), rows that
-the 128-row tile does not divide. On a CPU tensor it runs `gemm_plain`.
+products of v3 and v4, v3's packed conv B in its three-launch form) runs
+on one Hopper GEMM with a fused epilogue, csrc/gemm_sm90.cuh (wgmma +
+TMA, persistent, warp-specialized), inside the loops' libraries. `gemm`
+launches it alone, through the v2 library's entry `fp_gemm`, so that a
+test can hold one product against `gemm_plain` at each edge of its
+design: a K that the 128-byte slab does not divide (v2i's 832 in int8,
+conv B's 160), an N of 6.5 tiles (P = 832), the split-K of the fc
+backward (N = 128), rows that the 128-row tile does not divide. On a CPU
+tensor it runs `gemm_plain`.
 
 Operands: A [M, K] bf16 or int8. B [K, N] in bf16; in int8, B^T [N, K]
 (K-major): 8-bit wgmma has no transpose flag for B, so the int8 pack keeps

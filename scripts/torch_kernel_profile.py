@@ -14,10 +14,11 @@ profiler, and the median of 3 synchronized calls outside it (call_ms).
 launches, so it goes by the order of the launches on the stream: for v2
 the four products, the fc backward as its split products and their sum +
 momentum; for v2i also the two quantize passes; for v3 and v4 the fc
-products, the convs and conv B), each with the operations it issues (the
-padded widths: K in whole slabs, N in whole 128-column tiles; skipped
-border taps left out) and its share of the peak of their type (bf16
-989 TFLOP/s, int8 1979 TOP/s);
+products, the convs and conv B, v3's conv B section one launch where its
+entry fuses it), each with the operations it issues (the padded widths:
+K in whole slabs, N in whole 128-column tiles; skipped border taps left
+out) and its share of the peak of their type (bf16 989 TFLOP/s, int8
+1979 TOP/s);
 --config runs v4 on another 64x64 config (celeba_wide, imagenet64) at the
 same rows. --chunks repeats this for each row-chunk size of the wrappers
 (0: their default, one chunk up to the scratch cap). --kernel v3p and ilp
@@ -36,13 +37,15 @@ per-tap fold), the conv and its products alone.
 batch 512, the probe's draws) per level and per direction: each launch's
 device time, the 64-deep K slabs it issues and their share of the bf16
 peak; with the zero blocks skipped and with every block issued.
---root takes the port (and chip_smoke.py) from another checkout, e.g. the
+--rows sets the rows of the v2, v2i and v3 loops (e.g. 64, a one-image
+request's 10 rows as the wrapper pads them). --root takes the port (and chip_smoke.py) from another checkout, e.g. the
 parent unpacked by `git archive`, so that two versions are profiled in
 one call. Needs one CUDA device:
 
     python3 scripts/torch_kernel_profile.py \
         [--kernel all|v2|v2i|v3|v4|v3p|ilp|packed|conva|stream64] \
-        [--iters 20] [--chunks 0,4096] [--config celeba] [--root DIR]
+        [--iters 20] [--rows 10240] [--chunks 0,4096] [--config celeba]
+        [--root DIR]
 """
 
 from __future__ import annotations
@@ -79,7 +82,8 @@ V3_LAUNCHES = ("fc forward", "conv A forward",
                "conv B forward (packed product)",
                "conv B tap sum + tanh gradient + pack", "conv B backward",
                "conv A backward") + FC_BACKWARD
-# the packed loop's step: conv B's section is one launch
+# the step with conv B's section as one launch: the packed loop's, and
+# v3's where the section's shapes fit
 PACKED_LAUNCHES = ("fc forward", "conv A forward",
                    "conv B section (forward, tap sum, tanh gradient, "
                    "backward)", "conv A backward") + FC_BACKWARD
@@ -99,7 +103,7 @@ def pack_width(pack) -> int:
 
 
 V3_LOOPS = ("fused_projection_v3", "fused_projection_v3p",
-            "fused_projection_v3_ilp")     # v3's step, launch for launch
+            "fused_projection_v3_ilp")     # v3's three-launch step
 PACKED = "fused_projection_v3_packed"
 
 
@@ -110,6 +114,18 @@ def packed_is_fused() -> bool:
     return getattr(v3_packed, "FUSED_CONV_B", False)
 
 
+def v3_is_fused(pack) -> bool:
+    """Whether the imported port's v3 runs conv B's section as one launch
+    on this pack (a parent checkout's, which lacks `conv_b_fuses`, runs
+    three)."""
+    try:
+        from defensegan_torch.kernels.fused_projection_v3 import (
+            conv_b_fuses, padded_s2d)
+    except ImportError:
+        return False
+    return conv_b_fuses(padded_s2d(pack))
+
+
 def step_labels(name: str, pack):
     """The launches of one step of the loop, in stream order."""
     if name.endswith("v2"):
@@ -118,6 +134,8 @@ def step_labels(name: str, pack):
         return V2I_LAUNCHES
     if name == PACKED:
         return PACKED_LAUNCHES if packed_is_fused() else V3_LAUNCHES
+    if name == "fused_projection_v3" and v3_is_fused(pack):
+        return PACKED_LAUNCHES
     if name in V3_LOOPS:
         return V3_LAUNCHES
     lv = level_names(pack)
@@ -458,6 +476,8 @@ def main(argv=None) -> int:
     ap.add_argument("--chunks", default="0",
                     help="comma-separated rows per library call; 0 = the "
                          "wrapper's default")
+    ap.add_argument("--rows", type=int, default=10240,
+                    help="rows of the v2, v2i and v3 loops")
     ap.add_argument("--root", default=ROOT,
                     help="the checkout whose port is profiled")
     args = ap.parse_args(argv)
@@ -489,7 +509,7 @@ def main(argv=None) -> int:
             print(json.dumps({"stream64": rec}), flush=True)
         return 0
     g = torch.Generator(device="cuda").manual_seed(0)
-    n = 10240                  # rows of the v2, v2i and v3 loops
+    n = args.rows
     want = ("v2", "v2i", "v3", "v4") if args.kernel == "all" \
         else (args.kernel,)
     loops = []

@@ -48,13 +48,14 @@ from defensegan_torch.kernels.fused_projection_v2 import (
 from defensegan_torch.kernels.fused_projection_v2i import (
     dense_int8_loop_plain, fused_projection_dense_int8, pack_dense_int8)
 from defensegan_torch.kernels.fused_projection_v3 import (
-    CUTS, fused_projection_s2d, pack_s2d, s2d_loop_plain)
+    CUTS, ENTRY, FUSED_COUNTER, FUSED_ENTRY, fused_projection_s2d, pack_s2d,
+    s2d_loop_plain, s2d_state)
 from defensegan_torch.kernels.fused_projection_v4 import (
     fused_projection_v4, pack_v4, v4_loop_plain, x_rows)
 from defensegan_torch.kernels.gemm import COUNTER as GEMM_COUNTER
 from defensegan_torch.kernels.gemm import gemm, gemm_plain, split_k_for
 from defensegan_torch.kernels.gemm import rounding_excess as gemm_excess
-from defensegan_torch.models.generator import generator_for
+from defensegan_torch.models.generator import Generator, generator_for
 
 LR, MOM = 10.0, 0.7
 TOL = {1: 4e-3, 5: 2e-2}
@@ -82,24 +83,38 @@ def _case(dev, n=128, arch="wide"):
     return tg, x.to(dev), z0.to(dev)
 
 
+def _three_launch_v3(pack, x, z0, **kw):
+    """v3 with conv B's section as three launches (fp_v3_run), whatever
+    the pack's shapes."""
+    return fused_projection_s2d(pack, x, z0,
+                                state=s2d_state(pack, entry=ENTRY), **kw)
+
+
 def _kernel(name, tg):
-    """(pack, wrapper, plain version, bf16 base pack) of a kernel."""
+    """(pack, wrapper, plain version, bf16 base pack, the build.LAUNCHES
+    key of the wrapper's calls) of a kernel. On the deep generator v3
+    takes its fused conv B entry, counted under its own key;
+    fused_projection_v3.three_launch is v3's three-launch entry on it."""
     if name == "fused_projection_v3":
-        return pack_s2d(tg), fused_projection_s2d, s2d_loop_plain, None
+        return (pack_s2d(tg), fused_projection_s2d, s2d_loop_plain, None,
+                FUSED_COUNTER)
+    if name == "fused_projection_v3.three_launch":
+        return (pack_s2d(tg), _three_launch_v3, s2d_loop_plain, None,
+                "fused_projection_v3")
     if name == "fused_projection_v2":
         pack = pack_dense(tg)
-        return pack, fused_projection_dense, dense_loop_plain, pack
+        return pack, fused_projection_dense, dense_loop_plain, pack, name
     pack = pack_dense_int8(tg)
     return (pack, fused_projection_dense_int8, dense_int8_loop_plain,
-            pack.base)
+            pack.base, name)
 
 
 KERNELS = ["fused_projection_v2", "fused_projection_v2i",
-           "fused_projection_v3"]
+           "fused_projection_v3", "fused_projection_v3.three_launch"]
 
 
 def _arch(name):
-    return "deep" if name == "fused_projection_v3" else "wide"
+    return "deep" if name.startswith("fused_projection_v3") else "wide"
 
 
 def _targets(base, x):
@@ -112,12 +127,12 @@ def _targets(base, x):
 @pytest.mark.parametrize("name", KERNELS)
 def test_kernel_matches_plain(cuda_device, name, steps):
     tg, x, z0 = _case(cuda_device, arch=_arch(name))
-    pack, run, plain, base = _kernel(name, tg)
-    before = build.LAUNCHES[name]
+    pack, run, plain, base, key = _kernel(name, tg)
+    before = build.LAUNCHES[key]
     got = run(pack, x, z0, rec_iters=steps, rec_lr=LR, momentum=MOM,
               chunk=64)
     torch.cuda.synchronize()
-    assert build.LAUNCHES[name] == before + 2     # two 64-row chunks
+    assert build.LAUNCHES[key] == before + 2     # two 64-row chunks
     ref = plain(pack, _targets(base, x), z0, rec_iters=steps, rec_lr=LR,
                 momentum=MOM)
     moved = (ref - z0).abs().max().item()
@@ -133,13 +148,13 @@ def test_kernel_pads_rows_and_chunks_exactly(cuda_device, name):
     chunks (the last one short after padding) equal one chunk bit for
     bit, and both match the plain version."""
     tg, x, z0 = _case(cuda_device, n=200, arch=_arch(name))
-    pack, run, plain, base = _kernel(name, tg)
+    pack, run, plain, base, key = _kernel(name, tg)
     kw = dict(rec_iters=5, rec_lr=LR, momentum=MOM)
-    before = build.LAUNCHES[name]
+    before = build.LAUNCHES[key]
     one = run(pack, x, z0, **kw)
     chunked = run(pack, x, z0, chunk=64, **kw)
     torch.cuda.synchronize()
-    assert build.LAUNCHES[name] == before + 1 + 4   # 256 padded rows
+    assert build.LAUNCHES[key] == before + 1 + 4   # 256 padded rows
     assert one.shape == (200, 32) and torch.equal(one, chunked)
     ref = plain(pack, _targets(base, x), z0, **kw)
     moved = (ref - z0).abs().max().item()
@@ -696,6 +711,85 @@ def test_packed_fused_section_equals_three_launches_bit_for_bit(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n, steps, chunk", [
+    (10, 5, None), (200, 5, None), (333, 5, 192), (1024, 5, None),
+    (1024, 200, None)])
+def test_v3_fused_section_equals_three_launches_bit_for_bit(
+        cuda_device, n, steps, chunk):
+    """v3 on mnist's deep generator (c0 128, ca 256, cb 16, g 7) takes the
+    fused conv B section by its shapes (fp_v3_fused_run) and gives the
+    three-launch entry's z_final (fp_v3_run) bit for bit: 10 rows (one
+    64-row tile, a latent a block), 200 and 333 (part waves of the
+    persistent grid; 333 in 192-row chunks), 1024 at L 5 and 200. Each
+    entry's counter rises by the calls, one a chunk."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tg = generator_for("mnist", 64, torch.bfloat16, "deep", 128,
+                       gen=torch.Generator().manual_seed(n))
+    tg = tg.to(cuda_device).requires_grad_(False)
+    rng = np.random.RandomState(n)
+    x = torch.from_numpy(np.tanh(rng.randn(n, 784)).astype(np.float32)) \
+        .to(cuda_device)
+    z0 = torch.from_numpy(rng.randn(n, 128).astype(np.float32)) \
+        .to(cuda_device)
+    pack = pack_s2d(tg)
+    fused_state, three_state = s2d_state(pack), s2d_state(pack, entry=ENTRY)
+    assert (fused_state.entry, fused_state.counter) == (FUSED_ENTRY,
+                                                        FUSED_COUNTER)
+    rows = -(-n // 64) * 64
+    calls = -(-rows // (chunk or rows))
+    kw = dict(rec_iters=steps, rec_lr=LR, momentum=MOM, chunk=chunk)
+    before = build.LAUNCHES.copy()
+    fused = fused_projection_s2d(pack, x, z0, state=fused_state, **kw)
+    three = fused_projection_s2d(pack, x, z0, state=three_state, **kw)
+    torch.cuda.synchronize()
+    for key in (FUSED_COUNTER, three_state.library):
+        assert build.LAUNCHES[key] == before[key] + calls, key
+    assert (fused - z0).abs().max().item() > 1e-3
+    assert torch.equal(fused, three)
+
+
+# deep generators whose conv B section the fused kernel cannot take, so
+# that v3 runs its three-launch entry: a 3-channel output (cb 48) and
+# channels[1] 128 (ca 512)
+THREE_LAUNCH_GENERATORS = {"rgb": ((8, 4), 3), "wide_ca": ((8, 128), 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 5])
+@pytest.mark.parametrize("name", sorted(THREE_LAUNCH_GENERATORS))
+def test_three_launch_v3_matches_plain_where_it_runs(cuda_device, name,
+                                                     steps):
+    """Where the shapes leave v3 its three-launch entry (fp_v3_run), that
+    entry matches the plain version as test_kernel_matches_plain holds v3
+    on the deep MNIST generator, and counts under v3's library key."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    channels, out = THREE_LAUNCH_GENERATORS[name]
+    tg = Generator(latent_dim=32, base_hw=7, channels=channels,
+                   out_channels=out, dtype=torch.bfloat16,
+                   gen=torch.Generator().manual_seed(0))
+    tg = tg.to(cuda_device).requires_grad_(False)
+    pack = pack_s2d(tg)
+    state = s2d_state(pack)
+    assert (state.entry, state.counter) == (ENTRY, None)
+    rng = np.random.RandomState(0)
+    width = pack.grid_hw ** 2 * pack.cb
+    x = torch.from_numpy(np.tanh(rng.randn(128, width)).astype(np.float32))
+    z0 = torch.from_numpy(rng.randn(128, 32).astype(np.float32))
+    x, z0 = x.to(cuda_device), z0.to(cuda_device)
+    kw = dict(rec_iters=steps, rec_lr=LR, momentum=MOM)
+    before = build.LAUNCHES.copy()
+    got = fused_projection_s2d(pack, x, z0, state=state, chunk=64, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["fused_projection_v3"] == \
+        before["fused_projection_v3"] + 2          # two 64-row chunks
+    assert build.LAUNCHES[FUSED_COUNTER] == before[FUSED_COUNTER]
+    ref = s2d_loop_plain(pack, x, z0, **kw)
+    moved = (ref - z0).abs().max().item()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= TOL[steps] * moved
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("steps", [1, 5])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_v3_variant_matches_plain(cuda_device, variant, steps):
@@ -1048,6 +1142,9 @@ def test_one_image_predict_equals_it_inside_a_256_batch_on_card(
     from defensegan_torch.models import build_classifier
 
     gan = _serving_gan(config, cuda_device)
+    # mnist's deep generator takes v3's fused conv B entry, counted under
+    # its own key
+    key = FUSED_COUNTER if kernel == "fused_projection_v3" else kernel
     clf = build_classifier("A", gen=torch.Generator().manual_seed(5))
     pipe = DefendedPipeline(gan, clf.to(cuda_device).requires_grad_(False),
                             fpr=0.5)
@@ -1062,7 +1159,7 @@ def test_one_image_predict_equals_it_inside_a_256_batch_on_card(
     full = pipe.predict(x, batch_size=256, z0_fn=lambda p, lo: table[lo:])
     (big, _, _), = batched_reconstruct(gan, x, batch_size=256,
                                        z0_fn=lambda lo: table[lo:])
-    before = build.LAUNCHES[kernel]
+    before = build.LAUNCHES[key]
     for j in (0, 77, 199):
         one = pipe.predict(x[j:j + 1], z0_fn=lambda p, lo: table[j + lo:])
         assert one.pred[0] == full.pred[j] and \
@@ -1076,7 +1173,7 @@ def test_one_image_predict_equals_it_inside_a_256_batch_on_card(
         assert rel <= TOL[1], (j, rel)
         err = (res.x_hat[0] - big.x_hat[j]).abs().max().item()
         assert err <= TOL[1], (j, err)
-    assert build.LAUNCHES[kernel] == before + 6
+    assert build.LAUNCHES[key] == before + 6
     assert full.flagged.any() and not full.flagged.all()
 
 
@@ -1124,7 +1221,7 @@ def test_bench_worker_labels_what_ran_on_card(cuda_device, tmp_path, capsys):
     assert recs[-1]["value"] > 0 and recs[-1]["deep_value"] > 0
     assert launches["headline_xla"] == {}
     assert launches["headline_pallas"]["fused_projection_v2"] > 0
-    assert launches["deep_pallas"]["fused_projection_v3"] > 0
+    assert launches["deep_pallas"].get(FUSED_COUNTER, 0) > 0
     if want == "pallas_int8":
         assert launches["headline_int8"]["fused_projection_v2i"] > 0
 
@@ -1139,10 +1236,10 @@ def test_bench_deep_int8_request_never_labelled_int8(cuda_device):
     from defensegan_torch.cli.bench import CFG_DIR, measure
 
     deep = os.path.join(CFG_DIR, "mnist.yml")
-    before = build.LAUNCHES["fused_projection_v3"]
+    before = build.LAUNCHES[FUSED_COUNTER]
     v, k, _ = measure(deep, 64, 2, 5, 1, "pallas_int8",
                       fallback_to_auto=True, device=cuda_device)
     assert v > 0 and k == "pallas"
-    assert build.LAUNCHES["fused_projection_v3"] > before
+    assert build.LAUNCHES[FUSED_COUNTER] > before
     with pytest.raises(RuntimeError, match="not runnable"):
         measure(deep, 64, 2, 5, 1, "pallas_int8", device=cuda_device)

@@ -12,6 +12,10 @@ misplaced tap or mask by ~1e-2). The CUDA kernel itself is held against the same
 version on the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import ctypes
+import pathlib
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,8 +34,11 @@ from defensegan_torch.kernels.fused_projection_v3 import (
     fused_projection_s2d, make_s2d_reconstructor, pack_s2d, padded_s2d,
     s2d_kernel_available, s2d_loop_plain, s2d_state)
 from defensegan_torch.kernels.grid import tap_masks
-from defensegan_torch.kernels.loop import run_loop
-from defensegan_torch.models.generator import generator_for
+from defensegan_torch.kernels.loop import argtypes, run_loop
+from defensegan_torch.models.generator import Generator, generator_for
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+from torch_csrc_signatures import c_signatures  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -193,13 +200,14 @@ def test_kernel_path_raises_without_a_card(pair, monkeypatch):
     called = []
     monkeypatch.setattr(v3, "s2d_loop_plain",
                         lambda *a, **k: called.append(1))
-    before = build.LAUNCHES["fused_projection_v3"]
+    keys = (v3.LIBRARY, v3.FUSED_COUNTER)       # v3's two entries
+    before = [build.LAUNCHES[key] for key in keys]
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_projection_s2d(pack, torch.from_numpy(x),
                              torch.from_numpy(z0).to("meta"), rec_iters=1,
                              rec_lr=LR, momentum=MOM)
     assert not called
-    assert build.LAUNCHES["fused_projection_v3"] == before
+    assert [build.LAUNCHES[key] for key in keys] == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         run_loop(s2d_state(pack), torch.from_numpy(x), torch.from_numpy(z0),
                  rec_iters=1, rec_lr=LR, momentum=MOM)
@@ -212,3 +220,66 @@ def test_s2d_kernel_available():
     assert not s2d_kernel_available(generator_for("celeba", 4, arch="deep"))
     assert not s2d_kernel_available(generator_for("mnist", 256,
                                                   arch="deep"))
+
+
+# generators by the conv B section they have: (maker's arguments, fused)
+SECTIONS = {
+    "mnist": (("mnist", 64, "deep", 128), True),           # ca 256, cb 16
+    "mnist_narrow": (("mnist", 4, "deep", 32), True),      # ca 16 -> 64
+    "rgb": ((7, (128, 64), 3, 32), False),                 # cb 48
+    "mnist_wide_ca": (("mnist", 128, "deep", 32), False),  # ca 512
+}
+
+
+def _section_generator(name):
+    args, _ = SECTIONS[name]
+    if isinstance(args[0], int):
+        base, channels, out, latent = args
+        gen = Generator(base_hw=base, channels=channels, out_channels=out,
+                        latent_dim=latent, dtype=torch.bfloat16)
+    else:
+        data, dim, arch, latent = args
+        gen = generator_for(data, dim, torch.bfloat16, arch, latent)
+    return gen.requires_grad_(False)
+
+
+@pytest.mark.parametrize("name", sorted(SECTIONS))
+def test_s2d_state_fuses_conv_b_where_the_shapes_fit(name):
+    """v3's state takes the fused conv B section (fp_v3_fused_run, its own
+    counter, no packed product or packed do allocated) where the section's
+    shapes fit (cb 16, g*g <= 64, ca up to 256: mnist's deep generator),
+    and the three-launch entry with both scratch buffers elsewhere (a
+    3-channel output's cb 48, channels[1] 128's ca 512)."""
+    gen = _section_generator(name)
+    assert s2d_kernel_available(gen)
+    pack = pack_s2d(gen)
+    pp = padded_s2d(pack)
+    state = s2d_state(pack)
+    fused = SECTIONS[name][1]
+    assert v3.conv_b_fuses(pp) == fused
+    p2 = pack.grid_hw ** 2
+    packed_cols = [cols for cols, _ in state.scratch[3:5]]
+    if fused:
+        assert (state.entry, state.counter) == (v3.FUSED_ENTRY,
+                                                v3.FUSED_COUNTER)
+        assert packed_cols == [0, 0]
+    else:
+        assert (state.entry, state.counter) == (v3.ENTRY, None)
+        assert packed_cols == [p2 * pp.kbp.shape[1], p2 * pp.kbpt.shape[0]]
+    # the three-launch entry on request, whatever the shapes
+    three = s2d_state(pack, entry=v3.ENTRY)
+    assert three.counter is None and [cols for cols, _ in three.scratch] \
+        == [pp.z_dim, p2 * pp.c0, p2 * pp.ca, p2 * pp.kbp.shape[1],
+            p2 * pp.kbpt.shape[0], three.scratch[5][0]]
+    assert state.dims == three.dims and state.library == three.library
+
+
+def test_v3_entries_take_one_parameter_list():
+    """fp_v3_fused_run takes fp_v3_run's parameters, and both bind to the
+    argument list of the state that names them."""
+    entries = c_signatures("fused_projection_v3.cu")
+    assert entries[v3.FUSED_ENTRY] == entries[v3.ENTRY]
+    pack = pack_s2d(_section_generator("mnist"))
+    for state in (s2d_state(pack), s2d_state(pack, entry=v3.ENTRY)):
+        restype, params = entries[state.entry]
+        assert restype is ctypes.c_int and params == argtypes(state)

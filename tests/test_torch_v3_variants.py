@@ -501,6 +501,18 @@ def test_profile_counts_packed_as_one_section_launch(pair):
             assert ops.get(label) == v3.get(label)
 
 
+def test_profile_names_v3s_launches_by_its_entry(pair):
+    """scripts/torch_kernel_profile.py: v3's step on a pack whose conv B
+    section fuses (the deep MNIST generator) is packed's five launches;
+    on one it does not (ca 512), v3's seven."""
+    _, tg = pair
+    assert kprof.step_labels("fused_projection_v3", pack_s2d(tg)) == \
+        kprof.PACKED_LAUNCHES
+    wide = generator_for("mnist", 128, torch.bfloat16, "deep", 32)
+    assert kprof.step_labels("fused_projection_v3", pack_s2d(
+        wide.requires_grad_(False))) == kprof.V3_LAUNCHES
+
+
 def test_profile_counts_stream64_slabs():
     """--kernel stream64's issued slabs: every block by the closed form,
     the skip by stream64_probe.issued_slabs, per 128-image m-tile; and
