@@ -49,20 +49,30 @@ x_hat, the margin, the class and L(z*_prog) are taken at the program's
 own z* and x_hat: the reference follows the program from its state
 there, and the loop that produced that state is judged by the first two
 numbers. PERF.md gives the readings each limit was set from.
+
+A configuration whose `projection.init` is "encoder" starts restart 0 at
+the program's own encoder E(x) (harness.Inputs hands the program NaN in
+that slot of the draws). The reference then projects from the draws with
+restart 0 replaced by its float32 E(x) (reference/encoder.py), for the
+calibration images and the sampled ones alike, and the loss at the start
+(hence the descent) and z_rel read those starts; the diagnostics add
+restart 0's own descent. With `init` absent or "random" the starts are
+the draws themselves.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from benchmark.reference import classifier as ref_classifier
 from benchmark.reference import detector as ref_detector
+from benchmark.reference.encoder import EncoderShape, encode
 from benchmark.reference.generator import GeneratorShape, generate
-from benchmark.reference.numerics import FP32, float32_products
+from benchmark.reference.numerics import FP32, Precision, float32_products
 from benchmark.reference.projection import project, row_losses
 
 NUMBERS = ("path_mismatch", "restart_gap_p25", "restart_far_pct",
@@ -89,6 +99,34 @@ def shape_of(conf: Dict) -> GeneratorShape:
                           g["out_channels"], g["kernel"], g["stride"])
 
 
+def encoder_of(conf: Dict) -> Optional[EncoderShape]:
+    """The encoder of an encoder-initialised projection (`projection.init`
+    "encoder", the `encoder` block), or None for random starts."""
+    init = conf["projection"].get("init", "random")
+    if init == "random":
+        return None
+    if init != "encoder":
+        raise ValueError(f"projection.init {init!r} is neither 'random' "
+                         "nor 'encoder'")
+    e = conf["encoder"]
+    hw, _, c = conf["image_shape"]
+    return EncoderShape(tuple(e["channels"]), e["z_dim"], c, hw, e["kernel"],
+                        e["stride"], e["negative_slope"])
+
+
+def encoder_starts(enc_w, enc: EncoderShape, x: torch.Tensor,
+                   z0: torch.Tensor, block: int = 512,
+                   prec: Precision = FP32) -> torch.Tensor:
+    """The draws z0 [M, R, k] with restart 0 at E(x), x [M, H, W, C] in
+    [0, 1]."""
+    z = z0.float().clone()
+    with torch.no_grad():
+        for i in range(0, x.shape[0], block):
+            z[i:i + block, 0] = encode(enc_w, enc, 2.0 * x[i:i + block]
+                                       .float() - 1.0, prec)
+    return z
+
+
 def _project_blocks(gen, x, z0, pr, block):
     outs = [project(gen, x[i:i + block], z0[i:i + block], iters=pr["iters"],
                     lr=pr["lr"], momentum=pr["momentum"])
@@ -98,30 +136,37 @@ def _project_blocks(gen, x, z0, pr, block):
 
 
 def reference_numbers(conf: Dict, gen_w, clf_w, x_calib, z0_calib,
-                      s: Sample, block: int = 512) -> Dict[str, float]:
+                      s: Sample, block: int = 512, enc_w=None
+                      ) -> Dict[str, float]:
     """Every compared number but path_mismatch (the run counts that), and
-    the readings behind them (diagnostics)."""
+    the readings behind them (diagnostics). enc_w: the encoder's weights
+    under encoder init."""
     shape = shape_of(conf)
     pr = conf["projection"]
     gen = partial(generate, gen_w, shape, prec=FP32)
+    enc = encoder_of(conf)
     with float32_products():
+        z0 = s.z0
+        if enc is not None:
+            z0_calib = encoder_starts(enc_w, enc, x_calib, z0_calib, block)
+            z0 = encoder_starts(enc_w, enc, s.x, z0, block)
         _, calib_losses = _project_blocks(gen, x_calib, z0_calib, pr, block)
         center, threshold = ref_detector.calibrate(
             calib_losses.min(1).values.double().cpu().numpy(),
             conf["pipeline"]["fpr"])
-        z_ref, l_ref = _project_blocks(gen, s.x, s.z0, pr, block)
+        z_ref, l_ref = _project_blocks(gen, s.x, z0, pr, block)
         with torch.no_grad():
-            m, r, k = s.z0.shape
+            m, r, k = z0.shape
             x_rows = (2.0 * s.x.float() - 1.0).reshape(m, 1, -1).expand(
                 m, r, -1).reshape(m * r, -1)
             l_z0 = torch.cat([
-                row_losses(gen(s.z0.reshape(m * r, k)[i:i + block].float()),
+                row_losses(gen(z0.reshape(m * r, k)[i:i + block].float()),
                            x_rows[i:i + block])
                 for i in range(0, m * r, block)]).reshape(m, r)
             g_at = (gen(s.z_star.float()) + 1.0) * 0.5
             logits = ref_classifier.logits(clf_w, s.x_hat.float())
-    rows = torch.arange(m, device=s.z0.device)
-    c = torch.argmin(s.all_losses.float(), dim=1).to(s.z0.device)
+    rows = torch.arange(m, device=z0.device)
+    c = torch.argmin(s.all_losses.float(), dim=1).to(z0.device)
     l_ref = l_ref.double()
     gaps = ((s.all_losses.double() - l_ref).abs() / l_ref).cpu().numpy()
     descent = (l_z0.double() - l_ref).clamp_min(1e-12)
@@ -152,7 +197,7 @@ def reference_numbers(conf: Dict, gen_w, clf_w, x_calib, z0_calib,
         "flag_mismatch": int(np.sum((s.flagged != flag_ref)
                                     & (off > ch["flag_band"]))),
     }
-    z_c, z0_c = z_ref[rows, c], s.z0[rows, c].float()
+    z_c, z0_c = z_ref[rows, c], z0[rows, c].float()
     z_rel = ((s.z_star.float() - z_c).norm(dim=1)
              / (z_c - z0_c).norm(dim=1)).cpu().numpy()
     diag = {"images": int(m), "center_ref": center,
@@ -171,6 +216,10 @@ def reference_numbers(conf: Dict, gen_w, clf_w, x_calib, z0_calib,
             "z_rel_p50": float(np.median(z_rel)),
             "choice_differs": int(np.sum(
                 c.cpu().numpy() != l_ref.argmin(1).cpu().numpy()))}
+    if enc is not None:
+        d0 = descent[:, 0].cpu().numpy()
+        diag.update(enc_descent_min=float(d0.min()),
+                    enc_descent_p50=float(np.median(d0)))
     return out, diag
 
 

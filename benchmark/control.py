@@ -13,10 +13,12 @@ this):
   fp8      the plain reference in the program's place, every product's
            operands rounded to fp8 e4m3 (reference/numerics.py): the
            control one precision step below the configuration's bfloat16,
-           for the projection, G(z*) and the classifier alike
+           for the projection, G(z*) and the classifier alike (and under
+           encoder init for E(x), which starts restart 0)
   frozen   a fault: the float32 reference in the program's place with
            the upper half of every image's restarts left at their draws
-           (their losses reported where they started)
+           (their losses reported where they started; under encoder init
+           restart 0 starts at the float32 E(x))
 
 Each (seed, mode) prints one JSON line of the compared numbers and the
 diagnostics beside them, and appends it to --out (benchmark/out/). A
@@ -71,15 +73,18 @@ class ReferenceSystem:
     projection and classifier at precision `prec`, in chunks of `block`
     images, reporting its chunks to the recorder as the program's
     pass-through does (no program path: path_mismatch reads 0). frozen:
-    restarts from this index on are left at their draws (a fault)."""
+    restarts from this index on are left at their draws (a fault). Under
+    encoder init restart 0 starts at the reference's E(x) at `prec`
+    (enc_w: the encoder's weights)."""
 
     def __init__(self, conf: Dict, gen_w, clf_w, device, recorder,
                  prec: Precision, block: int = 1024,
-                 frozen: Optional[int] = None):
+                 frozen: Optional[int] = None, enc_w=None):
         self.conf, self.recorder, self.prec = conf, recorder, prec
         self.device, self.block, self.frozen = device, block, frozen
         self.gen = partial(generate, gen_w, check.shape_of(conf), prec=prec)
         self.clf_w = clf_w
+        self.enc, self.enc_w = check.encoder_of(conf), enc_w
         self.center = self.threshold = None
 
     def _run(self, x: np.ndarray, z0_fn):
@@ -91,6 +96,9 @@ class ReferenceSystem:
                                      device=self.device)
                 b = xb.shape[0]
                 z0 = z0_fn(0, lo)[:b]
+                if self.enc is not None:
+                    z0 = check.encoder_starts(self.enc_w, self.enc, xb, z0,
+                                              prec=self.prec)
                 p = self._project(xb, z0, pr)
                 rows = torch.arange(b, device=self.device)
                 res = _Chunk(p.x_hat, p.z_final[rows, p.best],
@@ -149,13 +157,13 @@ def readings(bench: Dict, cell: Dict, seed: int, mode: str,
                 conf, inputs.gen_w, inputs.clf_w, device, recorder,
                 FP8 if mode == "fp8" else FP32,
                 frozen=(conf["projection"]["restarts"] // 2
-                        if mode == "frozen" else None))
+                        if mode == "frozen" else None), enc_w=inputs.enc_w)
         sys_conf = conf
         if mode == "int8":
             sys_conf = dict(conf, program_overrides=dict(
                 conf["program_overrides"], PROJECTION_KERNEL="pallas_int8"))
         return ProgramSystem(sys_conf, inputs.gen_w, inputs.clf_w, device,
-                             recorder)
+                             recorder, inputs.enc_w)
 
     t0 = time.perf_counter()
     keep = max(1, -(-conf["check"]["sample_images"]

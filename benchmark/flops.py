@@ -1,4 +1,6 @@
-"""The generator's own work in one projection step, from its shapes.
+"""The work of projecting one image, from the shapes: the generator's own
+work in each projection step, and under encoder init the encoder's
+forward pass once an image.
 
 One step of the projection is the generator's forward pass and its
 gradient with respect to the input: 2 FLOPs a multiply-add each way, so 4
@@ -11,10 +13,19 @@ generator's deconv is packed into (its structural zeros), the
 space-to-depth form's zero taps, or a kernel's padding of rows, columns
 and tiles. The arithmetic is that of the repository's `chip_smoke.py::
 deconv_macs` / `bounds_v3`, extended to the wide generator.
+
+The encoder's forward counts 2 FLOPs a multiply-add, and of each SAME
+stride-s convolution only the products that read inside its input (output
+pixel o and tap m read input s*o + m - lo; the others read the padding),
+then the dense layer.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+from benchmark.reference.classifier import same_pads
+from benchmark.reference.encoder import EncoderShape
 from benchmark.reference.generator import GeneratorShape, transpose_pads
 
 
@@ -53,6 +64,29 @@ def dense_form_flops(shape: GeneratorShape) -> int:
     return 4 * (shape.latent_dim * feat + feat * shape.out_dim)
 
 
-def image_flops(shape: GeneratorShape, restarts: int, iters: int) -> int:
-    """The generator's work to project one image: R restarts x L steps."""
-    return restarts * iters * step_flops(shape)
+def conv_macs(h: int, cin: int, cout: int, k: int = 5, s: int = 2) -> int:
+    """Multiply-adds of one SAME stride-s k x k convolution on an h x h
+    input that read inside it."""
+    lo, _ = same_pads(h, k, s)
+    per_axis = sum(1 for o in range(-(-h // s)) for m in range(k)
+                   if 0 <= s * o + m - lo < h)
+    return per_axis * per_axis * cin * cout
+
+
+def encoder_macs(enc: EncoderShape) -> int:
+    """Multiply-adds of the encoder's forward pass on one image."""
+    hw, cin, macs = enc.image_size, enc.in_channels, 0
+    for c in enc.channels:
+        macs += conv_macs(hw, cin, c, enc.kernel, enc.stride)
+        hw, cin = -(-hw // enc.stride), c
+    return macs + enc.features * enc.z_dim
+
+
+def image_flops(shape: GeneratorShape, restarts: int, iters: int,
+                encoder: Optional[EncoderShape] = None) -> int:
+    """The work to project one image: the generator's R restarts x L
+    steps, and the encoder's forward once where it starts restart 0."""
+    total = restarts * iters * step_flops(shape)
+    if encoder is not None:
+        total += 2 * encoder_macs(encoder)
+    return total

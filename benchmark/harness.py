@@ -2,8 +2,10 @@
 result line.
 
 Set-up (`setup_s`, from the start of run.py): CUDA, the inputs and
-weights made from --seed, the program built and calibrated on the
-configuration's clean calibration images, one request of the cell's
+weights made from --seed (the encoder's too, where the configuration's
+projection starts restart 0 at E(x): check.encoder_of), the program
+built and calibrated on the configuration's clean calibration images,
+one request of the cell's
 traffic as warm-up (the program's kernels are built or loaded at their
 first call, into the checkout's build/kernels/), and in a traced run the
 profiler's own start-up (each phase's seconds are printed on standard
@@ -30,6 +32,7 @@ import torch
 from benchmark import check, flops, spec, synthetic, tracing, weights
 from benchmark.peaks import peak
 from benchmark.reference import classifier as ref_classifier
+from benchmark.reference import encoder as ref_encoder
 from benchmark.reference.generator import weight_shapes
 from benchmark.system import ProgramSystem, Recorder
 
@@ -66,7 +69,7 @@ class Served:
 class RunRecord:
     """What the metrics read (benchmark/metrics/<name>.py: read(run))."""
     setup_s: float
-    image_flops: int            # the generator's work to project an image
+    image_flops: int            # the work to project an image (flops.py)
     peak_bf16: Optional[float]
     requests: List[Dict] = field(default_factory=list)
     trace: Optional[tracing.Trace] = None
@@ -78,22 +81,20 @@ class RunRecord:
 class Inputs:
     """Everything a run hands the program and the reference, from the
     seed: weights, calibration images and draws, the traffic's pool of
-    images and each request's draws."""
+    images and each request's draws. Under encoder init (`encoder`, the
+    encoder's shape, not None) the encoder's weights too, and restart 0 of
+    every table is NaN: the program starts it at its own E(x)."""
 
     def __init__(self, conf: Dict, traffic: Dict, seed: int,
                  device: torch.device):
         self.conf, self.traffic, self.seed = conf, traffic, seed
         self.device = device
         self.shape = check.shape_of(conf)
-        gshapes = weight_shapes(self.shape)
-        w = conf["weights"]
-        if w["kind"] == "export":
-            self.gen_w = weights.from_export(
-                f"{spec.ROOT}/{w['file']}", "generator", device)
-        else:
-            self.gen_w = weights.seeded(gshapes, sub_seed(seed, "gen"),
-                                        device)
-        weights.check_shapes(self.gen_w, gshapes)
+        self.gen_w = self._weights("generator", "gen",
+                                   weight_shapes(self.shape))
+        self.encoder = check.encoder_of(conf)
+        self.enc_w = None if self.encoder is None else self._weights(
+            "encoder", "encoder", ref_encoder.weight_shapes(self.encoder))
         cl = conf["classifier"]
         hw, _, c = conf["image_shape"]
         self.clf_w = weights.seeded(
@@ -108,13 +109,30 @@ class Inputs:
             split="test")[0]
         self.z0_calib = self.table("calibration", calib_n)
 
+    def _weights(self, module: str, tag: str,
+                 shapes: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+        """One module's weights: the export's, or drawn from the seed."""
+        w = self.conf["weights"]
+        if w["kind"] == "export":
+            out = weights.from_export(f"{spec.ROOT}/{w['file']}", module,
+                                      self.device)
+        else:
+            out = weights.seeded(shapes, sub_seed(self.seed, tag),
+                                 self.device)
+        weights.check_shapes(out, shapes)
+        return out
+
     def table(self, tag, n: int) -> torch.Tensor:
-        """The restart draws [n + PAD_ROWS, R, k] of request `tag`."""
+        """The restart draws [n + PAD_ROWS, R, k] of request `tag`; under
+        encoder init restart 0's slot is NaN, not a draw."""
         gen = torch.Generator(device=self.device).manual_seed(
             sub_seed(self.seed, "z0", tag))
-        return torch.randn((n + PAD_ROWS, self.conf["projection"]
-                            ["restarts"], self.shape.latent_dim),
-                           generator=gen, device=self.device)
+        t = torch.randn((n + PAD_ROWS, self.conf["projection"]
+                         ["restarts"], self.shape.latent_dim),
+                        generator=gen, device=self.device)
+        if self.encoder is not None:
+            t[:, 0] = float("nan")
+        return t
 
     def request(self, index) -> Request:
         n = self.traffic["images_per_request"]
@@ -260,7 +278,7 @@ def measure(inputs: Inputs, make_system: Callable, seconds: float,
     record = RunRecord(
         setup_s=marks[-1][1] - t_start,
         image_flops=flops.image_flops(inputs.shape, pr["restarts"],
-                                      pr["iters"]),
+                                      pr["iters"], inputs.encoder),
         peak_bf16=peak_bf16)
     win = Window(inputs, system, recorder, trace, np.random.RandomState(
         sub_seed(inputs.seed, "reservoir") % (2 ** 32)))
@@ -283,7 +301,7 @@ def judge_kept(inputs: Inputs, kept: List[Served], paths: Dict[str, int]):
     numbers, diag = check.reference_numbers(
         inputs.conf, inputs.gen_w, inputs.clf_w,
         torch.as_tensor(inputs.x_calib, device=inputs.device),
-        inputs.z0_calib[:inputs.x_calib.shape[0]], s)
+        inputs.z0_calib[:inputs.x_calib.shape[0]], s, enc_w=inputs.enc_w)
     numbers["path_mismatch"] = sum(
         n for p, n in paths.items() if p != inputs.conf["path"])
     diag["paths"] = dict(paths)
@@ -306,7 +324,7 @@ def run_cell(bench: Dict, cell: Dict, seed: int, seconds: float,
 
     def make_system(recorder):
         return ProgramSystem(conf, inputs.gen_w, inputs.clf_w, device,
-                             recorder)
+                             recorder, inputs.enc_w)
 
     record, kept, recorder = measure(inputs, make_system, seconds, trace,
                                      t_start, peak(name, "bf16_flops"),

@@ -9,6 +9,9 @@ format both sides are handed), never the program's packed forms.
               SAME stride-2 transpose convolutions
   projection  R restarts x L momentum-GD steps on the per-image MSE in
               tanh space, the best restart's G(z*) (Defense-GAN)
+  encoder     the amortized-inversion encoder E(x) that starts restart 0
+              of an encoder-initialised projection (flax SAME
+              convolutions, LeakyReLU, NHWC flatten)
   classifier  model A of the Defense-GAN paper's appendix (flax SAME
               convolutions, NHWC flatten)
   detector    the two-sided reconstruction-error detector

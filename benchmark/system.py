@@ -10,6 +10,18 @@ calls by the projection path that ran, keeps the chunk's result for the
 requests the check samples, and in the traced run opens a profiler range
 around the call.
 
+Encoder init (a configuration whose `projection.init` is "encoder", its
+`encoder` block the encoder's shape): the program's encoder is built as
+DefenseGAN.load builds it (encoder_for(cfg.type, cfg.disc_dim, z_dim=
+cfg.latent_dim, dtype=the program's compute dtype)), held to the stated
+channels, kernel, z_dim, input channels and image size (the last through
+the dense layer's input width; a mismatch raises, as a generator's
+does), loaded with the benchmark's weights (load_flax_tree, then
+weights_changed), and the pipeline is built with rec_init="encoder".
+The draws handed to reconstruct then hold NaN in restart 0: the program
+is to start restart 0 at its own E(x) and restarts 1..R-1 at z0[:, 1:].
+A program that reads the table whole projects NaN and fails the check.
+
 This is the only module of the benchmark that imports the program.
 """
 
@@ -22,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from benchmark import tracing
+from benchmark.check import encoder_of
 from benchmark.spec import ROOT
 
 
@@ -81,16 +94,17 @@ class Recorder:
 class ProgramSystem:
     """DefendedPipeline over a DefenseGAN and classifier holding the
     benchmark's weights, built from the configuration's program_config and
-    program_overrides."""
+    program_overrides; enc_w: the encoder's weights under encoder init."""
 
     def __init__(self, conf: Dict, gen_w: Dict[str, torch.Tensor],
                  clf_w: Dict[str, torch.Tensor], device: torch.device,
-                 recorder: Recorder):
+                 recorder: Recorder,
+                 enc_w: Optional[Dict[str, torch.Tensor]] = None):
         from defensegan_torch.ckpt.bridge import load_flax_tree
         from defensegan_torch.configs import load_config
         from defensegan_torch.defense.pipeline import DefendedPipeline
         from defensegan_torch.gan import DefenseGAN
-        from defensegan_torch.models import build_classifier
+        from defensegan_torch.models import build_classifier, encoder_for
 
         cfg = load_config(os.path.join(ROOT, conf["program_config"]),
                           conf["program_overrides"])
@@ -103,6 +117,21 @@ class ProgramSystem:
             raise ValueError(f"the program built generator {got}, the "
                              f"configuration states {want}")
         load_flax_tree(g, *_nested(gen_w))
+        enc = encoder_of(conf)
+        if enc is not None:
+            e = encoder_for(cfg.type, cfg.disc_dim, z_dim=cfg.latent_dim,
+                            dtype=gan.dtype).to(device).requires_grad_(False)
+            got = dict(channels=list(e.channels), kernel=e.conv_0.k,
+                       z_dim=e.z_dim, in_channels=e.conv_0.weight.shape[1],
+                       features=e.fc_z.weight.shape[1])
+            want = dict(channels=list(enc.channels), kernel=enc.kernel,
+                        z_dim=enc.z_dim, in_channels=enc.in_channels,
+                        features=enc.features)
+            if got != want:
+                raise ValueError(f"the program built encoder {got}, the "
+                                 f"configuration states {want}")
+            load_flax_tree(e, _nested(enc_w)[0])
+            gan.encoder = e
         gan.weights_changed()
         cl = conf["classifier"]
         clf = build_classifier(cl["model"], cl["num_classes"],
@@ -114,7 +143,8 @@ class ProgramSystem:
         pl, pr = conf["pipeline"], conf["projection"]
         self.pipe = DefendedPipeline(
             gan, clf, fpr=pl["fpr"], detector=pl["detector"],
-            rec_rr=pr["restarts"], rec_iters=pr["iters"], rec_lr=pr["lr"])
+            rec_rr=pr["restarts"], rec_iters=pr["iters"], rec_lr=pr["lr"],
+            rec_init=None if enc is None else "encoder")
 
     def calibrate(self, x, z0_fn) -> None:
         self.pipe.calibrate(x, z0_fn=z0_fn)
