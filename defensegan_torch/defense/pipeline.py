@@ -19,7 +19,7 @@ distribution, under the same rec_* settings as serving.
 
 Under a torch.profiler, predict records the spans pipeline.predict (the
 call), pipeline.classify (classifier A on a chunk's x_hat), pipeline.sync
-(a chunk's copies to the host and its restart dispersion) and
+(a chunk's one copy to the host and its restart dispersion) and
 pipeline.detect (the scores and the threshold), around the chunk spans
 of batched_reconstruct (utils/profiling.py::span).
 """
@@ -123,11 +123,18 @@ class DefendedPipeline:
                 pb, mb = self._pred(res.x_hat)
             k = hi - lo
             with span("pipeline.sync"):
-                preds.append(to_numpy(pb, np.int64)[:k])
-                margins.append(to_numpy(mb)[:k])
-                errs.append(to_numpy(res.loss)[:k])
-                disps.append(restart_dispersion(
-                    to_numpy(res.all_losses)[:k], self.dispersion_kind))
+                # one copy to the host a chunk: class, margin, loss and
+                # the restarts' losses side by side (float64 holds each
+                # exactly)
+                host = to_numpy(torch.cat(
+                    [pb[:, None].double(), mb[:, None].double(),
+                     res.loss[:, None].double(), res.all_losses.double()],
+                    dim=1))[:k]
+                preds.append(host[:, 0].astype(np.int64))
+                margins.append(host[:, 1])
+                errs.append(host[:, 2])
+                disps.append(restart_dispersion(host[:, 3:],
+                                                self.dispersion_kind))
         return (np.concatenate(preds), np.concatenate(errs),
                 np.concatenate(margins), np.concatenate(disps))
 

@@ -22,6 +22,7 @@ for its duration.
 
 from __future__ import annotations
 
+import collections
 import os
 import time
 from typing import Dict, Optional, Tuple
@@ -38,19 +39,20 @@ from defensegan_torch.ckpt.checkpoint import (latest_step,
 from defensegan_torch.configs import Config, save_config
 from defensegan_torch.defense.project import (ReconstructionResult,
                                               reconstruct, sample_z0)
-from defensegan_torch.kernels import (dense_kernel_available,
+from defensegan_torch.kernels import (build, dense_kernel_available,
                                       make_dense_int8_reconstructor,
                                       make_dense_reconstructor,
                                       make_s2d_reconstructor,
                                       make_v4_reconstructor,
                                       s2d_kernel_available,
                                       v4_kernel_available)
+from defensegan_torch.kernels.loop import ROW_TILE
 from defensegan_torch.gan.train import (GANState, init_gan_state,
                                         make_data_train_step)
 from defensegan_torch.models import critic_for, encoder_for, \
     from_image_space, generator_for, to_image_space
 from defensegan_torch.utils.misc import append_jsonl, ensure_dir, fold_seed
-from defensegan_torch.utils.profiling import span
+from defensegan_torch.utils.profiling import recording, span
 from defensegan_torch.utils.visualize import save_images
 
 PROJECTION_KERNELS = ("auto", "xla", "packed", "pallas", "pallas_int8",
@@ -173,6 +175,48 @@ def _resolve(gan, *, back_prop: bool = False,
         + (", and 'pallas_v4' serves this one" if v4_ok else ""))
 
 
+class _Graphed:
+    """A reconstruct call's device work captured once as a CUDA graph and
+    replayed, so that the host issues one launch where the eager call
+    issues one an operation (~340 for one image at R 2 and L 50, with
+    the encoder start). Each call copies its x and z0 into the graph's
+    own, and clones the result out of the graph's memory; the library
+    calls each replay makes are added to build.LAUNCHES and build.SLABS,
+    as the eager call adds them."""
+
+    def __init__(self, run, x: torch.Tensor, z0: torch.Tensor):
+        self.x, self.z0 = x.clone(), z0.clone()
+        # one eager run first, on a side stream as capture wants: the
+        # libraries' handles and the kernels' attributes are set outside
+        # the graph
+        here = torch.cuda.current_stream(x.device)
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            run(self.x, self.z0)
+        here.wait_stream(side)
+        before = [collections.Counter(c) for c in (build.LAUNCHES,
+                                                    build.SLABS)]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = run(self.x, self.z0)
+        # the capture ran nothing: its counts are each replay's
+        self.counts = []
+        for counter, old in zip((build.LAUNCHES, build.SLABS), before):
+            delta = counter - old
+            counter.subtract(delta)
+            self.counts.append((counter, delta))
+
+    def __call__(self, x: torch.Tensor, z0: torch.Tensor
+                 ) -> ReconstructionResult:
+        self.x.copy_(x)
+        self.z0.copy_(z0)
+        self.graph.replay()
+        for counter, delta in self.counts:
+            counter.update(delta)
+        return self.out._make(t.clone() for t in self.out)
+
+
 class DefenseGAN:
     """WGAN generator (+ critic for training) + Defense-GAN projection for
     one config."""
@@ -195,6 +239,7 @@ class DefenseGAN:
         self._train_step = None       # late-bound: tests substitute it
         self._train_gen: Optional[torch.Generator] = None
         self._reconstructors: Dict[Tuple, callable] = {}
+        self._graphs: Dict[Tuple, _Graphed] = {}
         # counts the rebinds of the weights (load, restore, train, a new
         # encoder): wrappers that copy them (parallel/serving.py) re-copy
         # when it moves
@@ -205,6 +250,7 @@ class DefenseGAN:
         reconstructors pack the weights they were built on (dropped here),
         and copies of the weights (parallel/serving.py) refresh."""
         self._reconstructors.clear()
+        self._graphs.clear()
         self.weights_version += 1
 
     # ------------------------------------------------------------------ gen
@@ -506,15 +552,26 @@ class DefenseGAN:
 
         gen: torch.Generator for the restart draws (default: seeded with
         cfg.seed + 1 on the model's device). z0 ([B, R, k]) replaces the
-        draws and the encoder init alike. kernel overrides
+        draws. Under init "random" it is projected as given; under
+        "encoder" or "encoder_jitter" too, except that a row whose
+        restart 0 holds a NaN starts that restart at the model's own E(x)
+        (chosen on the device, no host sync). JAX's reconstruct takes no
+        table; its encoder init is the z0=None path. kernel overrides
         cfg.projection_kernel and init cfg.rec_init for this call; the
         path that ran is left in `self.last_kernel`. back_prop=True
         returns a result differentiable with respect to x through the
-        unrolled loop (defense/project.py) on the path the resolver picks
-        for it ('auto' -> 'packed' or 'xla'); otherwise nothing in the
-        result carries gradients. Under a torch.profiler the call is a
-        gan.reconstruct span around the reconstructor's projection.loop
-        and projection.select.
+        unrolled loop (defense/project.py) and through E(x) where the
+        encoder starts a restart, on the path the resolver picks for it
+        ('auto' -> 'packed' or 'xla'); otherwise nothing in the result
+        carries gradients. A call on a fused loop whose rows (B x R) fit
+        one row tile (ROW_TILE), with draws, and without back_prop,
+        replays a CUDA graph of its device work (encoder start, loop,
+        selection), captured at the first call of its shapes and
+        dropped by weights_changed: such a request is launch-bound.
+        Under a torch.profiler every call runs eagerly, so that its spans
+        see each layer: a gan.reconstruct span around projection.encode
+        (the encoder start, when the encoder runs) and the
+        reconstructor's projection.loop and projection.select.
         """
         cfg = self.cfg
         rr = rec_rr if rec_rr is not None else cfg.rec_rr
@@ -531,24 +588,46 @@ class DefenseGAN:
             path, loop = _resolve(self, requested=kernel,
                                   back_prop=back_prop)
             fn = self._reconstructor_for(loop, rr, iters, lr, back_prop)
-            with torch.no_grad():
-                if z0 is None:
-                    if init == "random":
-                        z0 = sample_z0(gen, x.shape[0], rr, cfg.latent_dim)
-                    else:
-                        z0 = self._encoder_z0(x, gen, rr, init)
             self.last_kernel = path
             with torch.set_grad_enabled(back_prop):
-                return fn(x, z0=z0.to(self.device, torch.float32))
+                if z0 is None and init == "random":
+                    z0 = sample_z0(gen, x.shape[0], rr, cfg.latent_dim)
+                if z0 is not None:
+                    z0 = z0.to(self.device, torch.float32)
 
-    def _encoder_z0(self, x, gen, rr: int, mode: str) -> torch.Tensor:
+                def run(x, z0):
+                    if init != "random":
+                        z0 = self._encoder_z0(x, gen, rr, init, z0)
+                    return fn(x, z0=z0)
+
+                if z0 is None or loop not in LOOPS or back_prop or \
+                        x.shape[0] * rr > ROW_TILE or recording():
+                    return run(x, z0)
+                key = (loop, rr, iters, lr, init, x.shape, x.dtype,
+                       z0.shape)
+                if key not in self._graphs:
+                    self._graphs[key] = _Graphed(run, x, z0)
+                return self._graphs[key](x, z0)
+
+    def _encoder_z0(self, x, gen, rr: int, mode: str,
+                    z0: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The encoder start [B, R, k]: with no table, E(x) and the draws
+        of `mode`; with one, the table with E(x) in restart 0 of the rows
+        whose restart 0 holds a NaN. Differentiable through E when the
+        caller enables gradients."""
         from defensegan_torch.defense.encoder_init import encoder_z0
         if self.encoder is None:
             raise RuntimeError(
                 f"rec_init={mode!r} needs a trained encoder in the run's "
                 f"weight export ({self.cfg.output_dir}/export)")
-        return encoder_z0(self.encoder, x, gen, rec_rr=rr, mode=mode,
-                          sigma=self.cfg.encoder_sigma)
+        with span("projection.encode"):
+            if z0 is None:
+                return encoder_z0(self.encoder, x, gen, rec_rr=rr, mode=mode,
+                                  sigma=self.cfg.encoder_sigma)
+            z_enc = self.encoder(from_image_space(x)).to(torch.float32)
+            nan = torch.isnan(z0[:, :1]).any(dim=2, keepdim=True)
+            start = torch.where(nan, z_enc[:, None], z0[:, :1])
+            return torch.cat([start, z0[:, 1:]], dim=1)
 
     def _reconstructor_for(self, loop: str, rr: int, iters: int,
                            lr: float, back_prop: bool = False):

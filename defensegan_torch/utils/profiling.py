@@ -4,10 +4,11 @@ the JAX package's utils/profiling.py).
   - `trace(logdir)`: a torch.profiler scope that writes a Chrome trace
     (chrome://tracing, Perfetto) of everything inside it under logdir;
   - `span(name)`: a named range of the request path (pipeline.predict,
-    batching.chunk, gan.reconstruct, projection.loop, ...), recorded
-    into the trace of whatever torch.profiler is recording, on the
-    clock of its device records, and nested as the calls nest; with no
-    profiler recording it is a shared no-op context;
+    batching.chunk, gan.reconstruct, projection.encode, projection.loop,
+    ...), recorded into the trace of whatever torch.profiler is
+    recording, on the clock of its device records, and nested as the
+    calls nest; with no profiler recording it is a shared no-op context;
+  - `recording()`: whether a torch.profiler records on this thread;
   - `device_rows(prof)`: a finished profile's device work by name (the
     kernels, copies and fills), without the device-side copies of the
     ranges that launched it;
@@ -50,11 +51,17 @@ def trace(logdir: str = "output/traces") -> Iterator[str]:
 _NO_SPAN = contextlib.nullcontext()
 
 
+def recording() -> bool:
+    """Whether a torch.profiler records on this thread (a tenth of a
+    microsecond to ask)."""
+    return torch._C._autograd._profiler_enabled()
+
+
 def span(name: str):
     """A torch.profiler range named `name` while a profiler records (on
     this thread), else a shared no-op context: an idle record_function
     costs tens of microseconds, the check a tenth of one."""
-    if torch._C._autograd._profiler_enabled():
+    if recording():
         return torch.profiler.record_function(name)
     return _NO_SPAN
 
