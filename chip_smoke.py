@@ -37,7 +37,10 @@ entry point graft_entry_torch.py (phase 14):
        a. z_final after L = 1 and L = 5 steps at 512 rows, elementwise
           (v3 and v4 row by row, beside the plain version's own float32
           against float64 drift); and 192-row chunks (the last one short)
-          bit for bit against one chunk; v3's three-launch entry bit for
+          bit for bit against one chunk; v3 and v4 on the first 10 and 64
+          rows alone (the grid convs' one-tile form) bit for bit against
+          the same rows of the 512-row call, each counted under
+          loop.ONE_TILE_COUNTER; v3's three-launch entry bit for
           bit against the fused conv B entry that the deep model runs; v4
           also at L = 1, 128 rows, on celeba_wide.yml and imagenet64.yml;
           v3's three-launch entry at L = 1 and 5, 128 rows, on the deep
@@ -45,7 +48,10 @@ entry point graft_entry_torch.py (phase 14):
        a''. every grid conv of v3 and v4 (the Hopper conv, celeba.yml's
           levels and v3's conv A, forward and backward) on its own at 256
           rows against its plain version, within one bf16 ulp of the
-          output plus one of every rounded tap
+          output plus one of every rounded tap; v3's conv A and v4's
+          first level, both ways, also on the first 10 and 64 of those
+          rows (the one-tile form): the same band, and bit for bit the
+          rows of the 256-row call
        a'''. every product of v2 and v2i (the Hopper GEMM under all four
           loops) on its own at the flagship's shapes and 512 rows, with
           the loop's epilogue, against its plain version: bf16 within
@@ -2454,6 +2460,7 @@ def main() -> int:
         pack_s2d, padded_s2d, s2d_loop_plain, s2d_state)
     from defensegan_torch.kernels.fused_projection_v4 import (
         fused_projection_v4, pack_v4, padded_v4, v4_loop_plain, x_rows)
+    from defensegan_torch.kernels.loop import ONE_TILE_COUNTER
     from defensegan_torch.models import build_classifier, from_image_space
     from defensegan_torch.models.generator import Generator
 
@@ -2635,6 +2642,18 @@ def main() -> int:
                 extra["three_launch_equal"] = bool(torch.equal(z3, zk))
                 ok = ok and extra["three_launch_equal"]
             if name in ROW_WISE:
+                # a request's few rows: the first 10 and 64 rows on their
+                # own (one 64-row call each, its grid convs in the one-tile
+                # form) equal their rows of the 512-row call bit for bit
+                tiles = build.LAUNCHES[ONE_TILE_COUNTER]
+                extra["one_tile_equal"] = all(
+                    bool(torch.equal(kk["run"](kk["pack"], xr[:n], z0[:n],
+                                               **kw), zk[:n]))
+                    for n in (10, 64))
+                extra["one_tile_calls"] = \
+                    build.LAUNCHES[ONE_TILE_COUNTER] - tiles
+                ok = ok and extra["one_tile_equal"] \
+                    and extra["one_tile_calls"] == 2
                 z64 = kk["plain"](kk["pack"], xr, z0,
                                   product_dtype=torch.float64, **kw)
                 c = row_errors(zp, z64, z0)
@@ -2730,7 +2749,10 @@ def main() -> int:
     # conv of csrc/conv3x3_sm90.cuh at celeba.yml's levels, forward and
     # backward, and v3's conv A both ways; 256 rows, seeded activations)
     # against its plain version, within one bf16 ulp of the output plus one
-    # of every rounded tap (conv3x3.rounding_excess <= 0)
+    # of every rounded tap (conv3x3.rounding_excess <= 0); v3's conv A and
+    # v4's first level, both ways, also on the first 10 and 64 of those
+    # rows (the one-tile form, as a request runs them): the same band, and
+    # bit for bit the rows of the 256-row call
     convs = {}
     pp4, pp3 = padded_v4(p4), padded_s2d(p3)
     cases = [("v3_conv_a_forward", "chain", pp3.grid_hw, pp3.ka, pp3.ba, 0,
@@ -2767,6 +2789,25 @@ def main() -> int:
                             max_abs_err=(got.float() - ref.float()).abs()
                             .max().item(), rounding_excess=excess,
                             ok=excess <= 0)
+        if not label.startswith(("v3_conv_a", "v4_level0")):
+            continue
+        for n in (10, 64):
+            part = {key: val[:n].contiguous() if key in ("h", "x") else val
+                    for key, val in kw.items()}
+            tiles = build.LAUNCHES[ONE_TILE_COUNTER]
+            got_n = conv3x3(act[:n].contiguous(), w, gg, mode, **part)
+            torch.cuda.synchronize()
+            calls = build.LAUNCHES[ONE_TILE_COUNTER] - tiles
+            excess_n = rounding_excess(
+                got_n, conv3x3_plain(act[:n].contiguous(), w, gg, mode,
+                                     **part), act[:n], w, gg, mode,
+                in_fine=in_fine, out_fine=out_fine,
+                scale=kw.get("scale", 1.0))
+            equal = bool(torch.equal(got_n, got[:n]))
+            convs[f"{label}_rows{n}"] = dict(
+                rounding_excess=excess_n, equal_rows_of_256=equal,
+                one_tile_calls=calls,
+                ok=excess_n <= 0 and equal and calls == 1)
     emit("grid_convs_vs_plain", **convs)
     if not all(c["ok"] for c in convs.values()):
         fail(f"a grid conv left its rounding band: {convs}")

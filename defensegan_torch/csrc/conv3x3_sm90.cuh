@@ -74,7 +74,8 @@
 // Folding a partial waits for its wgmma group. (Two partial sums taken in
 // turns would fold one tap while the next runs, but at BN 128 they need
 // 192 f32 registers a thread and spill: on an H100 that ran v4's convs 10%
-// slower.)
+// slower. The one-tile form has the registers, but there they ran conv
+// A's backward at 64 rows slower too: 17.98 against 15.49 us a launch.)
 //
 // How the two consumer warpgroups share the tensor cores (Sched):
 //   kCoop      in phase (v3, v4, stream64 and the probes): both read each
@@ -120,6 +121,19 @@
 // kMathOnly the wgmma on whatever the ring holds, no copies (the producer
 // arrives on `full` itself: the issue alone). Only kWhole is a conv.
 //
+// The one-tile form (conv3x3_sm90_one_tile): a conv of M <= kOneTileRows
+// rows (a one-image request's 10 rows, padded to 64) has one m-tile, and
+// in the 128-row form warpgroup 1's rows all lie past M: it would issue
+// every product on TMA's zeros, sharing the tensor cores with the half
+// that counts. There the tile is 64 rows (the A box and each stage's A
+// slab too, so the ring holds 8 stages at BN 128, 12 at BN 64), and the
+// two warpgroups split its BN channels: each takes all 64 rows and 64
+// channels (wgmma m64n64k16 at BN 128). At BN 64 warpgroup 0 takes the
+// whole tile and warpgroup 1 leaves at once. Each output element sees the
+// 128-row form's wgmma sequence, tap sums and roundings, so a row's
+// output does not depend on M. launch_conv3x3 takes the form from M alone,
+// on the cooperative schedule of a whole conv without block skip.
+//
 // Requirements (checked by make_conv3x3 and the Python wrappers): M >= 1
 // (rows past M read zeros and are not stored), cin, cout, in_fine and
 // out_fine multiples of 64, every activation and weight base 16-byte
@@ -149,14 +163,18 @@ __host__ __device__ __forceinline__ int interleaved_offset(int p, int c,
 namespace sm90 {
 
 constexpr int kRingBytes = 192 * 1024;
+constexpr int kOneTileRows = 64;   // M up to this runs as one 64-row tile
 
-template <int BN>
+// kTileM: rows of a tile, kBM or (the one-tile form) kOneTileRows
+template <int BN, int kTileM = kBM>
 struct Ring {
-  static constexpr int kStage = kABytes + (BN / 64) * kBChunk;
-  static constexpr int kStages = kRingBytes / kStage;        // 6 or 8
+  static constexpr int kA = kTileM * kSlabBytes;             // A slab
+  static constexpr int kStage = kA + (BN / 64) * kBChunk;
+  static constexpr int kStages = kRingBytes / kStage;  // 6 or 8; 8 or 12
   // + barriers, + 1 KB to align the ring to the 128-byte swizzle's atom
   static constexpr int kSmem = kStages * kStage + 16 * kStages + 1024;
   static_assert(kSmem <= 227 * 1024, "dynamic shared memory limit");
+  static_assert(kStage % 1024 == 0, "stages on the swizzle's atom");
 };
 
 // The tile at position t of the walk: (m-tile, pixel rank, n-tile), the
@@ -202,19 +220,26 @@ __device__ __forceinline__ void gate_arrive(int id) {
                : "memory");
 }
 
-template <int BN, TapSum kSum, bool kBackward, typename Epi,
-          Sched kSched = kCoop, Probe kProbe = kWhole, bool kBlockSkip = false>
-__global__ void __launch_bounds__(kThreads, 1)
-    conv3x3_sm90(const __grid_constant__ CUtensorMap map_in,
-                 const __grid_constant__ CUtensorMap map_w,
-                 const float* __restrict__ masks,
-                 const int* __restrict__ order, int M, int g, int n_walk,
-                 int cin, int cout, int in_fine, int out_fine, Epi epi,
-                 const unsigned* __restrict__ zero) {
+// The kernel's body, for both forms (kOneTile: the one-tile form).
+template <int BN, TapSum kSum, bool kBackward, typename Epi, Sched kSched,
+          Probe kProbe, bool kBlockSkip, bool kOneTile>
+__device__ __forceinline__ void conv_tiles(
+    const CUtensorMap& map_in, const CUtensorMap& map_w,
+    const float* __restrict__ masks, const int* __restrict__ order, int M,
+    int g, int n_walk, int cin, int cout, int in_fine, int out_fine,
+    const Epi& epi, const unsigned* __restrict__ zero) {
   static_assert(!kBlockSkip || kSched == kCoop,
                 "block skip runs on the cooperative schedule");
-  using R = Ring<BN>;
-  constexpr int kRegs = BN / 2;        // f32 sums per thread of 64 x BN
+  static_assert(!kOneTile || (kSched == kCoop && kProbe == kWhole &&
+                              !kBlockSkip),
+                "the one-tile form is a whole conv on the cooperative "
+                "schedule");
+  using R = Ring<BN, kOneTile ? kOneTileRows : kBM>;
+  // the channels a warpgroup computes (the one-tile form splits them) and
+  // the warpgroups that compute
+  constexpr int kWN = kOneTile && BN == 128 ? 64 : BN;
+  constexpr int kWorkers = kOneTile && BN == 64 ? 1 : kConsumers;
+  constexpr int kRegs = kWN / 2;       // f32 sums per thread of 64 x kWN
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = ring + R::kStages * R::kStage;
@@ -229,7 +254,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < R::kStages; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), kConsumers);
+      mbar_init(empty(s), kWorkers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -273,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load(sa, &map_in, full(stage), col, tile.m0);
 #pragma unroll
           for (int h = 0; h < BN / 64; ++h)
-            tma_load(sa + kABytes + h * kBChunk, &map_w, full(stage),
+            tma_load(sa + R::kA + h * kBChunk, &map_w, full(stage),
                      tile.n0 + 64 * h, k * cin + k0);
           if (++stage == R::kStages) {
             stage = 0;
@@ -283,8 +308,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else {
-    // ---- consumers: rows [64*wg, 64*wg + 64) of every tile
+    // ---- consumers: rows [64*wg, 64*wg + 64) of every tile; in the
+    // one-tile form its 64 rows, channels [kWN*wg, kWN*wg + kWN)
+    if (wg >= kWorkers) return;
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int row0 = kOneTile ? 0 : 64 * wg;     // of the warpgroup's rows
+    const int wn0 = kOneTile ? kWN * wg : 0;     // of its channels
     const int warp = (threadIdx.x & 127) >> 5;
     const int lane = threadIdx.x & 31;
     const bool signals = (threadIdx.x & 127) == 0;
@@ -322,14 +351,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       // thread (warp, lane) holds rows 16*warp + lane/4 (+ 8) and, per
       // 8-column block j, columns 8j + 2*(lane % 4) (+ 1)
       auto row_of = [&]() {
-        return tile.m0 + 64 * wg + 16 * warp + (lane >> 2);
+        return tile.m0 + row0 + 16 * warp + (lane >> 2);
       };
       // bring the lines the epilogue reads (h, x) into L2 while the taps
       // run: one 128-byte line per 64 channels of a row
       if constexpr (Epi::kReads) {
-        if ((lane & 3) < BN / 64) {
+        if ((lane & 3) < kWN / 64) {
           const int row = row_of();
-          const int c0 = tile.n0 + 64 * (lane & 3);
+          const int c0 = tile.n0 + wn0 + 64 * (lane & 3);
           if (row < M) epi.prefetch(row, c0, offset_of(c0));
           if (row + 8 < M) epi.prefetch(row + 8, c0, offset_of(c0));
         }
@@ -375,13 +404,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
             for (int kk = 0; kk < kBK / 16; ++kk) {
               const uint64_t da = sw128_desc(
-                  sa + wg * (kABytes / 2) + kk * 32, 16, 1024);
-              const uint64_t db =
-                  sw128_desc(sa + kABytes + kk * 16 * 128, kBChunk, 1024);
+                  sa + row0 * kSlabBytes + kk * 32, 16, 1024);
+              const uint64_t db = sw128_desc(
+                  sa + R::kA + (wn0 / 64) * kBChunk + kk * 16 * 128, kBChunk,
+                  1024);
               if constexpr (kSum == kChain) {
-                Wgmma<BN>::mma(acc, da, db, (tap | s | kk) != 0);
+                Wgmma<kWN>::mma(acc, da, db, (tap | s | kk) != 0);
               } else {
-                Wgmma<BN>::mma(part, da, db, (s | kk) != 0);
+                Wgmma<kWN>::mma(part, da, db, (s | kk) != 0);
               }
             }
             wgmma_commit();
@@ -427,13 +457,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       fence_regs(acc);
-      int offset[BN / 64];
+      int offset[kWN / 64];
 #pragma unroll
-      for (int h = 0; h < BN / 64; ++h) offset[h] = offset_of(tile.n0 + 64 * h);
+      for (int h = 0; h < kWN / 64; ++h)
+        offset[h] = offset_of(tile.n0 + wn0 + 64 * h);
       const int row = row_of();
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int c = tile.n0 + 8 * j + 2 * (lane & 3);
+      for (int j = 0; j < kWN / 8; ++j) {
+        const int c = tile.n0 + wn0 + 8 * j + 2 * (lane & 3);
         if (row < M) epi(row, c, offset[j / 8], acc[4 * j], acc[4 * j + 1]);
         if (row + 8 < M)
           epi(row + 8, c, offset[j / 8], acc[4 * j + 2], acc[4 * j + 3]);
@@ -442,15 +473,46 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+template <int BN, TapSum kSum, bool kBackward, typename Epi,
+          Sched kSched = kCoop, Probe kProbe = kWhole, bool kBlockSkip = false>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3x3_sm90(const __grid_constant__ CUtensorMap map_in,
+                 const __grid_constant__ CUtensorMap map_w,
+                 const float* __restrict__ masks,
+                 const int* __restrict__ order, int M, int g, int n_walk,
+                 int cin, int cout, int in_fine, int out_fine, Epi epi,
+                 const unsigned* __restrict__ zero) {
+  conv_tiles<BN, kSum, kBackward, Epi, kSched, kProbe, kBlockSkip, false>(
+      map_in, map_w, masks, order, M, g, n_walk, cin, cout, in_fine,
+      out_fine, epi, zero);
+}
+
+// The one-tile form: a kernel of its own name, so that a device trace
+// tells it from the 128-row form. map_in: 64-row A boxes.
+template <int BN, TapSum kSum, bool kBackward, typename Epi>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3x3_sm90_one_tile(const __grid_constant__ CUtensorMap map_in,
+                          const __grid_constant__ CUtensorMap map_w,
+                          const float* __restrict__ masks,
+                          const int* __restrict__ order, int M, int g,
+                          int n_walk, int cin, int cout, int in_fine,
+                          int out_fine, Epi epi,
+                          const unsigned* __restrict__ zero) {
+  conv_tiles<BN, kSum, kBackward, Epi, kCoop, kWhole, false, true>(
+      map_in, map_w, masks, order, M, g, n_walk, cin, cout, in_fine,
+      out_fine, epi, zero);
+}
+
 }  // namespace sm90
 
 // ---- host side: tensor maps and launch
 
 // One grid conv, its tensor maps encoded once: an A map over the input
-// activation [M, g*g*cin] (128 x 64 boxes) and a B map over the weights
-// [9*cin, cout] (64 x 64 boxes), both 128-byte swizzled.
+// activation [M, g*g*cin] (128 x 64 boxes; in_one, where M <=
+// kOneTileRows: 64 x 64 boxes, the one-tile form's) and a B map over the
+// weights [9*cin, cout] (64 x 64 boxes), all 128-byte swizzled.
 struct Conv3x3 {
-  CUtensorMap in, w;
+  CUtensorMap in, in_one, w;
   const float* masks;   // [gy*g, 9] f32 0/1
   const int* order;     // [n_walk] pixels, 9 taps first (block skip:
                         // by issued slabs)
@@ -488,31 +550,58 @@ inline cudaError_t make_conv3x3(Conv3x3* c, const bf16* in, const bf16* w,
   c->in_fine = in_fine;
   c->out_fine = out_fine;
   cudaError_t e = encode_map(&c->in, in, 2, M, gy * g * cin, sm90::kBM);
+  if (e == cudaSuccess && M <= sm90::kOneTileRows)
+    e = encode_map(&c->in_one, in, 2, M, gy * g * cin, sm90::kOneTileRows);
   if (e != cudaSuccess) return e;
   return encode_map(&c->w, w, 2, 9 * cin, cout, sm90::kBK);
 }
 
-template <int BN, TapSum kSum, bool kBackward, typename Epi, Sched kSched,
-          Probe kProbe, bool kBlockSkip>
-inline cudaError_t launch_conv3x3_bn(const Conv3x3& c, Epi epi,
-                                     cudaStream_t stream) {
-  using R = sm90::Ring<BN>;
+// Launches one form's kernel over the conv's tiles (as many blocks as
+// tiles, at most one per SM), its dynamic shared memory set first.
+template <typename R, typename Kernel, typename Epi>
+inline cudaError_t launch_tiles(Kernel kernel, const CUtensorMap& in,
+                                const Conv3x3& c, int bn, Epi epi,
+                                cudaStream_t stream) {
   // set on every launch: a function-static "done" flag here would be one
   // object per process (a static local of an inline function), shared by
   // the v3 and v4 libraries, each of which registers its own kernel
   cudaError_t e = cudaFuncSetAttribute(
-      sm90::conv3x3_sm90<BN, kSum, kBackward, Epi, kSched, kProbe,
-                         kBlockSkip>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
   if (e != cudaSuccess) return e;
   const int tiles =
-      ((c.M + sm90::kBM - 1) / sm90::kBM) * c.n_walk * (c.cout / BN);
+      ((c.M + sm90::kBM - 1) / sm90::kBM) * c.n_walk * (c.cout / bn);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  sm90::conv3x3_sm90<BN, kSum, kBackward, Epi, kSched, kProbe, kBlockSkip>
-      <<<grid, sm90::kThreads, R::kSmem, stream>>>(
-          c.in, c.w, c.masks, c.order, c.M, c.g, c.n_walk, c.cin, c.cout,
-          c.in_fine, c.out_fine, epi, c.zero);
+  kernel<<<grid, sm90::kThreads, R::kSmem, stream>>>(
+      in, c.w, c.masks, c.order, c.M, c.g, c.n_walk, c.cin, c.cout,
+      c.in_fine, c.out_fine, epi, c.zero);
   return cudaGetLastError();
+}
+
+// Launches of the one-tile form this library's host code has made (one
+// count a library: internal linkage), read by fp_one_tile_launches; the
+// Python wrappers count a call whose convs took the form from it.
+static long long one_tile_launches = 0;
+
+extern "C" long long fp_one_tile_launches() { return one_tile_launches; }
+
+// The form by M: one 64-row tile where M <= kOneTileRows (a whole conv on
+// the cooperative schedule, no block skip), else 128-row tiles.
+template <int BN, TapSum kSum, bool kBackward, typename Epi, Sched kSched,
+          Probe kProbe, bool kBlockSkip>
+inline cudaError_t launch_conv3x3_bn(const Conv3x3& c, Epi epi,
+                                     cudaStream_t stream) {
+  if constexpr (kSched == kCoop && kProbe == kWhole && !kBlockSkip) {
+    if (c.M <= sm90::kOneTileRows) {
+      ++one_tile_launches;
+      return launch_tiles<sm90::Ring<BN, sm90::kOneTileRows>>(
+          sm90::conv3x3_sm90_one_tile<BN, kSum, kBackward, Epi>, c.in_one,
+          c, BN, epi, stream);
+    }
+  }
+  return launch_tiles<sm90::Ring<BN>>(
+      sm90::conv3x3_sm90<BN, kSum, kBackward, Epi, kSched, kProbe,
+                         kBlockSkip>,
+      c.in, c, BN, epi, stream);
 }
 
 // kSum: how the taps are summed; a backward conv (kBackward) rounds each

@@ -186,6 +186,8 @@ class _Graphed:
 
     def __init__(self, run, x: torch.Tensor, z0: torch.Tensor):
         self.x, self.z0 = x.clone(), z0.clone()
+        counters = (build.LAUNCHES, build.SLABS)
+        start = [collections.Counter(c) for c in counters]
         # one eager run first, on a side stream as capture wants: the
         # libraries' handles and the kernels' attributes are set outside
         # the graph
@@ -195,17 +197,16 @@ class _Graphed:
         with torch.cuda.stream(side):
             run(self.x, self.z0)
         here.wait_stream(side)
-        before = [collections.Counter(c) for c in (build.LAUNCHES,
-                                                    build.SLABS)]
+        before = [collections.Counter(c) for c in counters]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.out = run(self.x, self.z0)
-        # the capture ran nothing: its counts are each replay's
+        # the capture's counts are each replay's; neither it nor the
+        # warm-up run is the call's work (its replay, below, is)
         self.counts = []
-        for counter, old in zip((build.LAUNCHES, build.SLABS), before):
-            delta = counter - old
-            counter.subtract(delta)
-            self.counts.append((counter, delta))
+        for counter, old, first in zip(counters, before, start):
+            self.counts.append((counter, counter - old))
+            counter.subtract(counter - first)
 
     def __call__(self, x: torch.Tensor, z0: torch.Tensor
                  ) -> ReconstructionResult:

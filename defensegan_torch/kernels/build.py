@@ -16,7 +16,9 @@ The launch counters live here too: each kernel wrapper adds one to
 run can show that its main path went through the kernels. `SLABS` beside
 it counts the K slabs v2's two D products issue (`<product>.issued`) and
 those a dense walk would issue (`<product>.dense`), products `h@D` and
-`do@Dt`: their ratio is how far the slab lists cut the walk.
+`do@Dt`: their ratio is how far the slab lists cut the walk. A library
+with grid convs also counts the convs it launched in their one-tile form
+(csrc/conv3x3_sm90.cuh), which `one_tile_launches` reads.
 """
 
 from __future__ import annotations
@@ -123,8 +125,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(library_path(name))
         lib.fp_error_string.restype = ctypes.c_char_p
         lib.fp_error_string.argtypes = [ctypes.c_int]
+        if hasattr(lib, "fp_one_tile_launches"):
+            lib.fp_one_tile_launches.restype = ctypes.c_longlong
         _LIBS[name] = lib
     return lib
+
+
+def one_tile_launches(lib: ctypes.CDLL) -> int:
+    """The grid convs the library has launched in their one-tile form
+    (csrc/conv3x3_sm90.cuh takes it where M <= 64); 0 for a library
+    without grid convs."""
+    if not hasattr(lib, "fp_one_tile_launches"):
+        return 0
+    return lib.fp_one_tile_launches()
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

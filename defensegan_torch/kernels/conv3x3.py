@@ -6,8 +6,9 @@ launches one of them alone, through the v4 library's entry `fp_conv3x3`,
 so that a test can hold the conv against a reference at each edge of its
 design: the border taps of a small grid, the out level's 64 lanes, runs of
 an interleave narrower than a tile, a row count that the 128-row tile does
-not divide, and each way of summing the taps. On a CPU tensor it runs
-`conv3x3_plain`, which rounds where the kernel rounds.
+not divide, the one-tile form of at most 64 rows (counted under
+loop.ONE_TILE_COUNTER besides), and each way of summing the taps. On a
+CPU tensor it runs `conv3x3_plain`, which rounds where the kernel rounds.
 
 Layouts are the loops' own: an activation is [M, g*g*C], latent-major and
 flat in (pixel, channel) order, in fine order where it is interleaved
@@ -36,6 +37,7 @@ from defensegan_torch.kernels.fused_projection_v4 import (grid_conv,
                                                           interleave_perm)
 from defensegan_torch.kernels.grid import (bf16_round, pixel_order,
                                            tap_masks, tap_offsets)
+from defensegan_torch.kernels.loop import ONE_TILE_COUNTER
 
 MODES = {"chain": 0, "per_tap": 1, "tanh_grad": 2, "backward": 3}
 LIBRARY = "fused_projection_v4"      # the library that holds fp_conv3x3
@@ -144,6 +146,7 @@ def conv3x3(inp: torch.Tensor, w: torch.Tensor, g: int, mode: str, *,
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    tiles = build.one_tile_launches(lib)
     with torch.cuda.device(dev):      # the library uses the current device
         rc = fn(inp.data_ptr(), w.data_ptr(),
                 None if b is None else b.data_ptr(), masks.data_ptr(),
@@ -153,6 +156,8 @@ def conv3x3(inp: torch.Tensor, w: torch.Tensor, g: int, mode: str, *,
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, "conv3x3")
     build.LAUNCHES[COUNTER] += 1
+    if build.one_tile_launches(lib) > tiles:
+        build.LAUNCHES[ONE_TILE_COUNTER] += 1
     return out
 
 

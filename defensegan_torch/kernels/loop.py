@@ -25,6 +25,8 @@ ROW_TILE = 64        # rows are padded to, and chunks cut at, multiples of
 COL_TILE = 64        # the kernels' widths are multiples of this (a GEMM
                      # epilogue's warp covers 64 columns of a row)
 SCRATCH_CAP = 1 << 30  # bytes of per-row scratch in one call
+ONE_TILE_COUNTER = "conv3x3_one_tile"   # build.LAUNCHES key of the calls
+                     # whose grid convs ran as one 64-row tile
 
 
 def round_up(n: int, m: int) -> int:
@@ -87,9 +89,11 @@ def run_loop(state: LoopState, x_pad: torch.Tensor, z0_flat: torch.Tensor,
     x_pad: the targets in the kernel's layout, [N, .]; z0_flat: [N, k]
     float32. Rows are zero-padded up to a multiple of ROW_TILE and cropped
     after. They run in chunks of `chunk` rows (`default_chunk` when None),
-    one library call (all L steps) each, counted in build.LAUNCHES. Under
-    a torch.profiler the fills, the targets' row padding and the library
-    calls are a projection.loop span.
+    one library call (all L steps) each, counted in build.LAUNCHES (and
+    under ONE_TILE_COUNTER where the library reports that its grid convs
+    took the one-tile form).
+    Under a torch.profiler the fills, the targets' row padding and the
+    library calls are a projection.loop span.
     """
     dev = z0_flat.device
     if dev.type != "cuda":
@@ -126,12 +130,15 @@ def run_loop(state: LoopState, x_pad: torch.Tensor, z0_flat: torch.Tensor,
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             for lo in range(0, rows, m):
+                tiles = build.one_tile_launches(lib)
                 rc = fn(z[lo].data_ptr(), v[lo].data_ptr(),
                         x[lo].data_ptr(), *ptrs, min(m, rows - lo),
                         *state.dims, rec_iters, rec_lr, momentum,
                         2.0 / state.out_dim, stream)
                 build.check(lib, rc, state.entry)
                 build.LAUNCHES[state.counter or state.library] += 1
+                if build.one_tile_launches(lib) > tiles:
+                    build.LAUNCHES[ONE_TILE_COUNTER] += 1
         return z[:n, :k]
 
 

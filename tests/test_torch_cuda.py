@@ -41,8 +41,9 @@ from defensegan_torch.experiments.v3_ilp import (CONV_COUNTER, conv_a,
 from defensegan_torch.experiments.v3_packed import run_packed
 from defensegan_torch.experiments.v3_variants import VARIANTS
 from defensegan_torch.kernels import build
-from defensegan_torch.kernels.conv3x3 import (COUNTER, conv3x3, conv3x3_plain,
-                                              rounding_excess, to_fine)
+from defensegan_torch.kernels.conv3x3 import (COUNTER, MODES, conv3x3,
+                                              conv3x3_plain, rounding_excess,
+                                              to_fine)
 from defensegan_torch.kernels.fused_projection_v2 import (
     dense_loop_plain, fused_projection_dense, pack_dense, pad_targets)
 from defensegan_torch.kernels.fused_projection_v2i import (
@@ -55,6 +56,7 @@ from defensegan_torch.kernels.fused_projection_v4 import (
 from defensegan_torch.kernels.gemm import COUNTER as GEMM_COUNTER
 from defensegan_torch.kernels.gemm import gemm, gemm_plain, split_k_for
 from defensegan_torch.kernels.gemm import rounding_excess as gemm_excess
+from defensegan_torch.kernels.loop import ONE_TILE_COUNTER
 from defensegan_torch.models.generator import Generator, generator_for
 
 LR, MOM = 10.0, 0.7
@@ -152,9 +154,13 @@ def test_kernel_pads_rows_and_chunks_exactly(cuda_device, name):
     kw = dict(rec_iters=5, rec_lr=LR, momentum=MOM)
     before = build.LAUNCHES[key]
     one = run(pack, x, z0, **kw)
+    one_tile_before = build.LAUNCHES[ONE_TILE_COUNTER]
     chunked = run(pack, x, z0, chunk=64, **kw)
     torch.cuda.synchronize()
     assert build.LAUNCHES[key] == before + 1 + 4   # 256 padded rows
+    # v3's 64-row chunks run conv A in the one-tile form
+    assert build.LAUNCHES[ONE_TILE_COUNTER] == one_tile_before + \
+        (4 if name.startswith("fused_projection_v3") else 0)
     assert one.shape == (200, 32) and torch.equal(one, chunked)
     ref = plain(pack, _targets(base, x), z0, **kw)
     moved = (ref - z0).abs().max().item()
@@ -229,9 +235,12 @@ def test_v4_kernel_pads_rows_and_chunks_exactly(cuda_device, topology):
     kw = dict(rec_iters=5, rec_lr=LR, momentum=MOM)
     before = build.LAUNCHES[V4]
     one = fused_projection_v4(pack, x, z0, **kw)
+    one_tile_before = build.LAUNCHES[ONE_TILE_COUNTER]
     chunked = fused_projection_v4(pack, x, z0, chunk=64, **kw)
     torch.cuda.synchronize()
     assert build.LAUNCHES[V4] == before + 1 + 4     # 256 padded rows
+    # 64-row chunks run the levels in the one-tile form
+    assert build.LAUNCHES[ONE_TILE_COUNTER] == one_tile_before + 4
     assert one.shape == (200, 32) and torch.equal(one, chunked)
     rel = _row_rel(one, v4_loop_plain(pack, x, z0, **kw), z0)
     assert rel.median().item() <= TOL[5] and rel.max().item() <= 1e-1
@@ -347,7 +356,32 @@ CONV_EDGES = {
     "backward_one_slab_per_tap": ("backward", 16, 64, 256, 0, 0, 64),
     "backward_n64_cout_192": ("backward", 16, 384, 192, 0, 0, 192),
     "g7_backward_rows_192": ("backward", 7, 256, 128, 0, 0, 192),
+    # the one-tile form (64-row tiles, the channels split between the
+    # warpgroups; at the out level's n64 one warpgroup)
+    "g7_chain_one_tile_rows_10": ("chain", 7, 128, 256, 0, 0, 10),
+    "one_tile_per_tap_interleaved_out": ("per_tap", 8, 256, 512, 0, 128, 64),
+    "out_level_n64_one_tile": ("tanh_grad", 16, 256, 64, 0, 0, 64),
 }
+
+
+def _conv_inputs(dev, mode, g, cin, cout, in_fine, m, seed):
+    """Seeded inputs of one grid conv: (input in fine order where
+    in_fine, weights, the mode's keywords)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=dev,
+                                    generator=gen)).to(bf)
+    blocked_in = rand(m, g * g * cin)
+    w = rand(9 * cin, cout, scale=cin ** -0.5)
+    kw = dict(bias=torch.randn(cout, device=dev, generator=gen))
+    if mode == "tanh_grad":
+        kw.update(x=torch.tanh(rand(m, g * g * cout).float()).to(bf),
+                  scale=0.25)
+    if mode == "backward":
+        kw = dict(h=rand(m, g * g * cout))
+    return to_fine(blocked_in, g, in_fine).contiguous(), w, kw
 
 
 @pytest.mark.cuda
@@ -361,22 +395,10 @@ def test_conv3x3_kernel_matches_plain(cuda_device, case):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mode, g, cin, cout, in_fine, out_fine, m = CONV_EDGES[case]
-    gen = torch.Generator(device=cuda_device).manual_seed(len(case))
-    bf = torch.bfloat16
-
-    def rand(*shape, scale=1.0):
-        return (scale * torch.randn(*shape, device=cuda_device,
-                                    generator=gen)).to(bf)
-    blocked_in = rand(m, g * g * cin)
-    w = rand(9 * cin, cout, scale=cin ** -0.5)
-    kw = dict(bias=torch.randn(cout, device=cuda_device, generator=gen))
-    if mode == "tanh_grad":
-        kw.update(x=torch.tanh(rand(m, g * g * cout).float()).to(bf),
-                  scale=0.25)
+    inp, w, kw = _conv_inputs(cuda_device, mode, g, cin, cout, in_fine, m,
+                              seed=len(case))
     if mode == "backward":
-        kw = dict(h=rand(m, g * g * cout))
         h_before = kw["h"].clone()
-    inp = to_fine(blocked_in, g, in_fine).contiguous()
     before = build.LAUNCHES[COUNTER]
     got = conv3x3(inp, w, g, mode, in_fine=in_fine, out_fine=out_fine, **kw)
     torch.cuda.synchronize()
@@ -389,6 +411,73 @@ def test_conv3x3_kernel_matches_plain(cuda_device, case):
     assert (got != 0).float().mean() > 0.2        # not an empty output
     if mode == "backward":
         assert torch.equal(kw["h"], h_before)       # the wrapper's copy
+
+
+# ---- the one-tile form (csrc/conv3x3_sm90.cuh, conv3x3_sm90_one_tile) of
+# a conv of at most 64 rows against the same rows inside a 256-row call
+# (two 128-row tiles): every element sees the same wgmma sequence, so they
+# are equal bit for bit, in every mode of kernels/conv3x3.py
+ONE_TILE_WIDTHS = {
+    # g, cin, cout, in_fine, out_fine
+    "conv_a_forward": (7, 128, 256, 0, 0),
+    "conv_a_backward": (7, 256, 128, 0, 0),
+    "v4_level_interleaved_out": (8, 256, 512, 0, 128),
+    "out_level_n64": (16, 256, 64, 0, 0),
+}
+# the tanh gradient and the backward write blocked order only
+ONE_TILE_CASES = [(mode, widths) for mode in MODES
+                  for widths, (*_, out_fine) in ONE_TILE_WIDTHS.items()
+                  if not (out_fine and mode in ("tanh_grad", "backward"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [10, 64])
+@pytest.mark.parametrize("mode, widths", ONE_TILE_CASES)
+def test_conv3x3_one_tile_equals_the_128_row_form_bit_for_bit(
+        cuda_device, mode, widths, rows):
+    g, cin, cout, in_fine, out_fine = ONE_TILE_WIDTHS[widths]
+    inp, w, kw = _conv_inputs(cuda_device, mode, g, cin, cout, in_fine, 256,
+                              seed=len(widths) + rows)
+    fine = dict(in_fine=in_fine, out_fine=out_fine)
+    before = build.LAUNCHES[ONE_TILE_COUNTER]
+    whole = conv3x3(inp, w, g, mode, **fine, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[ONE_TILE_COUNTER] == before     # 128-row tiles
+    part = {k: v[:rows].contiguous() if k in ("x", "h") else v
+            for k, v in kw.items()}
+    got = conv3x3(inp[:rows].contiguous(), w, g, mode, **fine, **part)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[ONE_TILE_COUNTER] == before + 1
+    assert (got != 0).float().mean() > 0.2
+    assert torch.equal(got, whole[:rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [10, 64, 65, 128])
+def test_one_tile_count_names_the_kernel_the_card_runs(cuda_device, rows):
+    """The one-tile form runs exactly where M <= 64, and ONE_TILE_COUNTER
+    counts a call exactly where it ran: a conv's device trace names the
+    one-tile kernel where the count moves. The profiler can drop a kernel
+    record from a window, so a window without one is profiled again."""
+    g, cin, cout, _, _ = ONE_TILE_WIDTHS["conv_a_forward"]
+    inp, w, kw = _conv_inputs(cuda_device, "chain", g, cin, cout, 0, rows,
+                              seed=rows)
+    conv3x3(inp, w, g, "chain", **kw)               # build and warm up
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):
+        before = build.LAUNCHES[ONE_TILE_COUNTER]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            conv3x3(inp, w, g, "chain", **kw)
+            torch.cuda.synchronize()
+        counted = build.LAUNCHES[ONE_TILE_COUNTER] - before
+        names = [e.name for e in prof.events() if "conv3x3_sm90" in e.name]
+        if names:
+            break
+    assert len(names) == 1, names
+    assert counted == (rows <= 64)
+    assert ("conv3x3_sm90_one_tile" in names[0]) == (rows <= 64), names
 
 
 # ---- the Hopper GEMM on its own (csrc/gemm_sm90.cuh through

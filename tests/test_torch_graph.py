@@ -86,18 +86,20 @@ def _assert_equal(got, want):
 def test_graph_replay_matches_eager(cuda_device, tmp_path, case):
     """Two calls of one shape: the first captures, both replay. Each
     equals the eager call bit for bit (the first's result survives the
-    second's replay), and a replay adds a call's library launches to
-    build.LAUNCHES as the eager call does."""
+    second's replay), and each call adds its library launches to
+    build.LAUNCHES as the eager call does (the first call's warm-up run
+    and capture add none)."""
     dataset, arch, init = CASES[case]
     gan = _gan(cuda_device, tmp_path, dataset, arch)
     a = _inputs(gan, 3, 0, init)
     b = _inputs(gan, 3, 1, init)
-    got_a = gan.reconstruct(a[0], z0=a[1], init=init)
+    got_a, captured = _launches(
+        lambda: gan.reconstruct(a[0], z0=a[1], init=init))
     got_b, replayed = _launches(
         lambda: gan.reconstruct(b[0], z0=b[1], init=init))
     assert len(gan._graphs) == 1
     want_b, eager = _launches(lambda: _eager(gan, *b, init))
-    assert replayed == eager and sum(eager.values()) > 0
+    assert replayed == eager == captured and sum(eager.values()) > 0
     _assert_equal(got_a, _eager(gan, *a, init))
     _assert_equal(got_b, want_b)
     assert torch.isfinite(got_b.x_hat).all()

@@ -11,6 +11,7 @@ list is held against its C entry's parameters, read from the source.
 
 import ctypes
 import pathlib
+import re
 import sys
 import types
 
@@ -133,3 +134,41 @@ def test_default_chunk_keeps_the_scratch_under_its_cap(scratch, rows):
     row_bytes = sum(c * dt.itemsize for c, dt in scratch)
     assert rows % loop.ROW_TILE == 0
     assert rows * row_bytes <= loop.SCRATCH_CAP or rows == loop.ROW_TILE
+
+
+
+# the grid convs' one-tile form (csrc/conv3x3_sm90.cuh): the library that
+# launched them reports it, and run_loop counts a call under
+# loop.ONE_TILE_COUNTER from that report
+def _sources(source: str) -> set:
+    """The source and every csrc header it includes, transitively."""
+    seen, todo = set(), [source]
+    while todo:
+        name = todo.pop()
+        if name not in seen:
+            seen.add(name)
+            text = (pathlib.Path(build.CSRC) / name).read_text()
+            todo += re.findall(r'#include "([\w.]+)"', text)
+    return seen
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_a_loop_with_grid_convs_reports_their_one_tile_form(name):
+    """v3's and v4's libraries hold the grid conv, and with it the count
+    fp_one_tile_launches that run_loop reads; v2's and v2i's hold
+    neither, so their calls are never counted under ONE_TILE_COUNTER."""
+    sources = _sources(f"fused_projection_{name}.cu")
+    entries = {e for s in sources for e in c_signatures(s)}
+    convs = name in ("v3", "v4")
+    assert ("conv3x3_sm90.cuh" in sources) == convs
+    assert ("fp_one_tile_launches" in entries) == convs
+
+
+def test_one_tile_launches_reads_the_library_report():
+    """build.one_tile_launches returns the library's own count, typed as
+    the C side declares it, and 0 for a library without grid convs."""
+    assert c_signatures("conv3x3_sm90.cuh")["fp_one_tile_launches"] == \
+        (ctypes.c_longlong, [])
+    assert build.one_tile_launches(
+        types.SimpleNamespace(fp_one_tile_launches=lambda: 7)) == 7
+    assert build.one_tile_launches(types.SimpleNamespace()) == 0
